@@ -1,0 +1,79 @@
+"""Procedural demo objects and inputs (the port's copy of `_sphere_mesh`,
+`_demo_specs` and `_make_inputs` in the repo's `__graft_entry__.py`).
+
+Two UV-spheres (5 cm and 7.5 cm radius, the second with a continuous
+symmetry) and seeded random images/intrinsics/poses, as numpy arrays, so the
+JAX package and the port can be fed identical inputs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.pose_predictor import PosePredictor
+from .ops.mesh_db import MeshSpec
+
+
+def sphere_mesh(n_theta: int = 24, n_phi: int = 48, radius: float = 0.05):
+    """UV-sphere: (verts (V,3) float64, faces (F,3) int64), ~2k triangles."""
+    thetas = np.linspace(0, np.pi, n_theta)
+    phis = np.linspace(0, 2 * np.pi, n_phi, endpoint=False)
+    verts = np.asarray(
+        [(radius * np.sin(t) * np.cos(p), radius * np.sin(t) * np.sin(p), radius * np.cos(t))
+         for t in thetas for p in phis],
+        dtype=np.float64,
+    )
+    faces = []
+    for i in range(n_theta - 1):
+        for j in range(n_phi):
+            a = i * n_phi + j
+            b = i * n_phi + (j + 1) % n_phi
+            c = (i + 1) * n_phi + j
+            d = (i + 1) * n_phi + (j + 1) % n_phi
+            faces.append((a, b, c))
+            faces.append((b, d, c))
+    return verts, np.asarray(faces, dtype=np.int64)
+
+
+def demo_specs() -> list[MeshSpec]:
+    verts, faces = sphere_mesh()
+    return [
+        MeshSpec(label="obj_000001", vertices=verts * 1000.0, faces=faces),
+        MeshSpec(label="obj_000002", vertices=verts * 1500.0, faces=faces,
+                 symmetries_continuous=[{"axis": [0, 0, 1], "offset": [0, 0, 0]}]),
+    ]
+
+
+@torch.no_grad()
+def demo_weights(pp: PosePredictor, mesh_data: dict, images: torch.Tensor, K: torch.Tensor,
+                 TCO: torch.Tensor, generator: torch.Generator, out_std: float = 0.02) -> None:
+    """Draw a random pose kernel that moves poses, as a trained head does.
+
+    The identity-initialised head (zero kernel) leaves TCO unchanged, and at a
+    random init the pooled features are tiny (~1e-8: each squeeze-excite gate
+    halves the signal). The kernel is drawn from a normal with `generator` (on
+    the CPU) and scaled so that, on the network's own first-iteration input
+    for these poses, the head's output moves by about `out_std` around the
+    identity update.
+    """
+    x = pp.network_input(mesh_data, images, K, TCO)[0]
+    rms = pp.net.pooled_features(x).pow(2).mean().sqrt()
+    fc = pp.net.pose_fc
+    w = torch.randn(fc.weight.shape, generator=generator)
+    fc.weight.copy_(w.to(fc.weight.device) * (out_std / (rms * fc.in_features ** 0.5)))
+
+
+def make_inputs(B: int, H: int = 480, W: int = 640):
+    """(images (B,3,H,W) f32, K (B,3,3) f32, TCO (B,4,4) f32, label_ids (B,) int32)."""
+    rng = np.random.RandomState(0)
+    K = np.zeros((B, 3, 3), np.float32)
+    K[:, 0, 0] = K[:, 1, 1] = 600.0
+    K[:, 0, 2], K[:, 1, 2], K[:, 2, 2] = W / 2, H / 2, 1.0
+    TCO = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
+    TCO[:, 0, 3] = rng.uniform(-0.1, 0.1, B)
+    TCO[:, 1, 3] = rng.uniform(-0.1, 0.1, B)
+    TCO[:, 2, 3] = rng.uniform(0.5, 1.2, B)
+    images = rng.uniform(size=(B, 3, H, W)).astype(np.float32)
+    label_ids = rng.randint(0, 2, B).astype(np.int32)
+    return images, K, TCO, label_ids

@@ -1,0 +1,181 @@
+"""Fixed-shape batched mesh database on a device (port of cosypose_tpu/ops/mesh_db.py).
+
+Meshes are loaded on the host, converted to meters, padded to a common point
+count (random-resample padding) and a common symmetry count (identity padding
+with a validity mask), and stored as tensors:
+
+    points     (n_objects, P_max, 3) float32
+    valid      (n_objects, P_max)    bool
+    symmetries (n_objects, S_max, 4, 4) float32
+    sym_valid  (n_objects, S_max)    bool
+    tri_verts  (n_objects, F_max, 3, 3) float32  triangle-major corner positions
+    tri_colors (n_objects, F_max, 3, 3) float32  per-corner albedo
+    tri_valid  (n_objects, F_max)    bool
+
+The host-side construction is the JAX package's, call for call, so both
+packages draw the same random padding and the same decimated geometry.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+from .mesh_io import decimate_mesh, load_mesh
+from .symmetries import make_bop_symmetries
+
+
+@dataclasses.dataclass
+class MeshSpec:
+    """Host-side description of one object."""
+
+    label: str
+    mesh_path: str | None = None
+    mesh_units: str = "mm"
+    symmetries_discrete: list | None = None
+    symmetries_continuous: list | None = None
+    diameter_m: float | None = None
+    vertices: np.ndarray | None = None  # (V, 3) in mesh units
+    faces: np.ndarray | None = None  # (F, 3) int
+    colors: np.ndarray | None = None  # (V, 3) albedo in [0, 1]
+
+
+_FIELDS = ("points", "valid", "symmetries", "sym_valid", "tri_verts", "tri_colors",
+           "tri_valid")
+
+
+@dataclasses.dataclass
+class BatchedMeshes:
+    """Padded mesh set on one device, with a label → id mapping."""
+
+    labels: list
+    points: torch.Tensor
+    valid: torch.Tensor
+    symmetries: torch.Tensor
+    sym_valid: torch.Tensor
+    tri_verts: torch.Tensor
+    tri_colors: torch.Tensor
+    tri_valid: torch.Tensor
+    infos: dict = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        self.label_to_id = {l: i for i, l in enumerate(self.labels)}
+
+    @property
+    def device(self) -> torch.device:
+        return self.points.device
+
+    def to(self, device) -> "BatchedMeshes":
+        moved = {k: getattr(self, k).to(device) for k in _FIELDS}
+        return BatchedMeshes(self.labels, infos=self.infos, **moved)
+
+    def ids_for(self, labels: Sequence[str]) -> torch.Tensor:
+        return torch.tensor([self.label_to_id[l] for l in labels], dtype=torch.long,
+                            device=self.device)
+
+    def sample_points(self, label_ids: torch.Tensor, n_points: int) -> torch.Tensor:
+        """Per-candidate point subsets: the JAX package's deterministic column
+        ids (RandomState(0)), device gather."""
+        P = self.points.shape[1]
+        rng = np.random.RandomState(0)
+        ids = torch.as_tensor(rng.choice(P, size=min(n_points, P), replace=False),
+                              device=self.device)
+        return self.points[label_ids][:, ids]
+
+
+def _pad_points(arrs: list[np.ndarray], rng: np.random.RandomState):
+    """Pad to the max row count by resampling existing rows, plus a validity mask."""
+    n_max = max(a.shape[0] for a in arrs)
+    out, valid = [], []
+    for a in arrs:
+        n_orig = a.shape[0]
+        if n_max > n_orig:
+            a = np.concatenate([a, a[rng.choice(n_orig, size=n_max - n_orig)]], axis=0)
+        out.append(a)
+        valid.append(np.arange(n_max) < n_orig)
+    return np.stack(out), np.stack(valid)
+
+
+def _pad_with(arrs: list[np.ndarray], fill: np.ndarray):
+    n_max = max(a.shape[0] for a in arrs)
+    out, valid = [], []
+    for a in arrs:
+        n_orig = a.shape[0]
+        if n_max > n_orig:
+            pad = np.broadcast_to(fill, (n_max - n_orig,) + fill.shape)
+            a = np.concatenate([a, pad], axis=0)
+        out.append(a)
+        valid.append(np.arange(n_max) < n_orig)
+    return np.stack(out), np.stack(valid)
+
+
+def build_mesh_db(specs: Sequence[MeshSpec], n_sym: int = 64,
+                  max_faces: int | None = 8192,
+                  render_max_faces: int | None = None,
+                  device: str | torch.device = "cuda") -> BatchedMeshes:
+    """Load and convert all objects and assemble the padded tensors on `device`.
+
+    Points are the raw vertices. render_max_faces decimates the RENDER geometry
+    only (tri_verts/tri_colors); the point sets keep full fidelity.
+    """
+    device = resolve_device(device)
+    rng = np.random.RandomState(0)
+    labels, points_l, syms_l, triverts_l, tricols_l = [], [], [], [], []
+    infos = {}
+    for spec in specs:
+        if spec.vertices is not None:
+            verts = np.asarray(spec.vertices, dtype=np.float64)
+            faces = np.asarray(spec.faces if spec.faces is not None else np.zeros((0, 3)),
+                               dtype=np.int64)
+            colors = spec.colors
+        else:
+            verts, faces, colors = load_mesh(spec.mesh_path, with_colors=True)
+        scale = {"mm": 0.001, "m": 1.0}[spec.mesh_units]
+        verts = verts * scale
+        if max_faces is not None and faces.shape[0] > max_faces:
+            verts, faces, colors = decimate_mesh(verts, faces, colors, max_faces)
+        pts = verts
+
+        syms = make_bop_symmetries(
+            {"symmetries_discrete": spec.symmetries_discrete,
+             "symmetries_continuous": spec.symmetries_continuous},
+            n_symmetries_continuous=n_sym, scale=scale,
+        )
+        labels.append(spec.label)
+        points_l.append(pts.astype(np.float32))
+        syms_l.append(syms)
+
+        rverts, rfaces, rcolors = verts, faces, colors
+        if render_max_faces is not None and faces.shape[0] > render_max_faces:
+            rverts, rfaces, rcolors = decimate_mesh(verts, faces, colors, render_max_faces)
+        f = rfaces.astype(np.int64)
+        triverts_l.append(rverts.astype(np.float32)[f])
+        if rcolors is not None:
+            tricols_l.append(rcolors.astype(np.float32)[f])
+        else:
+            tricols_l.append(np.full((f.shape[0], 3, 3), 0.7, np.float32))
+
+        diameter_m = spec.diameter_m
+        if diameter_m is None:
+            sub = pts[:: max(1, pts.shape[0] // 1500)]
+            diameter_m = float(np.sqrt(((sub[:, None] - sub[None]) ** 2).sum(-1).max()))
+        infos[spec.label] = dict(label=spec.label, n_points=pts.shape[0],
+                                 n_sym=syms.shape[0], diameter_m=diameter_m)
+
+    points, valid = _pad_points(points_l, rng)
+    symmetries, sym_valid = _pad_with(syms_l, np.eye(4, dtype=np.float32))
+    # degenerate zero-area padding triangles: the rasterizer masks them out
+    tri_verts, tri_valid = _pad_with(triverts_l, np.zeros((3, 3), np.float32))
+    tri_colors, _ = _pad_with(tricols_l, np.zeros((3, 3), np.float32))
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    return BatchedMeshes(
+        labels, dev(points), dev(valid), dev(symmetries), dev(sym_valid),
+        dev(tri_verts), dev(tri_colors), dev(tri_valid), infos=infos,
+    )

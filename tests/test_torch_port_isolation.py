@@ -1,0 +1,36 @@
+"""The port stands alone: importing any of its modules, or chip_smoke.py,
+loads neither jax nor the JAX package."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+MODULES = sorted(
+    ".".join(p.relative_to(REPO).with_suffix("").parts)
+    for p in (REPO / "cosypose_tpu_torch").rglob("*.py") if p.name != "__init__.py"
+)
+
+
+def _loaded_after(statement: str) -> list[str]:
+    code = (f"import sys; {statement}; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'cosypose_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=True)
+    return ast.literal_eval(out.stdout.strip().splitlines()[-1])
+
+
+def test_every_port_module_is_listed():
+    assert "cosypose_tpu_torch.ops.rasterizer_cuda" in MODULES
+    assert "cosypose_tpu_torch.integrated.pose_predictor" in MODULES
+
+
+def test_port_imports_no_jax():
+    assert _loaded_after("; ".join(f"import {m}" for m in MODULES)) == []
+
+
+def test_chip_smoke_imports_no_jax():
+    assert _loaded_after("import chip_smoke") == []
+
