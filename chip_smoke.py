@@ -3,17 +3,21 @@
     python3 chip_smoke.py        # from the repo root, on a machine with a CUDA card
 
 Phases, none of them caught; any failure exits non-zero:
-  1. device line, and the raster kernel built from csrc/ with nvcc;
-  2. the kernel against its plain PyTorch version at the main path's shapes
-     (demo inputs, B=128, 240x320 renders, LOD 512): plain variant, a
-     small-budget case, the attribute variant on a two-instance scene, and a
-     sweep of tile shapes; kernel, plain and prologue times and the bound;
+  1. device line, and both raster kernels built from csrc/ with nvcc (in
+     parallel);
+  2. the raster path at the main path's shapes (demo inputs, B=128, 240x320
+     renders, LOD 512): kernel A (raster_setup) against its plain version at
+     its stated tolerance; kernel B (raster_resolve) against its plain version
+     on the same sorted rows, at budgets 1024 and 40, on the attribute variant
+     (two-instance scene) and on every tile of a sweep (one ragged); device
+     times of A, the sort and B by torch.profiler, of the whole render() call
+     by CUDA events; their bounds, and how many rows the cull keeps;
   3. the slice (PosePredictor, EfficientNet-B3, fp32, TF32 off) at B=4 on
-     the card (kernel) against the CPU (plain version);
+     the card (kernels) against the CPU (plain versions);
   4. serving: coarse + refiner B3 (bf16 backbone) behind
      CoarseRefinePosePredictor(bsz_objects=128), 3 requests of 4 images and
-     160 detections at 1 coarse + 4 refiner iterations, with the kernel's
-     launch count checked; then one profiled request.
+     160 detections at 1 coarse + 4 refiner iterations, with both kernels'
+     launch counts checked; then one profiled request.
 The last lines are the card's name and power limit, one JSON line of kernel
 numbers, and the contract line {"ok": true, "device": {...}}. Without a card,
 or outside the repo, it exits non-zero and prints no result. The profiler
@@ -37,18 +41,28 @@ LOD = 512
 BATCH = 128
 N_COARSE, N_REFINER = 1, 4
 N_IMAGES, N_DETECTIONS = 4, 160
+TILES = [(8, 32), (16, 16), (16, 32), (32, 32), (8, 64), (16, 64)]  # (32, 32): ragged rows
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32 outside the
 # tensor cores, and HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
-# fp32 operations of one (pixel, triangle) visit: 4 planes of 2 mul + 2 add,
-# 3 inside tests and the depth test. A winner's 3 colour planes come on top;
-# they are not counted, so the bound is a lower bound.
+# fp32 operations of one (pixel, row) visit of kernel B: 4 planes of 2 mul +
+# 2 add, 3 inside tests and the depth test. A winner's 3 colour planes come on
+# top; they are not counted, so the bound is a lower bound.
 FLOPS_PER_VISIT = 20
-ATOL_KERNEL = 1e-4   # depth and rgb, kernel vs plain (same arithmetic: expect 0)
+# fp32 operations of kernel A per triangle, counted in csrc/raster_setup.cu:
+# corners 54, projection 21, shading 24, area and inverse 8, the 9 barycentric
+# coefficients 24, 1/z plane 15, colour/z 18 + 45, bbox and key 10
+FLOPS_PER_TRIANGLE = 219
+ATOL_KERNEL = 1e-4   # depth and rgb, kernel B vs plain (same arithmetic: expect 0)
 ATOL_SLICE = 1e-3    # TCO_final, card vs CPU (cuDNN vs oneDNN summation order)
-SOURCE = "cosypose_tpu_torch/csrc/rasterizer.cu"
-REPLACES = "cosypose_tpu/ops/rasterizer_pallas.py:49"
+SOURCES = {"raster_setup": "cosypose_tpu_torch/csrc/raster_setup.cu",
+           "raster_resolve": "cosypose_tpu_torch/csrc/raster_resolve.cu",
+           "raster_resolve_attr": "cosypose_tpu_torch/csrc/raster_resolve.cu"}
+REPLACES = {"raster_setup": "cosypose_tpu/ops/rasterizer_pallas.py:149",
+            "raster_resolve": "cosypose_tpu/ops/rasterizer_pallas.py:49",
+            "raster_resolve_attr": "cosypose_tpu/ops/rasterizer_pallas.py:49"}
+PR1 = "PR 1: prologue 2.433 ms + kernel 0.2628 ms per call, request ~490 ms, idle 0.098"
 
 
 def log(msg: str) -> None:
@@ -77,21 +91,96 @@ def time_cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_bound(coef, chunk_idx, counts, image, tile, with_attr):
-    """(bound_ms, 'operations' or 'bytes', visits, bytes) for one resolve on these inputs."""
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device time of the kernels fn() launches, by torch.profiler: for
+    calls too short for CUDA events, which then time the host's dispatch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    attr = "self_device_time_total" if events and hasattr(events[0], "self_device_time_total") \
+        else "self_cuda_time_total"
+    return sum(getattr(e, attr) for e in events) / 1e3 / reps
+
+
+def bound(n_ops: float, n_bytes: float):
+    """(bound_ms, 'operations' or 'bytes')."""
+    t_ops, t_bytes = n_ops / PEAK_FP32, n_bytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def resolve_bound(rows, order, image, tile, budget, with_attr):
+    """(bound_ms, by, visits, bytes) of one resolve on these inputs, read
+    through the plain binning, so the same whatever implements the kernel:
+    20 operations per visit of a pixel centre inside a listed row's own bbox
+    within its tile; the rows and the order read once, the outputs written
+    once."""
     import torch
 
+    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
+
     (H, W), (th, tw) = image, tile
-    rows = torch.tensor([min(th, H - y) for y in range(0, H, th)], dtype=torch.float64)
-    cols = torch.tensor([min(tw, W - x) for x in range(0, W, tw)], dtype=torch.float64)
-    px = torch.outer(rows, cols).flatten().to(counts.device)  # in-image pixels per tile
-    visits = float((counts.double() * 8 * px[None]).sum())
-    B = coef.shape[0]
-    n_bytes = 4 * (coef.numel() + chunk_idx.numel() + counts.numel()
-                   + B * H * W * (4 + int(with_attr)))
-    t_ops, t_bytes = visits * FLOPS_PER_VISIT / PEAK_FP32, n_bytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), visits,
-            n_bytes)
+    nty, ntx = rc.tile_grid(image, tile)
+    srt, idx, counts = rc.bin_chunks(rows, order, image, tile, budget)
+    B, T, Kc = idx.shape
+    dev = rows.device
+    row_ids = (idx.long()[..., None] * rc.CHUNK + torch.arange(rc.CHUNK, device=dev)).flatten(1)
+    lanes = srt[..., [rc.LANE_BBOX, rc.LANE_BBOX + 1, rc.LANE_BBOX + 2, rc.LANE_BBOX + 3,
+                      rc.LANE_VALID]]
+    box = torch.gather(lanes, 1, row_ids[..., None].expand(-1, -1, 5))
+    box = box.reshape(B, T, Kc * rc.CHUNK, 5).double()
+    listed = (torch.arange(Kc, device=dev) < counts[..., None]).repeat_interleave(rc.CHUNK, -1)
+    listed &= box[..., 4] != 0
+    t = torch.arange(T, device=dev)
+    x_lo, y_lo = ((t % ntx) * tw).double(), ((t // ntx) * th).double()
+    x_hi, y_hi = torch.clamp(x_lo + tw, max=W) - 1, torch.clamp(y_lo + th, max=H) - 1
+
+    def span(lo_edge, hi_edge, lo, hi):  # pixels p in [lo, hi] with p + 0.5 in [lo_edge, hi_edge]
+        first = torch.maximum(torch.ceil(lo_edge - 0.5), lo[None, :, None])
+        last = torch.minimum(torch.floor(hi_edge - 0.5), hi[None, :, None])
+        return (last - first + 1).clamp_min(0)
+
+    visits = float((span(box[..., 0], box[..., 2], x_lo, x_hi)
+                    * span(box[..., 1], box[..., 3], y_lo, y_hi) * listed).sum())
+    n_bytes = 4 * rows.numel() + 8 * order.numel() + 4 * B * H * W * (4 + int(with_attr))
+    return (*bound(visits * FLOPS_PER_VISIT, n_bytes), visits, n_bytes)
+
+
+def cull_counts(rows, order, image, tile, budget):
+    """(listed, kept): (row, warp) pairs of listed rows, and those that the
+    resolve kernel's cull (rasterizer_cuda.row_may_cover on each warp's pixel
+    rectangle) keeps, counted through the plain binning."""
+    import torch
+
+    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
+
+    srt, idx, counts = rc.bin_chunks(rows, order, image, tile, budget)
+    B, T, Kc = idx.shape
+    _, *rect = rc.warp_rects(image, tile, rows.device)
+    row_ids = (idx.long()[..., None] * rc.CHUNK + torch.arange(rc.CHUNK, device=rows.device))
+    listed_rows = torch.gather(srt, 1, row_ids.flatten(1)[..., None].expand(-1, -1, rc.ROW))
+    listed_rows = listed_rows.reshape(B, T, Kc * rc.CHUNK, 1, rc.ROW)
+    live = (torch.arange(Kc, device=rows.device) < counts[..., None]).repeat_interleave(
+        rc.CHUNK, -1)[..., None]
+    kept = rc.row_may_cover(listed_rows, *[r[None, :, None, :] for r in rect]) & live
+    return int(live.sum()) * rect[0].shape[1], int(kept.sum())
+
+
+def setup_bound(tri_verts, tri_valid, colors, tri_attr, rows, ykey):
+    """(bound_ms, by, bytes) of one setup: corners, colours, validity, poses,
+    intrinsics (and attributes) read once, rows and keys written once."""
+    B, F = tri_valid.shape
+    n_bytes = (4 * tri_verts.numel() + tri_valid.numel() + 4 * colors.numel() + 4 * B * (16 + 9)
+               + (4 * tri_attr.numel() if tri_attr is not None else 0)
+               + 4 * (rows.numel() + ykey.numel()))
+    return (*bound(B * F * FLOPS_PER_TRIANGLE, n_bytes), n_bytes)
 
 
 def main() -> int:
@@ -105,12 +194,11 @@ def main() -> int:
                                                               LoadedPoseModel)
     from cosypose_tpu_torch.models.pose_predictor import (PosePredictor, PosePredictorConfig,
                                                           gather_mesh_data)
-    from cosypose_tpu_torch.ops import rasterizer_cuda
-    from cosypose_tpu_torch.ops.camera import (boxes_from_uv, get_K_crop_resize, project_points,
-                                               project_points_robust)
-    from cosypose_tpu_torch.ops.cropping import deepim_boxes
+    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
+    from cosypose_tpu_torch.ops.camera import boxes_from_uv, project_points
     from cosypose_tpu_torch.ops.mesh_db import build_mesh_db
     from cosypose_tpu_torch.ops.rasterizer import camera_corners
+    from cosypose_tpu_torch.ops.render import render
     from cosypose_tpu_torch.utils.tensor_collection import TensorCollection
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -118,90 +206,134 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_identity()
     tag = f"[{card}]"
-    kernel = rasterizer_cuda.RASTER_KERNEL
+    kernel = rc.RASTER_KERNEL
 
     # -- 1. device and build ------------------------------------------------
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}, nvidia-smi: {card}")
     t0 = time.perf_counter()
-    lib, report = rasterizer_cuda.build_library()
-    log(f"{tag} build: {SOURCE} -> {lib.name} in {time.perf_counter() - t0:.2f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
+    libs = rc.build_libraries()
+    built = ", ".join(f"{rc.SOURCES[n].name} -> {p.name}" for n, (p, _) in libs.items())
+    log(f"{tag} build: {built}"
+        f" in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
+    for name, (_, report) in libs.items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas {name}: {line.strip()}")
     kernel.load()
 
-    # -- 2. kernel vs plain at the main path's shapes -------------------------
+    # -- 2. the raster path at the main path's shapes --------------------------
     db = build_mesh_db(demo.demo_specs(), render_max_faces=LOD, device=dev)
-    images_np, K_np, TCO_np, labels_np = demo.make_inputs(BATCH, *IMAGE)
-    K = torch.as_tensor(K_np, device=dev)
-    TCO = torch.as_tensor(TCO_np, device=dev)
-    md = gather_mesh_data(db, torch.as_tensor(labels_np, device=dev).long(), 2000)
-    # the first iteration's crop intrinsics, as PosePredictor.network_input computes them
-    boxes_rend = boxes_from_uv(project_points_robust(md["crop_points"], K, TCO))
-    centers = project_points_robust(torch.zeros(BATCH, 1, 3, device=dev), K, TCO)
-    K_crop = get_K_crop_resize(K, deepim_boxes(centers, boxes_rend, boxes_rend, IMAGE),
-                               IMAGE, RENDER)
+    K = torch.as_tensor(demo.make_inputs(BATCH, *IMAGE)[1], device=dev)
+    first = demo.first_render_inputs(BATCH, IMAGE, RENDER, LOD, dev)
+    TCO = first["TCO"]
     cfg = PosePredictorConfig()
     tile, budget = cfg.raster_tile, cfg.raster_max_tris_per_tile
+    rows_json = {}
 
-    def check(name, coef, idx, counts, tile, with_attr, time_it):
-        out_k = kernel(coef, idx, counts, RENDER, tile, with_attr)
+    # kernel A
+    args = (first["tri_verts"], first["tri_valid"], TCO, first["K_crop"], RENDER, first["colors"])
+    rows, key = rc.setup(*args)
+    rows_p, key_p = rc.setup_plain(*args)
+    err = rc.setup_error(rows, key, rows_p, key_p, RENDER)
+    both = (rows[..., rc.LANE_VALID] != 0) & (rows_p[..., rc.LANE_VALID] != 0)
+    abs_err = max(float((rows[both] - rows_p[both]).abs().max()),
+                  float((key[both] - key_p[both]).abs().max()))
+    if err["valid_differs"] or err["attr"] or err["plane"] > rc.SETUP_TOL \
+            or err["bbox_key"] > rc.SETUP_TOL:
+        raise AssertionError(f"raster_setup vs plain: {err} (tolerance {rc.SETUP_TOL})")
+    order = rc.sort_order(key)
+    order_differs = int((order != rc.sort_order(key_p)).any(1).sum())
+    ms_a, ev_a = device_ms(lambda: rc.setup(*args)), time_cuda_ms(lambda: rc.setup(*args), 50)
+    plain_a = time_cuda_ms(lambda: rc.setup_plain(*args), 10)
+    ms_sort = device_ms(lambda: rc.sort_order(key))
+    ev_sort = time_cuda_ms(lambda: rc.sort_order(key), 50)
+    bound_a, by_a, bytes_a = setup_bound(first["tri_verts"], first["tri_valid"], first["colors"],
+                                         None, rows, key)
+    log(f"{tag} raster_setup: rows {tuple(rows.shape)}, {int(both.sum())} valid; vs plain: "
+        f"plane rel err {err['plane']:.3g}, bbox/key rel err {err['bbox_key']:.3g} "
+        f"(<= {rc.SETUP_TOL}), max abs err {abs_err:.3g}, validity equal, {order_differs} items "
+        f"sorted differently; kernel {ms_a:.4f} ms on the device ({ev_a:.4f} ms per call by "
+        f"events), "
+        f"plain {plain_a:.3f} ms, bound {bound_a:.4f} ms by {by_a} ({bytes_a / 1e6:.2f} MB); sort "
+        f"{ms_sort:.4f} ms on the device ({ev_sort:.4f} ms by events); library_ms: none")
+    rows_json["raster_setup"] = dict(max_abs_err=abs_err, ms=ms_a, plain_ms=plain_a,
+                                     bound_ms=bound_a, bound_by=by_a)
+
+    def check(name, rows, order, tile, budget, with_attr, time_it):
+        """Kernel B against resolve_plain_binned on the same sorted rows."""
+        out_k = kernel.resolve(rows, order, RENDER, tile, budget, with_attr)
         torch.cuda.synchronize()
-        out_p = rasterizer_cuda.resolve_plain(coef, idx, counts, RENDER, tile, with_attr)
-        err = max(float((out_k[0] - out_p[0]).abs().max()), float((out_k[1] - out_p[1]).abs().max()))
-        if err > ATOL_KERNEL or not torch.equal(out_k[1] > 0, out_p[1] > 0):
-            raise AssertionError(f"{name}: kernel vs plain max err {err}, or masks differ")
+        out_p = rc.resolve_plain_binned(rows, order, RENDER, tile, budget, with_attr)
+        e = max(float((out_k[0] - out_p[0]).abs().max()), float((out_k[1] - out_p[1]).abs().max()))
+        if e > ATOL_KERNEL or not torch.equal(out_k[1] > 0, out_p[1] > 0):
+            raise AssertionError(f"{name}: kernel vs plain max err {e}, or masks differ")
         if with_attr and not torch.equal(out_k[2], out_p[2]):
             raise AssertionError(f"{name}: attribute differs")
-        hit = float((out_k[1] > 0).float().mean())
-        row = dict(max_abs_err=err)
+        counts = rc.bin_chunks(rows, order, RENDER, tile, budget)[2]
+        b_ms, by, visits, n_bytes = resolve_bound(rows, order, RENDER, tile, budget, with_attr)
+        listed, kept = cull_counts(rows, order, RENDER, tile, budget)
+        row = dict(max_abs_err=e, bound_ms=b_ms, bound_by=by)
+        msg = (f"{tag} {name}, tile {tile}, budget {budget}: max_abs_err {e:.3g} "
+               f"(<= {ATOL_KERNEL}), masks equal, coverage {float((out_k[1] > 0).float().mean()):.3f}, "
+               f"max chunks/tile {int(counts.max())}, bound {b_ms:.4f} ms by {by} "
+               f"({visits:.4g} visits, {n_bytes / 1e6:.1f} MB); the cull keeps {kept} of {listed} "
+               f"listed (row, warp) pairs")
         if time_it:
-            row["ms"] = time_cuda_ms(lambda: kernel(coef, idx, counts, RENDER, tile, with_attr), 20)
+            row["ms"] = device_ms(lambda: kernel.resolve(rows, order, RENDER, tile, budget,
+                                                         with_attr))
+            ev = time_cuda_ms(lambda: kernel.resolve(rows, order, RENDER, tile, budget, with_attr),
+                              50)
             row["plain_ms"] = time_cuda_ms(
-                lambda: rasterizer_cuda.resolve_plain(coef, idx, counts, RENDER, tile, with_attr),
+                lambda: rc.resolve_plain_binned(rows, order, RENDER, tile, budget, with_attr),
                 2, warmup=1)
-            row["bound_ms"], row["bound_by"], visits, n_bytes = kernel_bound(
-                coef, idx, counts, RENDER, tile, with_attr)
-            log(f"{tag} {name}: max_abs_err {err:.3g} (<= {ATOL_KERNEL}), masks equal, "
-                f"coverage {hit:.3f}, kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.2f} ms, "
-                f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
-                f"({visits:.4g} pixel-triangle visits, max chunks/tile {int(counts.max())}; "
-                f"{n_bytes / 1e6:.1f} MB moved, {1e3 * n_bytes / PEAK_BYTES:.4f} ms at peak), "
-                f"library_ms: none (no single PyTorch call computes this function)")
-        else:
-            log(f"{tag} {name}: max_abs_err {err:.3g} (<= {ATOL_KERNEL}), masks equal, "
-                f"coverage {hit:.3f}, max chunks/tile {int(counts.max())}")
+            msg += (f"; kernel {row['ms']:.4f} ms on the device ({ev:.4f} ms by events; "
+                    f"{100 * b_ms / row['ms']:.1f} % of bound), "
+                    f"plain {row['plain_ms']:.2f} ms, library_ms: none")
+        log(msg)
         return row
 
-    args = (md["tri_verts"], md["tri_valid"], TCO, K_crop, RENDER, md["tri_colors"])
-    prep = lambda t=tile, b=budget: rasterizer_cuda.prepare(*args, t, b)  # noqa: E731
-    coef, idx, counts = prep()
-    log(f"{tag} kernel inputs: coef {tuple(coef.shape)}, chunk lists {tuple(idx.shape)}, "
-        f"tile {tile}, budget {budget}; prologue {time_cuda_ms(prep, 10):.3f} ms")
-    rows = {"raster_resolve": check("raster_resolve", coef, idx, counts, tile, False, True)}
-    small = rasterizer_cuda.prepare(*args, tile, 40)
-    rows["raster_resolve"]["max_abs_err"] = max(
-        rows["raster_resolve"]["max_abs_err"],
-        check("raster_resolve small budget (40)", *small, tile, False, False)["max_abs_err"])
+    rows_json["raster_resolve"] = check("raster_resolve", rows, order, tile, budget, False, True)
+    small = check("raster_resolve", rows, order, tile, 40, False, False)
+    rows_json["raster_resolve"]["max_abs_err"] = max(rows_json["raster_resolve"]["max_abs_err"],
+                                                     small["max_abs_err"])
+    # PR 1's bound counted every pixel of a tile for every listed row
+    pr1_visits = float((rc.bin_chunks(rows, order, RENDER, tile, budget)[2].double() * 8).sum()
+                       * tile[0] * tile[1])
+    log(f"{tag} PR 1's bound would count {pr1_visits:.4g} visits here; PR 1's kernel at 0.2628 ms "
+        f"is {100 * rows_json['raster_resolve']['bound_ms'] / 0.2628:.1f} % of the recounted bound")
+
+    # sorted rows gathered first, then read in order, against reading through the permutation
+    ident = torch.arange(rows.shape[1], device=dev).expand_as(order).contiguous()
+    ms_gather = device_ms(lambda: kernel.resolve(
+        torch.gather(rows, 1, order[..., None].expand(-1, -1, rc.ROW)), ident, RENDER, tile,
+        budget))
+    ms_call = time_cuda_ms(lambda: render(*args[:4], image_size=RENDER, colors=args[5], tile=tile,
+                                          max_tris_per_tile=budget), 50)
+    log(f"{tag} per call, device time: setup {ms_a:.4f} + sort {ms_sort:.4f} + resolve "
+        f"{rows_json['raster_resolve']['ms']:.4f} ms; whole render() by events {ms_call:.4f} ms "
+        f"(gather + resolve in sorted order instead: {ms_gather:.4f} ms on the device vs "
+        f"{rows_json['raster_resolve']['ms']:.4f} ms through the permutation); {PR1}")
 
     # two instances per item, the second behind and to the side: the attr variant
-    tv_cam = camera_corners(md["tri_verts"], TCO)
+    tv_cam = camera_corners(first["tri_verts"], TCO)
     shift = torch.tensor([0.03, 0.01, 0.05], device=dev)
     n_f = tv_cam.shape[1]
     attr = torch.cat([torch.ones(BATCH, n_f), torch.full((BATCH, n_f), 2.0)], 1).to(dev)
-    two = rasterizer_cuda.prepare(
-        torch.cat([tv_cam, tv_cam + shift], 1), torch.cat([md["tri_valid"]] * 2, 1),
-        torch.eye(4, device=dev).expand(BATCH, 4, 4), K_crop, RENDER,
-        torch.cat([md["tri_colors"]] * 2, 1), tile, budget, tri_attr=attr)
-    rows["raster_resolve_attr"] = check("raster_resolve_attr (two instances)", *two, tile,
-                                        True, True)
+    rows2, key2 = rc.setup(torch.cat([tv_cam, tv_cam + shift], 1),
+                           torch.cat([first["tri_valid"]] * 2, 1),
+                           torch.eye(4, device=dev).expand(BATCH, 4, 4), first["K_crop"], RENDER,
+                           torch.cat([first["colors"]] * 2, 1), tri_attr=attr)
+    rows_json["raster_resolve_attr"] = check("raster_resolve_attr (two instances)", rows2,
+                                             rc.sort_order(key2), tile, budget, True, True)
 
-    for t in [(8, 32), (16, 16), (16, 32), (32, 32), (8, 64)]:
-        c = prep(t)
-        ms_k = time_cuda_ms(lambda: kernel(*c, RENDER, t), 20)
-        log(f"{tag} tile {t}: prologue {time_cuda_ms(lambda: prep(t), 5):.3f} ms, "
-            f"kernel {ms_k:.4f} ms, bound {kernel_bound(*c, RENDER, t, False)[0]:.4f} ms")
+    for t in TILES:
+        r = check("raster_resolve sweep", rows, order, t, budget, False, False)
+        ms_b = device_ms(lambda: kernel.resolve(rows, order, RENDER, t, budget))
+        ms_r = time_cuda_ms(lambda: render(*args[:4], image_size=RENDER, colors=args[5], tile=t,
+                                           max_tris_per_tile=budget), 20)
+        log(f"{tag} tile {t}: resolve {ms_b:.4f} ms on the device (bound {r['bound_ms']:.4f} ms), "
+            f"whole render() {ms_r:.4f} ms")
 
     # -- 3. the slice on the card vs on the CPU -------------------------------
     cfg32 = PosePredictorConfig()
@@ -276,8 +408,9 @@ def main() -> int:
     results = [serve(r) for r in reqs]
     launches = dict(kernel.launches)
     expected = len(reqs) * (N_COARSE + N_REFINER) * chunks
-    if launches["raster_resolve"] != expected:
-        raise AssertionError(f"serving launched the kernel {launches} times, want {expected}")
+    if launches["raster_setup"] != expected or launches["raster_resolve"] != expected:
+        raise AssertionError(f"serving launched the kernels {launches} times, want {expected} "
+                             f"of raster_setup and of raster_resolve")
     for lat, final, preds in results:
         poses = final.poses
         moved = float((poses - preds["coarse/iteration=1"].poses_input).abs().max())
@@ -289,7 +422,8 @@ def main() -> int:
             f"{BATCH}, {N_COARSE}+{N_REFINER} iterations: {1e3 * lat:.1f} ms, "
             f"{n_it / lat:.1f} crop-iterations/s ({chunks * BATCH * (N_COARSE + N_REFINER) / lat:.1f} "
             f"with padding), poses moved up to {moved:.3g}")
-    log(f"{tag} kernel launches while serving: {launches} (want {expected} of raster_resolve)")
+    log(f"{tag} kernel launches while serving: {launches} (want {expected} of raster_setup and "
+        f"of raster_resolve)")
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -305,19 +439,21 @@ def main() -> int:
     dev_us = {e.key: getattr(e, attr) for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA}
     busy = sum(dev_us.values()) / 1e3
-    raster = sum(v for k, v in dev_us.items() if "raster_resolve" in k) / 1e3
+    raster = sum(v for k, v in dev_us.items() if "raster_" in k) / 1e3
+    sort = sum(v for k, v in dev_us.items() if "sort" in k.lower()) / 1e3
     conv = sum(v for k, v in dev_us.items() if "conv" in k.lower() or "cudnn" in k.lower()
                or "xmma" in k or "sm90" in k) / 1e3
     log(f"{tag} profiled request: wall {1e3 * lat:.1f} ms, device busy {busy:.1f} ms "
-        f"(idle share {1 - busy / (1e3 * lat):.3f}), raster kernel {raster:.2f} ms, "
+        f"(idle share {1 - busy / (1e3 * lat):.3f}), raster kernels {raster:.3f} ms, "
+        f"sort-named kernels {sort:.3f} ms, "
         f"conv/GEMM-named kernels {conv:.1f} ms; top kernels:")
     for k, v in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {v / 1e3:9.2f} ms  {k[:90]}")
 
     # -- results --------------------------------------------------------------
-    kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES,
-                    launches=launches[name], library_ms=None, **rows[name])
-               for name in ("raster_resolve", "raster_resolve_attr")]
+    kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+                    launches=launches[name], library_ms=None, **rows_json[name])
+               for name in ("raster_setup", "raster_resolve", "raster_resolve_attr")]
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

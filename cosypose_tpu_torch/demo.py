@@ -11,8 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.pose_predictor import PosePredictor
-from .ops.mesh_db import MeshSpec
+from .models.pose_predictor import PosePredictor, gather_mesh_data
+from .ops.camera import boxes_from_uv, get_K_crop_resize, project_points_robust
+from .ops.cropping import deepim_boxes
+from .ops.mesh_db import MeshSpec, build_mesh_db
 
 
 def sphere_mesh(n_theta: int = 24, n_phi: int = 48, radius: float = 0.05):
@@ -77,3 +79,21 @@ def make_inputs(B: int, H: int = 480, W: int = 640):
     images = rng.uniform(size=(B, 3, H, W)).astype(np.float32)
     label_ids = rng.randint(0, 2, B).astype(np.int32)
     return images, K, TCO, label_ids
+
+
+def first_render_inputs(B: int, image_size=(480, 640), render_size=(240, 320), lod: int = 512,
+                        device="cuda") -> dict:
+    """The first iteration's render call at the demo inputs of make_inputs,
+    with the crop intrinsics PosePredictor.network_input computes: dict of
+    tri_verts, tri_valid, TCO, K_crop and colors on `device`."""
+    db = build_mesh_db(demo_specs(), render_max_faces=lod, device=device)
+    _, K_np, TCO_np, labels_np = make_inputs(B, *image_size)
+    K = torch.as_tensor(K_np, device=device)
+    TCO = torch.as_tensor(TCO_np, device=device)
+    md = gather_mesh_data(db, torch.as_tensor(labels_np, device=device).long(), 2000)
+    boxes_rend = boxes_from_uv(project_points_robust(md["crop_points"], K, TCO))
+    centers = project_points_robust(torch.zeros(B, 1, 3, device=device), K, TCO)
+    K_crop = get_K_crop_resize(K, deepim_boxes(centers, boxes_rend, boxes_rend, image_size),
+                               image_size, render_size).contiguous()
+    return dict(tri_verts=md["tri_verts"], tri_valid=md["tri_valid"], TCO=TCO, K_crop=K_crop,
+                colors=md["tri_colors"])

@@ -1,23 +1,32 @@
-"""Binned tile rasterizer: PyTorch prologue, Hopper kernel wrapper, plain version.
+"""Binned tile rasterizer: two Hopper kernels with a sort between, and their
+plain versions.
 
 Port of cosypose_tpu/ops/rasterizer_pallas.py. Same contract and math as
 ops/rasterizer.py (affine screen-space planes, perspective-correct 1/z,
-headlight shading baked into the colour planes), with the per-tile depth
-resolve in a hand-written CUDA kernel (csrc/rasterizer.cu).
+headlight shading baked into the colour planes). A call is
 
-  prepare        the prologue in PyTorch: planes, packing into 24-wide rows,
-                 stable y-sort, chunk AABBs and per-tile chunk lists.
-  resolve        the kernel's wrapper on CUDA tensors, its plain version on
-                 CPU tensors; nothing else.
-  RASTER_KERNEL  the kernel's wrapper: builds csrc/rasterizer.cu with nvcc at
-                 first use, launches it on the current stream and counts the
-                 launches of each variant (`RASTER_KERNEL.launches`).
-  resolve_plain  the same function in plain PyTorch, with the kernel's exact
-                 arithmetic, vectorised over all pixels, one chunk slot at a
-                 time (memory stays O(B·H·W)).
+  setup    kernel A (csrc/raster_setup.cu): one packed 32-float row per
+           triangle and its y-sort key;
+  sort     torch.sort(ykey, stable=True), where the JAX package argsorts;
+  resolve  kernel B (csrc/raster_resolve.cu): per (tile, item) block, bins
+           the sorted chunks itself, culls rows per warp and resolves depth,
+           reading the rows through the sort's permutation.
 
-Unlike the TPU kernel, which takes a per-tile copy of every binned chunk, the
-kernel takes the sorted rows once plus per-tile chunk-id lists and counts.
+`setup` and `resolve` launch the kernels on CUDA tensors and run the plain
+versions on CPU tensors; nothing else. The plain versions:
+
+  setup_plain     camera_corners + triangle_planes + packing, in PyTorch ops;
+  bin_chunks      the chunk binning of the JAX package (chunk AABBs, overlap,
+                  first_k_true), on the sorted rows;
+  resolve_plain   the per-pixel resolve with the kernel's exact arithmetic,
+                  vectorised over all pixels, one chunk slot at a time;
+  resolve_plain_binned  bin_chunks composed with resolve_plain: kernel B's
+                  function.
+
+`row_may_cover` is the cull rule kernel B applies; tests hold it to never
+skipping a row that wins. RASTER_KERNEL builds both sources with nvcc at first
+use (in parallel), launches them on the current stream and counts launches
+per kernel and variant (`RASTER_KERNEL.launches`).
 """
 
 from __future__ import annotations
@@ -35,11 +44,16 @@ import torch.nn.functional as F
 
 from .rasterizer import camera_corners, first_k_true, overlap, tile_origins, triangle_planes
 
-COEF_DIM = 24  # packed row: 0:3 lam_a, 3:6 lam_b, 6:9 lam_c, 9:12 iz_abc,
-#                12:15 col_a, 15:18 col_b, 18:21 col_c, 21 attr, 22:24 bbox y0/y1
-CHUNK = 8      # triangle rows per chunk: the unit of binning
+ROW = 32   # packed row: 0:3 lam_a, 3:6 lam_b, 6:9 lam_c, 9:12 iz_abc, 12:15 col_a, 15:18 col_b,
+#            18:21 col_c, 21 attr, 22 0, 23 valid, 24:28 bbox (x0, y0, x1, y1), 28:32 cover box
+LANE_ATTR, LANE_VALID, LANE_BBOX, LANE_COVER = 21, 23, 24, 28
+CHUNK = 8  # rows per chunk: the unit of binning
+MAX_ROWS = 8192   # kernel B stages 22 B per row in shared memory: 176 KB of the 227 KB
+WARP_PIXELS = 64  # kernel B's warps take 64 consecutive pixels of a tile, two a lane
+CULL_SLACK = 2.0 ** -20  # rounding slack of row_may_cover, per unit magnitude
 
-SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "rasterizer.cu"
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = {"setup": CSRC / "raster_setup.cu", "resolve": CSRC / "raster_resolve.cu"}
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -50,20 +64,65 @@ def tile_grid(image_size: tuple[int, int], tile: tuple[int, int]) -> tuple[int, 
     return math.ceil(image_size[0] / tile[0]), math.ceil(image_size[1] / tile[1])
 
 
-def prepare(tri_verts: torch.Tensor, tri_valid: torch.Tensor, TCO: torch.Tensor,
-            K: torch.Tensor, image_size: tuple[int, int], colors: torch.Tensor | None = None,
-            tile: tuple[int, int] = (16, 32), max_tris_per_tile: int = 1024,
-            z_near: float = 0.05, tri_attr: torch.Tensor | None = None):
-    """The kernel's inputs: (coef (B,Fp,24) fp32, chunk_idx (B,n_tiles,Kc) int32,
-    counts (B,n_tiles) int32).
+def chunk_budget(max_tris_per_tile: int, Fp: int) -> int:
+    """Kc: how many 8-row chunks a tile lists at most."""
+    return math.ceil(min(max_tris_per_tile, Fp) / CHUNK)
 
-    Rows are sorted by projected y-centre (stable, so equal keys keep mesh
-    order), invalid rows are zeroed and sort to the tail, and each tile lists
-    the ascending ids of the chunks whose AABB touches it. A tile that touches
-    more than Kc chunks drops the highest ids.
+
+def padded_rows(F: int) -> int:
+    return math.ceil(F / CHUNK) * CHUNK
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def cover_box(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+              image_size: tuple[int, int]) -> torch.Tensor:
+    """(..., 4) float32 (x0, y0, x1, y1): a box holding every pixel centre of
+    the image at which the float32 inside tests of planes (a_i, b_i, c_i)
+    (each (..., 3)) can pass, as csrc/raster_setup.cu explains: the float64
+    triangle of the half-planes a_i x + b_i y + c_i >= -t_i,
+    t_i = 1e-6 + 2^-20 (|a_i| W + |b_i| H + |c_i|), widened and clipped to the
+    image; the image where the normals do not positively span the plane; all
+    zero where the box is empty."""
+    H, W = image_size
+    a, b, c = a.double(), b.double(), c.double()
+    t = 1e-6 + 2.0 ** -20 * (a.abs() * W + b.abs() * H + c.abs())
+    i, j = [0, 1, 2], [1, 2, 0]
+    det = a[..., i] * b[..., j] - a[..., j] * b[..., i]
+    norm = torch.sqrt(a * a + b * b)
+    spans = ((det.abs() >= 1e-6 * norm[..., i] * norm[..., j]).all(-1)
+             & ((det > 0).all(-1) | (det < 0).all(-1)))
+    r = -t - c
+    vx = (r[..., i] * b[..., j] - r[..., j] * b[..., i]) / det
+    vy = (a[..., i] * r[..., j] - a[..., j] * r[..., i]) / det
+
+    def widen(v, d):
+        return v + d * (1e-3 + 1e-6 * v.abs())
+
+    box = torch.stack([widen(vx.amin(-1), -1).clamp_min(0), widen(vy.amin(-1), -1).clamp_min(0),
+                       widen(vx.amax(-1), 1).clamp_max(W), widen(vy.amax(-1), 1).clamp_max(H)], -1)
+    image = torch.tensor([0.0, 0.0, W, H], dtype=torch.float64, device=a.device)
+    box = torch.where(spans[..., None], box, image)
+    empty = (box[..., 0] > box[..., 2]) | (box[..., 1] > box[..., 3])
+    box = torch.where(empty[..., None], 0.0, box)
+    f = box.float()  # rounded outward: down for x0, y0, up for x1, y1
+    down = torch.tensor([True, True, False, False], device=a.device)
+    away = torch.where(down, f.double() > box, f.double() < box)
+    return torch.where(away, torch.nextafter(f, torch.where(down, -torch.inf, torch.inf)), f)
+
+
+def setup_plain(tri_verts: torch.Tensor, tri_valid: torch.Tensor, TCO: torch.Tensor,
+                K: torch.Tensor, image_size: tuple[int, int], colors: torch.Tensor | None = None,
+                z_near: float = 0.05, tri_attr: torch.Tensor | None = None):
+    """Kernel A's function: (rows (B,Fp,32) fp32, ykey (B,Fp) fp32).
+
+    Rows in mesh order, padded to whole chunks; invalid and padding rows are
+    zero with key +inf, valid rows carry 1.0 in the valid lane, their cover
+    box on the image_size (H, W) image, and sort by their projected y-centre.
     """
-    th, tw = tile
-    nty, ntx = tile_grid(image_size, tile)
     B, Fn = tri_verts.shape[:2]
     if colors is None:
         colors = torch.full_like(tri_verts, 0.7)
@@ -72,64 +131,181 @@ def prepare(tri_verts: torch.Tensor, tri_valid: torch.Tensor, TCO: torch.Tensor,
     bbox = planes["bbox"]
     attr_col = (tri_attr.float()[..., None] if tri_attr is not None
                 else torch.zeros_like(bbox[..., :1]))
-    coef = torch.cat([planes["lam_a"], planes["lam_b"], planes["lam_c"], planes["iz_abc"],
+    rows = torch.cat([planes["lam_a"], planes["lam_b"], planes["lam_c"], planes["iz_abc"],
                       planes["col_a"], planes["col_b"], planes["col_c"], attr_col,
-                      bbox[..., 1:2], bbox[..., 3:4]], dim=-1)
-    coef = torch.where(valid[..., None], coef, 0.0)
-
-    Fp = math.ceil(Fn / CHUNK) * CHUNK
-    if Fp > Fn:
-        coef = F.pad(coef, (0, 0, 0, Fp - Fn))
-        bbox = F.pad(bbox, (0, 0, 0, Fp - Fn))
-        valid = F.pad(valid, (0, Fp - Fn))
-    C = Fp // CHUNK
-
+                      torch.zeros_like(attr_col), torch.ones_like(attr_col), bbox,
+                      cover_box(planes["lam_a"], planes["lam_b"], planes["lam_c"], image_size)],
+                     dim=-1)
+    rows = torch.where(valid[..., None], rows, 0.0)
     ykey = torch.where(valid, 0.5 * (bbox[..., 1] + bbox[..., 3]), torch.inf)
-    order = torch.sort(ykey, dim=1, stable=True).indices
-    coef = torch.gather(coef, 1, order[..., None].expand(-1, -1, COEF_DIM))
-    bbox = torch.gather(bbox, 1, order[..., None].expand(-1, -1, 4))
-    valid = torch.gather(valid, 1, order)
+    Fp = padded_rows(Fn)
+    return (F.pad(rows, (0, 0, 0, Fp - Fn)).contiguous(),
+            F.pad(ykey, (0, Fp - Fn), value=torch.inf).contiguous())
 
+
+# Tolerance of kernel A against setup_plain, in units u = 2^-24 of float32
+# rounding. The kernel rounds each op as the PyTorch ops do, but PyTorch leaves
+# the order of its einsum (a batched GEMM with FMA on the card), of its 3-term
+# sums and of its norm unspecified, so the two differ in the last bits of the
+# sums. The 1/z and colour planes are such sums: the barycentric planes,
+# weighted by the corners' values t_k. The barycentric planes nearly cancel in
+# the image (they sum to 1), so a last-bit difference in a term moves a plane's
+# value by up to u * t_k * sum_k mag(lambda_k), which grows as the triangle
+# shrinks, not by u times the plane's own size. A plane p = (a, b, c) is
+# therefore measured as (|da| X + |db| Y + |dc|) / (mag(p) * sum_k mag(lambda_k)),
+# where mag(p) = |a| X + |b| Y + |c| and X, Y are the image size or the
+# triangle's farthest corner, if larger. With equal corners the two versions
+# then differ by at most ~8 u (two roundings of a 3-term sum each); 64 u leaves
+# room for the corners' own last bits. Bbox and key lanes are pixel positions:
+# their differences over X (or Y), held to the same 64 u.
+SETUP_TOL = 2.0 ** -18
+
+
+def setup_error(rows_a: torch.Tensor, key_a: torch.Tensor, rows_b: torch.Tensor,
+                key_b: torch.Tensor, image_size: tuple[int, int]) -> dict:
+    """How far setup outputs a and b (the reference) lie apart, as SETUP_TOL
+    reads it: the largest plane and bbox/key errors over rows valid in both,
+    the number of rows whose validity differs, and the largest attribute
+    difference."""
+    H, W = image_size
+    valid_a, valid_b = rows_a[..., LANE_VALID] != 0, rows_b[..., LANE_VALID] != 0
+    both = valid_a & valid_b
+    if not both.any():
+        return dict(plane=0.0, bbox_key=0.0, valid_differs=int((valid_a != valid_b).sum()),
+                    attr=0.0)
+    a, b = rows_a[both].double(), rows_b[both].double()
+    d = (a - b).abs()
+    box = b[:, LANE_BBOX:LANE_BBOX + 4].abs()
+    X = torch.maximum(box[:, 0], box[:, 2]).clamp_min(W)
+    Y = torch.maximum(box[:, 1], box[:, 3]).clamp_min(H)
+
+    def mag(t, i, j, k):
+        return t[:, i].abs() * X + t[:, j].abs() * Y + t[:, k].abs()
+
+    cond = sum(mag(b, k, k + 3, k + 6) for k in range(3))
+    planes = [(k, k + 3, k + 6) for k in range(3)] + [(9, 10, 11)] + [
+        (12 + c, 15 + c, 18 + c) for c in range(3)]
+    plane = max(float((mag(d, *p) / (mag(b, *p) * cond).clamp_min(1e-30)).max()) for p in planes)
+    box_err = float((d[:, LANE_BBOX:LANE_BBOX + 4] / torch.stack([X, Y, X, Y], -1)).max())
+    key_err = float(((key_a[both] - key_b[both]).abs().double() / Y).max())
+    return dict(plane=plane, bbox_key=max(box_err, key_err),
+                valid_differs=int((valid_a != valid_b).sum()), attr=float(d[:, LANE_ATTR].max()))
+
+
+def sort_order(ykey: torch.Tensor) -> torch.Tensor:
+    """(B, Fp) int64: rows in order of ykey, equal keys in mesh order."""
+    return torch.sort(ykey, dim=1, stable=True).indices
+
+
+def bin_chunks(rows: torch.Tensor, order: torch.Tensor, image_size: tuple[int, int],
+               tile: tuple[int, int], max_tris_per_tile: int):
+    """The JAX package's chunk binning on the sorted rows: (sorted rows
+    (B,Fp,32), chunk_idx (B,n_tiles,Kc) int32, counts (B,n_tiles) int32).
+
+    Each tile lists the ascending ids of the chunks whose AABB (over their
+    valid rows) touches it; a tile that touches more than Kc drops the highest.
+    """
+    th, tw = tile
+    nty, ntx = tile_grid(image_size, tile)
+    B, Fp, _ = rows.shape
+    C = Fp // CHUNK
+    srt = torch.gather(rows, 1, order[..., None].expand(-1, -1, ROW))
+    valid = srt[..., LANE_VALID] != 0
     big = 1e9
-    bx0 = torch.where(valid, bbox[..., 0], big).reshape(B, C, CHUNK).amin(-1)
-    by0 = torch.where(valid, bbox[..., 1], big).reshape(B, C, CHUNK).amin(-1)
-    bx1 = torch.where(valid, bbox[..., 2], -big).reshape(B, C, CHUNK).amax(-1)
-    by1 = torch.where(valid, bbox[..., 3], -big).reshape(B, C, CHUNK).amax(-1)
+
+    def chunk_extreme(lane, fill, reduce):
+        return reduce(torch.where(valid, srt[..., lane], fill).reshape(B, C, CHUNK), -1)
+
+    bx0 = chunk_extreme(LANE_BBOX, big, torch.amin)
+    by0 = chunk_extreme(LANE_BBOX + 1, big, torch.amin)
+    bx1 = chunk_extreme(LANE_BBOX + 2, -big, torch.amax)
+    by1 = chunk_extreme(LANE_BBOX + 3, -big, torch.amax)
     cvalid = valid.reshape(B, C, CHUNK).any(-1)
-
-    Kc = math.ceil(min(max_tris_per_tile, Fp) / CHUNK)
-    tile_x0, tile_y0 = tile_origins(nty, ntx, th, tw, coef.device)
+    tile_x0, tile_y0 = tile_origins(nty, ntx, th, tw, rows.device)
     ov = overlap(bx0, by0, bx1, by1, cvalid, tile_x0, tile_y0, tw, th)  # (B, n_tiles, C)
-    chunk_idx, counts = first_k_true(ov, Kc)
-    return coef.contiguous(), chunk_idx.int().contiguous(), counts.int().contiguous()
+    chunk_idx, counts = first_k_true(ov, chunk_budget(max_tris_per_tile, Fp))
+    return srt, chunk_idx.int(), counts.int()
 
 
-# ---------------------------------------------------------------------------
-# plain version
-# ---------------------------------------------------------------------------
+def row_may_cover(rows: torch.Tensor, x0, x1, y0, y1) -> torch.Tensor:
+    """The cull rule of kernel B: False only where the row cannot win at any
+    pixel centre (x, y) of [x0, x1] x [y0, y1] (0 <= x0 <= x1, 0 <= y0 <= y1)
+    of the image whose cover boxes the rows carry.
+
+    rows (..., 32); the bounds are tensors or numbers broadcasting with
+    rows[..., 0]. Two conservative tests, and a row must pass both:
+    - its cover box (lanes 28:32, cover_box) meets the rectangle;
+    - for each plane, the largest value its evaluation ((a*x + b*y) + c) can
+      take in the rectangle, bounded by the value at the maximising corner plus
+      a slack of 2^-20 times the plane's magnitude |a|*x1 + |b|*y1 + |c| (more
+      than the rounding of both evaluations, below 2^-22 of it each), passes
+      the inside tests (lambda_i >= -1e-6) and the depth test (1/z > 0).
+    """
+    def plane_max(a, b, c):
+        a, b, c = rows[..., a], rows[..., b], rows[..., c]
+        top = a * torch.where(a >= 0, x1, x0) + b * torch.where(b >= 0, y1, y0) + c
+        mag = a.abs() * x1 + b.abs() * y1 + c.abs()
+        return top + mag * CULL_SLACK
+
+    box = rows[..., LANE_COVER:LANE_COVER + 4]
+    return ((box[..., 0] <= x1) & (box[..., 2] >= x0) & (box[..., 1] <= y1) & (box[..., 3] >= y0)
+            & (rows[..., LANE_VALID] != 0) & (plane_max(0, 3, 6) >= -1e-6)
+            & (plane_max(1, 4, 7) >= -1e-6) & (plane_max(2, 5, 8) >= -1e-6)
+            & (plane_max(9, 10, 11) >= 0))
 
 
-def resolve_plain(coef: torch.Tensor, chunk_idx: torch.Tensor, counts: torch.Tensor,
-                  image_size: tuple[int, int], tile: tuple[int, int], with_attr: bool = False):
-    """The kernel's function in plain PyTorch, on any device.
+def warp_rects(image_size: tuple[int, int], tile: tuple[int, int], device=None):
+    """Kernel B's warps, WARP_PIXELS consecutive pixels of a tile in row-major
+    order: (warp_of (H, W) long, each pixel's warp within its tile; x0, x1,
+    y0, y1 (n_tiles, n_warps) float32, each warp's pixel-centre rectangle,
+    ragged-edge pixels included)."""
+    H, W = image_size
+    th, tw = tile
+    nty, ntx = tile_grid(image_size, tile)
+    tid = torch.arange(th * tw, device=device)
+    warp = tid // WARP_PIXELS
+    n_w = int(warp.max()) + 1
+    lx, ly = (tid % tw).float(), (tid // tw).float()
+    tile_x0, tile_y0 = tile_origins(nty, ntx, th, tw, device)
+
+    def extreme(origin, local, fill, reduce):
+        per_warp = torch.full((n_w,), fill, device=device).scatter_reduce(0, warp, local, reduce)
+        return origin[:, None] + 0.5 + per_warp[None, :]
+
+    ys = torch.arange(H, device=device)
+    xs = torch.arange(W, device=device)
+    warp_of = warp.reshape(th, tw)[(ys % th)[:, None], (xs % tw)[None, :]]
+    return (warp_of,
+            extreme(tile_x0, lx, math.inf, "amin"), extreme(tile_x0, lx, -math.inf, "amax"),
+            extreme(tile_y0, ly, math.inf, "amin"), extreme(tile_y0, ly, -math.inf, "amax"))
+
+
+def resolve_plain(rows: torch.Tensor, chunk_idx: torch.Tensor, counts: torch.Tensor,
+                  image_size: tuple[int, int], tile: tuple[int, int], with_attr: bool = False,
+                  *, cull: bool = False):
+    """The per-pixel resolve of the sorted rows in plain PyTorch, on any device.
 
     Loops over chunk slots and their 8 rows; each step gathers one row per
     (item, tile), spreads its lanes to the tile's pixels and updates with
     torch.where. Every plane is ((a*x + b*y) + c) in separately rounded ops,
-    as in the kernel. Returns (rgb (B,3,H,W) clipped to [0,1], depth (B,H,W),
-    attr (B,H,W) or None).
+    as in the kernel. With `cull`, a row takes part at a pixel only where
+    row_may_cover holds on the pixel's warp rectangle, as in kernel B; the
+    image is the same, which the tests check. Returns (rgb (B,3,H,W) clipped
+    to [0,1], depth (B,H,W), attr (B,H,W) or None).
     """
     H, W = image_size
     th, tw = tile
     nty, ntx = tile_grid(image_size, tile)
-    B = coef.shape[0]
-    dev = coef.device
+    B = rows.shape[0]
+    dev = rows.device
     ys = torch.arange(H, device=dev)
     xs = torch.arange(W, device=dev)
     tile_of = (ys // th)[:, None] * ntx + (xs // tw)[None, :]  # (H, W)
     py = (ys.float() + 0.5)[:, None]
     px = (xs.float() + 0.5)[None, :]
     live = counts.long()[:, tile_of]  # (B, H, W)
+    if cull:
+        warp_of, *rect = warp_rects(image_size, tile, dev)
 
     iz = torch.zeros(B, H, W, device=dev)
     colz = [torch.zeros(B, H, W, device=dev) for _ in range(3)]
@@ -139,7 +315,7 @@ def resolve_plain(coef: torch.Tensor, chunk_idx: torch.Tensor, counts: torch.Ten
         active = k < live
         first_row = chunk_idx[:, :, k].long() * CHUNK  # (B, n_tiles)
         for j in range(CHUNK):
-            row = torch.gather(coef, 1, (first_row + j)[..., None].expand(-1, -1, COEF_DIM))
+            row = torch.gather(rows, 1, (first_row + j)[..., None].expand(-1, -1, ROW))
 
             def lane(i):  # lane i of each tile's row, spread to its pixels: (B, H, W)
                 return row[:, :, i][:, tile_of]
@@ -150,11 +326,13 @@ def resolve_plain(coef: torch.Tensor, chunk_idx: torch.Tensor, counts: torch.Ten
             lmin = torch.minimum(plane(0, 3, 6), torch.minimum(plane(1, 4, 7), plane(2, 5, 8)))
             izv = plane(9, 10, 11)
             win = active & (lmin >= -1e-6) & (izv > iz)
+            if cull:
+                win &= row_may_cover(row[:, :, None, :], *rect)[:, tile_of, warp_of]
             iz = torch.where(win, izv, iz)
             for c in range(3):
                 colz[c] = torch.where(win, plane(12 + c, 15 + c, 18 + c), colz[c])
             if with_attr:
-                attr = torch.where(win, lane(21), attr)
+                attr = torch.where(win, lane(LANE_ATTR), attr)
 
     hit = iz > 0.0
     safe = iz.clamp_min(1e-12)
@@ -163,92 +341,163 @@ def resolve_plain(coef: torch.Tensor, chunk_idx: torch.Tensor, counts: torch.Ten
     return rgb, depth, (torch.where(hit, attr, 0.0) if with_attr else None)
 
 
+def resolve_plain_binned(rows: torch.Tensor, order: torch.Tensor, image_size: tuple[int, int],
+                         tile: tuple[int, int], max_tris_per_tile: int = 1024,
+                         with_attr: bool = False):
+    """Kernel B's function in plain PyTorch: bin_chunks, then resolve_plain."""
+    srt, chunk_idx, counts = bin_chunks(rows, order, image_size, tile, max_tris_per_tile)
+    return resolve_plain(srt, chunk_idx, counts, image_size, tile, with_attr)
+
+
 # ---------------------------------------------------------------------------
-# the kernel
+# the kernels
 # ---------------------------------------------------------------------------
 
 
-def build_library() -> tuple[pathlib.Path, str]:
-    """Compile csrc/rasterizer.cu into build/ if that build is missing.
+def nvcc_path() -> str:
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
-    Returns (path of the shared library, nvcc's report: '' when the build
-    was already there). The file name carries a hash of source and flags.
+
+def build_libraries() -> dict[str, tuple[pathlib.Path, str]]:
+    """Compile each csrc/ source into build/ where that build is missing, all
+    nvcc processes started together.
+
+    Returns {name: (path of the shared library, nvcc's report: '' when the
+    build was already there)}. File names carry a hash of source and flags.
     """
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libcosypose_raster_{digest}.so"
-    if out.exists():
-        return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    tmp = BUILD_DIR / f"libcosypose_raster_{digest}.{os.getpid()}.so"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    nvcc = nvcc_path()
+    out, running = {}, {}
+    for name, src in SOURCES.items():
+        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        lib = BUILD_DIR / f"libcosypose_raster_{name}_{digest}.so"
+        if lib.exists():
+            out[name] = (lib, "")
+            continue
+        tmp = BUILD_DIR / f"libcosypose_raster_{name}_{digest}.{os.getpid()}.so"
+        running[name] = (lib, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (lib, tmp, proc) in running.items():
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {SOURCES[name].name} ({proc.returncode}):\n{report}")
+            continue
+        os.replace(tmp, lib)
+        out[name] = (lib, report)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
-class RasterKernel:
-    """ctypes binding of csrc/rasterizer.cu with a count of launches for each of
-    its two variants: 'raster_resolve' and 'raster_resolve_attr' (WITH_ATTR)."""
+def _check(name, x, device, dtype, shape):
+    if x.device != device or x.dtype != dtype or tuple(x.shape) != tuple(shape) \
+            or not x.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous {dtype} tensor of shape {tuple(shape)} on "
+                         f"{device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+class RasterKernels:
+    """ctypes bindings of csrc/raster_setup.cu and csrc/raster_resolve.cu, with
+    a count of launches of each kernel and variant: 'raster_setup',
+    'raster_resolve' and 'raster_resolve_attr' (WITH_ATTR)."""
 
     def __init__(self):
-        self.launches = {"raster_resolve": 0, "raster_resolve_attr": 0}
-        self._fn = None
+        self.launches = {"raster_setup": 0, "raster_resolve": 0, "raster_resolve_attr": 0}
+        self._fns = None
 
     def load(self):
-        if self._fn is None:
-            path, _ = build_library()
-            fn = ctypes.CDLL(str(path)).cosypose_raster_resolve
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+        if self._fns is None:
+            libs = build_libraries()
+            setup = ctypes.CDLL(str(libs["setup"][0])).cosypose_raster_setup
+            setup.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            resolve = ctypes.CDLL(str(libs["resolve"][0])).cosypose_raster_resolve
+            resolve.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+            setup.restype = resolve.restype = ctypes.c_int
+            self._fns = {"setup": setup, "resolve": resolve}
+        return self._fns
 
-    def __call__(self, coef: torch.Tensor, chunk_idx: torch.Tensor, counts: torch.Tensor,
-                 image_size: tuple[int, int], tile: tuple[int, int], with_attr: bool = False):
+    def setup(self, tri_verts, tri_valid, TCO, K, image_size, colors=None, z_near=0.05,
+              tri_attr=None):
+        """Kernel A on CUDA tensors: (rows (B,Fp,32), ykey (B,Fp))."""
+        if not tri_verts.is_cuda:
+            raise ValueError("the raster kernels take CUDA tensors")
+        dev = tri_verts.device
+        B, Fn = tri_verts.shape[:2]
+        _check("tri_verts", tri_verts, dev, torch.float32, (B, Fn, 3, 3))
+        _check("tri_valid", tri_valid, dev, torch.bool, (B, Fn))
+        _check("TCO", TCO, dev, torch.float32, (B, 4, 4))
+        _check("K", K, dev, torch.float32, (B, 3, 3))
+        if colors is not None:
+            _check("colors", colors, dev, torch.float32, (B, Fn, 3, 3))
+        if tri_attr is not None:
+            _check("tri_attr", tri_attr, dev, torch.float32, (B, Fn))
+        Fp = padded_rows(Fn)
+        rows = torch.empty(B, Fp, ROW, device=dev)
+        ykey = torch.empty(B, Fp, device=dev)
+        err = self.load()["setup"](
+            tri_verts.data_ptr(), tri_valid.data_ptr(), TCO.data_ptr(), K.data_ptr(),
+            None if colors is None else colors.data_ptr(),
+            None if tri_attr is None else tri_attr.data_ptr(), rows.data_ptr(),
+            ykey.data_ptr(), B, Fn, Fp, int(image_size[0]), int(image_size[1]), float(z_near),
+            dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"raster_setup launch failed: cudaError {err}")
+        self.launches["raster_setup"] += 1
+        return rows, ykey
+
+    def resolve(self, rows, order, image_size, tile, max_tris_per_tile=1024, with_attr=False):
+        """Kernel B on CUDA tensors: (rgb (B,3,H,W), depth (B,H,W), attr or None)."""
         H, W = image_size
         th, tw = tile
         nty, ntx = tile_grid(image_size, tile)
-        n_tiles = nty * ntx
-        if not coef.is_cuda:
-            raise ValueError("the raster kernel takes CUDA tensors")
-        for name, x, dtype, ndim in (("coef", coef, torch.float32, 3),
-                                     ("chunk_idx", chunk_idx, torch.int32, 3),
-                                     ("counts", counts, torch.int32, 2)):
-            if x.device != coef.device or x.dtype != dtype or x.ndim != ndim or not x.is_contiguous():
-                raise ValueError(f"{name}: want a contiguous {ndim}-d {dtype} tensor on "
-                                 f"{coef.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
-        B, Fp, dim = coef.shape
-        Kc = chunk_idx.shape[2]
-        if dim != COEF_DIM or Fp % CHUNK or chunk_idx.shape[:2] != (B, n_tiles) \
-                or counts.shape != (B, n_tiles) or not 0 < th * tw <= 1024 or B > 65535:
-            raise ValueError(f"shapes do not fit: coef {tuple(coef.shape)}, chunk_idx "
-                             f"{tuple(chunk_idx.shape)}, counts {tuple(counts.shape)}, "
-                             f"tile {tile}, image {image_size}")
-        fn = self.load()
-        rgb = torch.empty(B, 3, H, W, device=coef.device)
-        depth = torch.empty(B, H, W, device=coef.device)
-        attr = torch.empty(B, H, W, device=coef.device) if with_attr else None
-        err = fn(coef.data_ptr(), chunk_idx.data_ptr(), counts.data_ptr(), rgb.data_ptr(),
-                 depth.data_ptr(), attr.data_ptr() if with_attr else None,
-                 B, Fp, n_tiles, Kc, H, W, th, tw, ntx, int(with_attr),
-                 coef.device.index or 0, torch.cuda.current_stream(coef.device).cuda_stream)
+        if not rows.is_cuda:
+            raise ValueError("the raster kernels take CUDA tensors")
+        B, Fp = rows.shape[:2]
+        _check("rows", rows, rows.device, torch.float32, (B, Fp, ROW))
+        _check("order", order, rows.device, torch.int64, (B, Fp))
+        Kc = chunk_budget(max_tris_per_tile, Fp)
+        if Fp % CHUNK or Fp > MAX_ROWS or th * tw <= 0 or th * tw % WARP_PIXELS or B > 65535 \
+                or rows.data_ptr() % 16:
+            raise ValueError(f"raster_resolve does not take rows {tuple(rows.shape)} (at most "
+                             f"{MAX_ROWS} per item) with tile {tile} (th*tw a multiple of "
+                             f"{WARP_PIXELS})")
+        fn = self.load()["resolve"]
+        rgb = torch.empty(B, 3, H, W, device=rows.device)
+        depth = torch.empty(B, H, W, device=rows.device)
+        attr = torch.empty(B, H, W, device=rows.device) if with_attr else None
+        err = fn(rows.data_ptr(), order.data_ptr(), rgb.data_ptr(), depth.data_ptr(),
+                 attr.data_ptr() if with_attr else None, B, Fp, Kc, H, W, th, tw, nty, ntx,
+                 int(with_attr), rows.device.index or 0,
+                 torch.cuda.current_stream(rows.device).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"raster kernel launch failed: cudaError {err}")
+            raise RuntimeError(f"raster_resolve launch failed: cudaError {err}")
         self.launches["raster_resolve_attr" if with_attr else "raster_resolve"] += 1
         return rgb, depth, attr
 
 
-RASTER_KERNEL = RasterKernel()
+RASTER_KERNEL = RasterKernels()
 
 
-def resolve(coef, chunk_idx, counts, image_size, tile, with_attr=False):
-    """The kernel on CUDA tensors, its plain version on CPU tensors."""
-    if coef.is_cuda:
-        return RASTER_KERNEL(coef, chunk_idx, counts, image_size, tile, with_attr)
-    if coef.device.type == "cpu":
-        return resolve_plain(coef, chunk_idx, counts, image_size, tile, with_attr)
-    raise ValueError(f"no rasterizer for device {coef.device}")
+def setup(tri_verts, tri_valid, TCO, K, image_size, colors=None, z_near=0.05, tri_attr=None):
+    """Kernel A on CUDA tensors, setup_plain on CPU tensors: (rows, ykey)."""
+    if tri_verts.is_cuda:
+        def f32(x):
+            return None if x is None else x.float().contiguous()
 
+        return RASTER_KERNEL.setup(f32(tri_verts), tri_valid.bool().contiguous(), f32(TCO),
+                                   f32(K), image_size, f32(colors), z_near, f32(tri_attr))
+    if tri_verts.device.type == "cpu":
+        return setup_plain(tri_verts, tri_valid, TCO, K, image_size, colors, z_near, tri_attr)
+    raise ValueError(f"no rasterizer for device {tri_verts.device}")
+
+
+def resolve(rows, order, image_size, tile, max_tris_per_tile=1024, with_attr=False):
+    """Kernel B on CUDA tensors, resolve_plain_binned on CPU tensors."""
+    if rows.is_cuda:
+        return RASTER_KERNEL.resolve(rows, order, image_size, tile, max_tris_per_tile, with_attr)
+    if rows.device.type == "cpu":
+        return resolve_plain_binned(rows, order, image_size, tile, max_tris_per_tile, with_attr)
+    raise ValueError(f"no rasterizer for device {rows.device}")

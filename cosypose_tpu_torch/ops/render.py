@@ -1,24 +1,28 @@
 """Rendering dispatcher by tensor device (port of cosypose_tpu/ops/render.py).
 
-The PyTorch prologue bins the triangles (ops/rasterizer_cuda.prepare); then
-CUDA tensors go to the hand-written kernel (csrc/rasterizer.cu) and CPU
-tensors to its plain PyTorch version (ops/rasterizer_cuda.resolve). There is
-no fallback: a CUDA input that the kernel refuses raises.
+Three steps (ops/rasterizer_cuda.py): the triangle setup, a stable sort of the
+rows by projected y-centre, and the binned depth resolve. CUDA tensors go
+through the two hand-written kernels (csrc/raster_setup.cu,
+csrc/raster_resolve.cu) and CPU tensors through their plain PyTorch versions.
+There is no fallback: a CUDA input that a kernel refuses raises.
 """
 
 from __future__ import annotations
 
 from .rasterizer import RenderOutput
-from .rasterizer_cuda import prepare, resolve
+from .rasterizer_cuda import resolve, setup, sort_order
 
 
 def render(tri_verts, tri_valid, TCO, K, image_size=(240, 320), colors=None,
            tile=(16, 32), max_tris_per_tile=1024, z_near=0.05,
            tri_attr=None) -> RenderOutput:
     """tri_verts (B,F,3,3), tri_valid (B,F), TCO (B,4,4), K (B,3,3) → RenderOutput
-    with rgb (B,3,H,W), depth and mask (B,H,W), attr (B,H,W) when tri_attr is given."""
-    coef, chunk_idx, counts = prepare(tri_verts, tri_valid, TCO, K, image_size, colors,
-                                      tile, max_tris_per_tile, z_near, tri_attr)
-    rgb, depth, attr = resolve(coef, chunk_idx, counts, image_size, tile,
+    with rgb (B,3,H,W), depth and mask (B,H,W), attr (B,H,W) when tri_attr is given.
+
+    A tile that touches more than max_tris_per_tile triangles (in chunks of 8
+    sorted rows) drops the highest chunks, as the JAX package's binning does.
+    """
+    rows, ykey = setup(tri_verts, tri_valid, TCO, K, image_size, colors, z_near, tri_attr)
+    rgb, depth, attr = resolve(rows, sort_order(ykey), image_size, tile, max_tris_per_tile,
                                with_attr=tri_attr is not None)
     return RenderOutput(rgb=rgb, depth=depth, mask=depth > 0, attr=attr)

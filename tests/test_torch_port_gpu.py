@@ -1,12 +1,16 @@
-"""The CUDA raster kernel against its plain PyTorch version, on the card.
+"""The CUDA raster kernels against their plain PyTorch versions, on the card.
 
 Marked `gpu`; each test asks the `cuda` fixture for the card and skips where
 there is none (decided at run time, never at import). Run them on a machine
 with a card: `python -m pytest tests/test_torch_port_gpu.py -m gpu`.
 
-The kernel repeats the plain version's arithmetic op for op (no FMA
-contraction, IEEE division), so the expected error is 0; the tolerance is
-atol 1e-4 on depth and rgb, with mask and attribute exactly equal.
+Tolerances: the resolve kernel repeats its plain version's arithmetic op for
+op (no FMA contraction, IEEE division), so the expected error is 0; it is held
+at atol 1e-4 on depth and rgb, with mask and attribute exactly equal. The
+setup kernel is held at rasterizer_cuda.SETUP_TOL (a few ulps from PyTorch's
+summation order, explained there). A whole render on the card against the CPU
+may differ where a pixel centre lies within rounding of an edge: such pixels
+(mask differs, or rgb/depth beyond 1e-4) are counted and bounded.
 """
 
 import numpy as np
@@ -18,9 +22,11 @@ from cosypose_tpu_torch.models.pose_predictor import (PosePredictor, PosePredict
                                                       gather_mesh_data)
 from cosypose_tpu_torch.ops import rasterizer_cuda
 from cosypose_tpu_torch.ops.mesh_db import build_mesh_db
+from cosypose_tpu_torch.ops.render import render
 
 pytestmark = pytest.mark.gpu
 ATOL = 1e-4
+IMAGE = (240, 320)
 
 
 @pytest.fixture
@@ -32,7 +38,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def demo_scene(device, B=8, image=(240, 320), lod=512, seed=0):
+def demo_scene(device, B=8, image=IMAGE, lod=512, seed=0):
     """The demo spheres at crop-like poses: the main path's kernel inputs."""
     db = build_mesh_db(demo.demo_specs(), render_max_faces=lod, device=device)
     rng = np.random.RandomState(seed)
@@ -56,50 +62,89 @@ def _compare(kernel_out, plain_out, with_attr):
         assert torch.equal(attr_k, attr_p)
 
 
-@pytest.mark.parametrize("budget", [1024, 40])
-@pytest.mark.parametrize("tile", [(16, 16), (8, 32), (32, 32)])
-def test_kernel_matches_plain(cuda, tile, budget):
-    tv, valid, TCO, K, colors = demo_scene(cuda)
-    image = (240, 320)
-    coef, idx, counts = rasterizer_cuda.prepare(tv, valid, TCO, K, image, colors, tile, budget)
+def test_setup_matches_plain(cuda):
+    scene = demo_scene(cuda)
     launches = dict(rasterizer_cuda.RASTER_KERNEL.launches)
-    out = rasterizer_cuda.RASTER_KERNEL(coef, idx, counts, image, tile)
+    rows, key = rasterizer_cuda.RASTER_KERNEL.setup(*scene[:4], IMAGE, scene[4])
     torch.cuda.synchronize()
-    assert rasterizer_cuda.RASTER_KERNEL.launches == {
-        "raster_resolve": launches["raster_resolve"] + 1,
-        "raster_resolve_attr": launches["raster_resolve_attr"]}
-    _compare(out, rasterizer_cuda.resolve_plain(coef, idx, counts, image, tile), False)
+    assert rasterizer_cuda.RASTER_KERNEL.launches["raster_setup"] == launches["raster_setup"] + 1
+    plain = rasterizer_cuda.setup_plain(*scene[:4], IMAGE, scene[4])
+    err = rasterizer_cuda.setup_error(rows, key, *plain, IMAGE)
+    assert err["valid_differs"] == 0 and err["attr"] == 0
+    assert err["plane"] <= rasterizer_cuda.SETUP_TOL
+    assert err["bbox_key"] <= rasterizer_cuda.SETUP_TOL
+    assert (rows[..., rasterizer_cuda.LANE_VALID] != 0).float().mean() > 0.9
+
+
+@pytest.mark.parametrize("budget", [1024, 40])
+@pytest.mark.parametrize("tile", [(16, 16), (8, 32), (16, 32), (32, 32), (64, 64)])
+def test_resolve_matches_plain(cuda, tile, budget):
+    """Tiles (32, 32) and (64, 64) are ragged on the 240-row image."""
+    scene = demo_scene(cuda)
+    rows, key = rasterizer_cuda.RASTER_KERNEL.setup(*scene[:4], IMAGE, scene[4])
+    order = rasterizer_cuda.sort_order(key)
+    launches = dict(rasterizer_cuda.RASTER_KERNEL.launches)
+    out = rasterizer_cuda.RASTER_KERNEL.resolve(rows, order, IMAGE, tile, budget)
+    torch.cuda.synchronize()
+    assert rasterizer_cuda.RASTER_KERNEL.launches == dict(
+        launches, raster_resolve=launches["raster_resolve"] + 1)
+    _compare(out, rasterizer_cuda.resolve_plain_binned(rows, order, IMAGE, tile, budget), False)
     assert (out[1] > 0).float().mean() > 0.05
+    if budget == 40:  # the budget does bind
+        _, _, counts = rasterizer_cuda.bin_chunks(rows, order, IMAGE, tile, budget)
+        assert int(counts.max()) == 5
 
 
-def test_kernel_attr_variant(cuda):
+def test_resolve_attr_variant(cuda):
     """Two overlapping instances in one item: the winner's instance id."""
     tv, valid, TCO, K, colors = demo_scene(cuda, B=2)
     T0 = TCO[0].clone()
     shift = torch.tensor([0.03, 0.0, 0.1], device=cuda)
     tv_cam0 = tv[0] @ T0[:3, :3].T + T0[:3, 3]
-    tv2 = torch.cat([tv_cam0, tv_cam0 + shift])[None]
-    valid2 = torch.cat([valid[0], valid[0]])[None]
+    tv2 = torch.cat([tv_cam0, tv_cam0 + shift])[None].contiguous()
+    valid2 = torch.cat([valid[0], valid[0]])[None].contiguous()
     n = valid.shape[1]
     attr = torch.cat([torch.full((n,), 1.0), torch.full((n,), 2.0)])[None].to(cuda)
     eye = torch.eye(4, device=cuda)[None]
-    image, tile = (240, 320), (16, 16)
-    coef, idx, counts = rasterizer_cuda.prepare(tv2, valid2, eye, K[:1], image, tile=tile,
-                                                tri_attr=attr)
-    out = rasterizer_cuda.RASTER_KERNEL(coef, idx, counts, image, tile, with_attr=True)
-    _compare(out, rasterizer_cuda.resolve_plain(coef, idx, counts, image, tile, True), True)
+    tile = (16, 16)
+    rows, key = rasterizer_cuda.RASTER_KERNEL.setup(tv2, valid2, eye, K[:1].contiguous(), IMAGE,
+                                                    tri_attr=attr)
+    order = rasterizer_cuda.sort_order(key)
+    out = rasterizer_cuda.RASTER_KERNEL.resolve(rows, order, IMAGE, tile, with_attr=True)
+    _compare(out, rasterizer_cuda.resolve_plain_binned(rows, order, IMAGE, tile, 1024, True), True)
     assert set(out[2].unique().tolist()) == {0.0, 1.0, 2.0}
 
 
-def test_kernel_refuses_bad_inputs(cuda):
+def test_kernels_refuse_bad_inputs(cuda):
     tv, valid, TCO, K, colors = demo_scene(cuda, B=2)
-    coef, idx, counts = rasterizer_cuda.prepare(tv, valid, TCO, K, (64, 64), colors, (16, 16))
+    kernels = rasterizer_cuda.RASTER_KERNEL
     with pytest.raises(ValueError):
-        rasterizer_cuda.RASTER_KERNEL(coef.double(), idx, counts, (64, 64), (16, 16))
+        kernels.setup(tv.double(), valid, TCO, K, (64, 64))
     with pytest.raises(ValueError):
-        rasterizer_cuda.RASTER_KERNEL(coef, idx.long(), counts, (64, 64), (16, 16))
+        kernels.setup(tv, valid.float(), TCO, K, (64, 64))
+    rows, key = kernels.setup(tv, valid, TCO, K, (64, 64), colors)
+    order = rasterizer_cuda.sort_order(key)
     with pytest.raises(ValueError):
-        rasterizer_cuda.RASTER_KERNEL(coef, idx, counts, (64, 64), (64, 64))  # 4096 threads
+        kernels.resolve(rows.double(), order, (64, 64), (16, 16))
+    with pytest.raises(ValueError):
+        kernels.resolve(rows, order.int(), (64, 64), (16, 16))
+    with pytest.raises(ValueError):
+        kernels.resolve(rows, order, (64, 64), (4, 8))    # not whole warps
+    big = torch.zeros(1, rasterizer_cuda.MAX_ROWS + 8, rasterizer_cuda.ROW, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.resolve(big, torch.arange(big.shape[1], device=cuda)[None], (64, 64), (16, 16))
+
+
+def test_render_card_matches_cpu(cuda):
+    """render() on the card (both kernels) against the CPU (plain versions)."""
+    scene = demo_scene(cuda)
+    on_card = render(*scene[:4], image_size=IMAGE, colors=scene[4])
+    on_cpu = render(*[x.cpu() for x in scene[:4]], image_size=IMAGE, colors=scene[4].cpu())
+    rgb_d = (on_card.rgb.cpu() - on_cpu.rgb).abs().amax(1)
+    depth_d = (on_card.depth.cpu() - on_cpu.depth).abs()
+    off = (on_card.mask.cpu() != on_cpu.mask) | (rgb_d > ATOL) | (depth_d > ATOL)
+    assert on_cpu.mask.float().mean() > 0.05
+    assert int(off.sum()) <= 1e-4 * off.numel(), int(off.sum())
 
 
 def test_pose_predictor_card_matches_cpu(cuda):

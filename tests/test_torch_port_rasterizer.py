@@ -1,10 +1,11 @@
-"""Port parity: the binned rasterizer (prologue + the kernel's plain version)
-against JAX `rasterize_pallas(interpret=True)`, and the port's plain
-`rasterize` against JAX `rasterize`.
+"""Port parity: the binned rasterizer (the plain versions of the setup and
+resolve kernels, with the sort between) against JAX
+`rasterize_pallas(interpret=True)`, and the port's plain `rasterize` against
+JAX `rasterize`; and the resolve kernel's cull rule, `row_may_cover`.
 
 Cases are those of tests/test_rasterizer_pallas.py plus a budget-overflow
 case and the demo spheres. Tolerances: rgb and depth atol 1e-4; mask and
-attribute exactly equal.
+attribute exactly equal. The cull must leave the image unchanged to the bit.
 """
 
 import numpy as np
@@ -149,8 +150,10 @@ def test_budget_overflow_drops_the_same_chunks(budget):
     port = render(_t(c["tv"]), _t(c["valid"]), _t(c["TCO"]), _t(c["K"]), image_size=image,
                   colors=_t(c["colors"]), tile=tile, max_tris_per_tile=budget)
     _compare(port, ref, False)
-    _, _, counts = rasterizer_cuda.prepare(_t(c["tv"]), _t(c["valid"]), _t(c["TCO"]),
-                                           _t(c["K"]), image, tile=tile, max_tris_per_tile=budget)
+    rows, ykey = rasterizer_cuda.setup_plain(_t(c["tv"]), _t(c["valid"]), _t(c["TCO"]),
+                                             _t(c["K"]), image, _t(c["colors"]))
+    _, _, counts = rasterizer_cuda.bin_chunks(rows, rasterizer_cuda.sort_order(ykey), image,
+                                              tile, budget)
     assert (int(counts.max()) == budget // 8) == (budget == 40)
 
 
@@ -176,8 +179,173 @@ def test_first_k_true_is_ordered_compaction(k):
 
 
 def test_resolve_refuses_other_devices():
-    coef = torch.zeros(1, 8, 24, device="meta")
+    rows = torch.zeros(1, 8, rasterizer_cuda.ROW, device="meta")
+    order = torch.zeros(1, 8, dtype=torch.long, device="meta")
     with pytest.raises(ValueError):
-        rasterizer_cuda.resolve(coef, torch.zeros(1, 1, 1, dtype=torch.int32, device="meta"),
-                                torch.zeros(1, 1, dtype=torch.int32, device="meta"),
-                                (8, 8), (8, 8))
+        rasterizer_cuda.resolve(rows, order, (8, 8), (8, 8))
+    tv = torch.zeros(1, 8, 3, 3, device="meta")
+    with pytest.raises(ValueError):
+        rasterizer_cuda.setup(tv, torch.ones(1, 8, dtype=torch.bool, device="meta"),
+                              torch.eye(4, device="meta")[None], torch.eye(3, device="meta")[None],
+                              (8, 8))
+    # the kernels' wrappers take CUDA tensors only: no silent CPU path
+    with pytest.raises(ValueError):
+        rasterizer_cuda.RASTER_KERNEL.resolve(torch.zeros(1, 8, rasterizer_cuda.ROW),
+                                              torch.zeros(1, 8, dtype=torch.long), (8, 8), (8, 8))
+
+
+def _screen_case(corners_uv, z, attr=None):
+    """Triangles given by their pixel coordinates (B,F,3,2) and camera depths
+    (B,F,3), under fx = fy = 1, cx = cy = 0 and TCO = I: with depths powers of
+    2, the corners project exactly where they are given."""
+    uv = np.asarray(corners_uv, np.float32)
+    z = np.asarray(z, np.float32)
+    tv = np.concatenate([uv * z[..., None], z[..., None]], -1)
+    B, Fn = tv.shape[:2]
+    K = np.tile(np.diag([1.0, 1.0, 1.0]).astype(np.float32), (B, 1, 1))
+    return dict(tv=tv, valid=np.ones((B, Fn), bool), TCO=np.tile(np.eye(4, dtype=np.float32),
+                                                                  (B, 1, 1)), K=K, colors=None)
+
+
+def _slivers(image=(48, 80), B=2, n=96, seed=3):
+    """Long thin triangles (third corner ~1e-3 px off the edge), sub-pixel
+    triangles, and ordinary ones, at depths 0.5, 1, 2."""
+    rng = np.random.RandomState(seed)
+    H, W = image
+    p = rng.uniform([0, 0], [W, H], (B, n, 2))
+    q = rng.uniform([0, 0], [W, H], (B, n, 2))
+    t = rng.uniform(0, 1, (B, n, 1))
+    off = rng.normal(size=(B, n, 2)) * 1e-3
+    sliver = np.stack([p, q, p + t * (q - p) + off], 2)
+    tiny = p[..., None, :] + rng.uniform(-0.02, 0.02, (B, n, 3, 2))
+    big = p[..., None, :] + rng.uniform(-8, 8, (B, n, 3, 2))
+    uv = np.concatenate([sliver, tiny, big], 1)
+    z = 2.0 ** rng.randint(-1, 2, uv.shape[:3])
+    return _screen_case(uv, z)
+
+
+def _pixel_centre_edges(image=(48, 80), B=2, n=128, seed=4):
+    """Triangles whose corners sit on pixel centres, so their edges pass
+    through pixel centres (axis-aligned, diagonal and arbitrary), at depths
+    0.5 to 4 and tilted, overlapping one another."""
+    rng = np.random.RandomState(seed)
+    H, W = image
+    base = rng.randint([0, 0], [W, H], (B, n, 1, 2))
+    shape = rng.randint(-6, 7, (B, n, 3, 2))
+    shape[:, : n // 2, 1] = shape[:, : n // 2, 0] + [5, 0]   # an axis-aligned edge
+    shape[:, : n // 2, 2] = shape[:, : n // 2, 0] + [0, 5]
+    uv = (base + shape).astype(np.float32) + 0.5
+    z = 2.0 ** rng.randint(-1, 3, uv.shape[:3])
+    return _screen_case(uv, z)
+
+
+CULL_CASES = {"spheres": lambda: _sphere_case(), "slivers": _slivers,
+              "pixel_centre_edges": _pixel_centre_edges}
+
+
+@pytest.mark.parametrize("tile", [(8, 32), (16, 16), (16, 48)])
+@pytest.mark.parametrize("name", sorted(CULL_CASES))
+def test_cull_never_skips_a_winning_row(name, tile):
+    """resolve_plain with each row masked per warp by row_may_cover (the rule
+    the resolve kernel culls by) equals resolve_plain without it, to the bit.
+    Tile (16, 48) is ragged on the 80-px-wide image."""
+    c = CULL_CASES[name]()
+    image = (48, 128) if name == "spheres" else (48, 80)
+    rows, ykey = rasterizer_cuda.setup_plain(_t(c["tv"]), _t(c["valid"]), _t(c["TCO"]),
+                                             _t(c["K"]), image, _t(c["colors"]))
+    srt, idx, counts = rasterizer_cuda.bin_chunks(rows, rasterizer_cuda.sort_order(ykey), image,
+                                                  tile, 1024)
+    full = rasterizer_cuda.resolve_plain(srt, idx, counts, image, tile)
+    culled = rasterizer_cuda.resolve_plain(srt, idx, counts, image, tile, cull=True)
+    assert torch.equal(full[0], culled[0]) and torch.equal(full[1], culled[1])
+    assert (full[1] > 0).any()
+    # the rule does cull: most (listed row, warp) pairs are skipped
+    _, *rect = rasterizer_cuda.warp_rects(image, tile)
+    listed = torch.arange(idx.shape[2]) < counts[..., None].long()          # (B, T, Kc)
+    row_ids = (idx.long()[..., None] * 8 + torch.arange(8)).flatten(2)       # (B, T, Kc*8)
+    listed_rows = torch.gather(srt, 1, row_ids.flatten(1)[..., None].expand(-1, -1, 32))
+    listed_rows = listed_rows.reshape(*row_ids.shape, 32)
+    may = rasterizer_cuda.row_may_cover(listed_rows[:, :, :, None],
+                                        *[r[None, :, None] for r in rect])  # (B, T, Kc*8, n_w)
+    live = listed.repeat_interleave(8, -1)[..., None].expand_as(may)
+    assert may[live].float().mean() < 0.5
+
+
+def test_row_may_cover_is_tight_at_a_pixel():
+    """On a one-pixel rectangle the rule keeps a row exactly where the pixel
+    centre is inside (up to its slack) and in front of the camera."""
+    c = _screen_case([[[[10.5, 10.5], [20.5, 10.5], [10.5, 20.5]]]], [[[1.0, 1.0, 1.0]]])
+    rows, _ = rasterizer_cuda.setup_plain(_t(c["tv"]), _t(c["valid"]), _t(c["TCO"]), _t(c["K"]),
+                                          (48, 80))
+    row = rows[0, 0]
+    for (x, y), inside in [((10.5, 10.5), True), ((15.5, 15.5), True), ((15.5, 15.6), False),
+                           ((10.4, 12.5), False), ((30.5, 30.5), False)]:
+        assert bool(rasterizer_cuda.row_may_cover(row, x, x, y, y)) == inside, (x, y)
+    assert not bool(rasterizer_cuda.row_may_cover(rows[0, 1], 0.5, 79.5, 0.5, 47.5))  # padding
+
+
+@pytest.mark.parametrize("name", ["spheres", "pixel_centre_edges"])
+def test_setup_tolerance_covers_float32_rounding(name):
+    """SETUP_TOL, the tolerance of the setup kernel, measured on what float32
+    rounding alone does: on triangles of a pixel or more, setup_plain in
+    float32 lies within an eighth of it from float64, while a lane moved by
+    1e-3 of its value lies beyond it. (Sub-pixel slivers are ill-conditioned
+    for any float32 formulation of the planes, ~600 u from float64, and are
+    not what the tolerance is about: two float32 versions share their
+    barycentric lanes there.)"""
+    c = CULL_CASES[name]()
+    args = [_t(c[k]) for k in ("tv", "valid", "TCO", "K")]
+    rows, key = rasterizer_cuda.setup_plain(*args, (48, 80), _t(c["colors"]))
+    exact = rasterizer_cuda.setup_plain(*[a.double() if a.is_floating_point() else a for a in args],
+                                        (48, 80), None if c["colors"] is None
+                                        else _t(c["colors"]).double())
+    err = rasterizer_cuda.setup_error(rows, key, *exact, (48, 80))
+    assert err["valid_differs"] == 0 and err["attr"] == 0
+    assert err["plane"] <= rasterizer_cuda.SETUP_TOL / 8
+    assert err["bbox_key"] <= rasterizer_cuda.SETUP_TOL / 8
+    moved = rows.clone()
+    moved[..., 9] *= 1 + 1e-3
+    assert rasterizer_cuda.setup_error(moved, key, rows, key, (48, 80))["plane"] \
+        > rasterizer_cuda.SETUP_TOL
+
+
+def test_cover_box_holds_subpixel_triangles():
+    """Sub-pixel triangles (edges 3e-5 to 1e-3 px, just above the degenerate
+    area) have float32 planes whose inside tests pass at pixels far from their
+    corners. Every such pixel lies in the row's cover box, which the resolve
+    kernel culls by; a bbox widened by a pixel would miss some of them."""
+    H, W = 240, 320
+    rng = np.random.RandomState(0)
+    n = 160
+    p = rng.uniform([100, 80], [300, 220], (n, 1, 2))
+    uv = p + rng.normal(size=(n, 3, 2)) * 10 ** rng.uniform(-4.5, -3, (n, 1, 1))
+    c = _screen_case(uv[None], np.ones((1, n, 3)))
+    rows, _ = rasterizer_cuda.setup_plain(_t(c["tv"]), _t(c["valid"]), _t(c["TCO"]), _t(c["K"]),
+                                          (H, W))
+    rows = rows[0, :n][rows[0, :n, rasterizer_cuda.LANE_VALID] != 0]
+    px = torch.arange(W).float()[None, None, :] + 0.5
+    py = torch.arange(H).float()[None, :, None] + 0.5
+    inside = torch.ones(len(rows), H, W, dtype=torch.bool)
+    for i in range(3):
+        r = rows[:, None, None]
+        inside &= r[..., i] * px + r[..., i + 3] * py + r[..., i + 6] >= -1e-6
+    assert len(rows) > n // 2 and inside.any()
+
+    def outside(box, margin):
+        b = box[:, None, None]
+        return ((px < b[..., 0] - margin) | (px > b[..., 2] + margin)
+                | (py < b[..., 1] - margin) | (py > b[..., 3] + margin))
+
+    lanes = rasterizer_cuda.LANE_COVER, rasterizer_cuda.LANE_BBOX
+    assert not (inside & outside(rows[:, lanes[0]:lanes[0] + 4], 0)).any()
+    assert (inside & outside(rows[:, lanes[1]:lanes[1] + 4], 1)).any()
+
+
+def test_ablation_variants_match_the_kernel_source():
+    """Each variant of the resolve kernel's ablation replaces text that the
+    kernel source holds exactly once, so the ablation times what it names."""
+    from cosypose_tpu_torch.ablate_resolve import VARIANTS
+
+    source = rasterizer_cuda.SOURCES["resolve"].read_text()
+    for name, swap in VARIANTS.items():
+        assert swap is None or source.count(swap[0]) == 1, name
