@@ -17,20 +17,32 @@ Phases, none of them caught; any failure exits non-zero:
   4. serving: coarse + refiner B3 (bf16 backbone) behind
      CoarseRefinePosePredictor(bsz_objects=128), 3 requests of 4 images and
      160 detections at 1 coarse + 4 refiner iterations, with both kernels'
-     launch counts checked; then one profiled request.
+     launch counts checked; then one profiled request;
+  5. training: one train step of a small configuration (EfficientNet-B0,
+     48x64 renders, batch 8, 2 iterations) on the card against the CPU from
+     the same weights, batch and draws; then the full-width trainer,
+     train_pose with make_cfg("tless-refiner") (B3, 240x320, fp32, 3
+     iterations, batch 32, 540x720 images) over the in-memory demo dataset:
+     a warm-up step, a checkpoint resume round trip, 8 timed steps with both
+     kernels' launch counts checked (3 a step); peak memory and time of a
+     step with remat on and off; one step split into forward, backward and
+     optimizer by CUDA events, and one profiled step.
 The last lines are the card's name and power limit, one JSON line of kernel
-numbers, and the contract line {"ok": true, "device": {...}}. Without a card,
-or outside the repo, it exits non-zero and prints no result. The profiler
-table goes to build/chip_smoke_profile.txt.
+numbers (launches while serving, and while training), and the contract line
+{"ok": true, "device": {...}}. Without a card, or outside the repo, it exits
+non-zero and prints no result. The profiler tables go to
+build/chip_smoke_profile.txt and build/chip_smoke_train_profile.txt.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = pathlib.Path(__file__).resolve().parent
@@ -63,6 +75,18 @@ REPLACES = {"raster_setup": "cosypose_tpu/ops/rasterizer_pallas.py:149",
             "raster_resolve": "cosypose_tpu/ops/rasterizer_pallas.py:49",
             "raster_resolve_attr": "cosypose_tpu/ops/rasterizer_pallas.py:49"}
 PR1 = "PR 1: prologue 2.433 ms + kernel 0.2628 ms per call, request ~490 ms, idle 0.098"
+# training: the small card-vs-CPU step, and the full-width trainer's run
+SMALL_B, SMALL_RENDER, SMALL_IMAGE = 8, (48, 64), (240, 320)
+TRAIN_IMAGE = (540, 720)    # make_cfg("tless-refiner").input_resize
+TRAIN_STEPS = 8
+# card vs CPU tolerances of one train step: those the CPU tests state between
+# two float32 implementations of it (tests/test_torch_port_training.py, the
+# port against the JAX package)
+RTOL_STEP = 3e-5            # loss, its components, grad_norm
+REL_GRAD = 4e-3             # of each gradient tensor's max
+REL_STATS = 1e-4            # BatchNorm running statistics, of their scale
+ATOL_PARAM = 1e-6           # beyond what the gradients' difference moves Adam's step
+REL_ZERO = 1e-6             # a gradient that is 0 in exact arithmetic, of the largest
 
 
 def log(msg: str) -> None:
@@ -181,6 +205,95 @@ def setup_bound(tri_verts, tri_valid, colors, tri_attr, rows, ykey):
                + (4 * tri_attr.numel() if tri_attr is not None else 0)
                + 4 * (rows.numel() + ykey.numel()))
     return (*bound(B * F * FLOPS_PER_TRIANGLE, n_bytes), n_bytes)
+
+
+def small_train_cfg():
+    from cosypose_tpu_torch.models.pose_predictor import PosePredictorConfig
+    from cosypose_tpu_torch.training.pose_training import PoseTrainConfig
+
+    return PoseTrainConfig(
+        predictor=PosePredictorConfig(backbone="efficientnet-b0", render_size=SMALL_RENDER,
+                                      n_points_crop=200, head_init_scale=0.01,
+                                      drop_connect_rate=0.0),
+        n_iterations=2, n_points_loss=2600, input_generator="gt+noise", batch_size=SMALL_B,
+        epoch_size=SMALL_B, n_epochs_warmup=1)
+
+
+def train_step_card_vs_cpu(cfg=None) -> dict:
+    """One train step on the card (raster kernels, cuDNN) and on the CPU (plain
+    versions) from the same weights, batch (demo dataset, uint8 images) and
+    draws. Returns {quantity: (error, tolerance)}; the caller checks them.
+
+    Two float32 implementations of the step are held to the tolerances the
+    CPU tests state between two float32 implementations (the port against
+    the JAX package; each lies up to ~1e-3 of a gradient tensor's max from
+    the float64 step at these sizes). Gradients are the clipped ones, of each
+    tensor's max; a block's last BatchNorm bias has a gradient that is 0 in
+    exact arithmetic (the next train-mode BatchNorm removes it), held at
+    REL_ZERO of the largest gradient on both sides. Running statistics are
+    of their scale, for a running mean the larger of its max and (1 - 0.99^n)
+    times the channels' spread, since a batch mean's rounding follows the
+    spread. A parameter may differ by what the two gradients move Adam's
+    first step, lr·g/(|g| + 1e-8), plus ATOL_PARAM.
+    """
+    import torch
+
+    from cosypose_tpu_torch import demo
+    from cosypose_tpu_torch.ops.mesh_db import build_mesh_db
+    from cosypose_tpu_torch.training import pose_training as tpt
+    from cosypose_tpu_torch.training.train_pose import collate
+
+    cfg = cfg or small_train_cfg()
+    ds = demo.DemoPoseDataset(cfg.batch_size, SMALL_IMAGE, seed=2)
+    host = collate([ds[i] for i in range(len(ds))])
+    snaps, state_dict, draws = {}, None, None
+    for d in ("cpu", "cuda"):
+        db = build_mesh_db(demo.demo_specs(), render_max_faces=LOD, device=d)
+        state = tpt.create_train_state(cfg, d)
+        if state_dict is None:
+            state_dict = {k: v.clone() for k, v in state.pp.net.state_dict().items()}
+            draws = tpt.draw_step(cfg, state.pp, cfg.batch_size, db.points.shape[1],
+                                  torch.Generator().manual_seed(3))
+        state.pp.net.load_state_dict(state_dict)
+        batch = {k: host[k].to(d) for k in ("images", "K", "TCO", "bboxes")}
+        batch["label_ids"] = db.ids_for(host["labels"])
+        metrics = tpt.make_train_step(cfg, db)(state, batch, draws)
+        net = state.pp.net
+        snaps[d] = dict(metrics={k: float(v) for k, v in metrics.items()},
+                        params={n: p.detach().double().cpu() for n, p in net.named_parameters()},
+                        grads={n: p.grad.double().cpu() for n, p in net.named_parameters()},
+                        buffers={n: b.double().cpu() for n, b in net.named_buffers()
+                                 if n.endswith(("running_mean", "running_var"))})
+    card, cpu = snaps["cuda"], snaps["cpu"]
+    floor = max(float(g.abs().max()) for g in cpu["grads"].values())
+    grad_err = zero_err = param_err = stats_err = 0.0
+    for n, g in cpu["grads"].items():
+        if n.endswith("_bn2.bias"):
+            zero_err = max(zero_err, float(g.abs().max()) / floor,
+                           float(card["grads"][n].abs().max()) / floor)
+        else:
+            grad_err = max(grad_err, float((card["grads"][n] - g).abs().max() / g.abs().max()))
+
+        def adam(g):
+            return cfg.lr * g / (g.abs() + 1e-8)
+
+        spread = (adam(card["grads"][n]) - adam(g)).abs()
+        diff = (card["params"][n] - cpu["params"][n]).abs()
+        param_err = max(param_err, float((diff - spread).max()), float(diff.max()) - 2 * cfg.lr)
+    w = 1 - 0.99 ** cfg.n_iterations
+    for n, b in cpu["buffers"].items():
+        scale = float(b.abs().max())
+        if n.endswith("running_mean"):
+            var = cpu["buffers"][n.replace("running_mean", "running_var")]
+            scale = max(scale, w * float(var.sqrt().max()))
+        stats_err = max(stats_err, float((card["buffers"][n] - b).abs().max()) / scale)
+    out = {f"metric {k}": (abs(card["metrics"][k] / v - 1), RTOL_STEP)
+           for k, v in cpu["metrics"].items()}
+    out["gradients (of each tensor's max)"] = (grad_err, REL_GRAD)
+    out["zero gradients (of the largest)"] = (zero_err, REL_ZERO)
+    out["running statistics (of their scale)"] = (stats_err, REL_STATS)
+    out["parameters (beyond the Adam spread)"] = (param_err, ATOL_PARAM)
+    return out
 
 
 def main() -> int:
@@ -450,9 +563,147 @@ def main() -> int:
     for k, v in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {v / 1e3:9.2f} ms  {k[:90]}")
 
+    # -- 5. training -----------------------------------------------------------
+    from cosypose_tpu_torch.training import pose_training as tpt
+    from cosypose_tpu_torch.training.configs import make_cfg
+    from cosypose_tpu_torch.training.train_pose import collate, train_pose
+
+    t0 = time.perf_counter()
+    errs = train_step_card_vs_cpu()
+    log(f"{tag} train step, card vs CPU (B0, {SMALL_RENDER[0]}x{SMALL_RENDER[1]}, batch "
+        f"{SMALL_B}, 2 iterations, {time.perf_counter() - t0:.1f} s): " +
+        ", ".join(f"{k} {e:.3g} (<= {tol})" for k, (e, tol) in errs.items()))
+    bad = {k: v for k, v in errs.items() if not v[0] <= v[1]}
+    if bad:
+        raise AssertionError(f"train step card vs CPU beyond tolerance: {bad}")
+
+    run = make_cfg("tless-refiner")
+    tcfg = run.train
+    B, n_it = tcfg.batch_size, tcfg.n_iterations
+    t0 = time.perf_counter()
+    data = {"train": [(demo.DemoPoseDataset(B * (TRAIN_STEPS + 1), TRAIN_IMAGE, seed=0), 1)]}
+    log(f"training data: {B * (TRAIN_STEPS + 1)} demo items of {TRAIN_IMAGE[0]}x{TRAIN_IMAGE[1]} "
+        f"made in {time.perf_counter() - t0:.1f} s; config tless-refiner: {tcfg.predictor.backbone}"
+        f", render {tcfg.predictor.render_size}, {tcfg.predictor.compute_dtype}, remat "
+        f"{tcfg.predictor.remat}, {n_it} iterations, batch {B}, {tcfg.input_generator}, "
+        f"n_points_loss {tcfg.n_points_loss}, lr {tcfg.lr}, clip {tcfg.clip_grad_norm}")
+    exp_dir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_", dir=OUT_DIR))
+
+    def trainer(n_epochs, epoch_size, resume):
+        cfg = dataclasses.replace(run, n_dataloader_workers=0, train=dataclasses.replace(
+            tcfg, n_epochs=n_epochs, epoch_size=epoch_size))
+        t0 = time.perf_counter()
+        state, run_dir = train_pose(cfg, data, db, resume=resume, exp_dir=exp_dir, device=dev)
+        torch.cuda.synchronize()
+        return state, run_dir, time.perf_counter() - t0
+
+    warm, run_dir, t_warm = trainer(1, B, False)  # one step: cuDNN plans, allocator
+    back, _, _ = trainer(1, B, True)                # resumes at the end: nothing to run
+    sd_w, sd_b = warm.pp.net.state_dict(), back.pp.net.state_dict()
+    same = back.step == warm.step == 1 and all(torch.equal(sd_w[k], sd_b[k]) for k in sd_w)
+    for p, q in zip(warm.pp.net.parameters(), back.pp.net.parameters()):
+        same &= all(torch.equal(warm.optimizer.state[p][k], back.optimizer.state[q][k])
+                    for k in ("exp_avg", "exp_avg_sq", "step"))
+    if not same:
+        raise AssertionError("checkpoint resume did not restore step, parameters, running "
+                             "statistics and Adam moments")
+    log(f"{tag} warm-up step {t_warm:.1f} s (with set-up); checkpoint save -> resume restores "
+        f"step, parameters, running statistics and Adam moments exactly")
+    before = {n: p.detach().clone() for n, p in warm.pp.net.named_parameters()}
+    del warm, back
+
+    kernel.launches = {k: 0 for k in kernel.launches}
+    trained, _, t_run = trainer(2, B * TRAIN_STEPS, True)
+    launches_train = dict(kernel.launches)
+    want = TRAIN_STEPS * n_it
+    if launches_train["raster_setup"] != want or launches_train["raster_resolve"] != want:
+        raise AssertionError(f"training launched the kernels {launches_train} times, want {want}"
+                             f" of raster_setup and of raster_resolve")
+    rec = [json.loads(line) for line in (run_dir / "log.txt").read_text().splitlines()][-1]
+    moved = max(float((p.detach() - before[n]).abs().max())
+                for n, p in trained.pp.net.named_parameters())
+    losses = [rec[k] for k in rec if k.startswith("train/loss")]
+    if trained.step != 1 + TRAIN_STEPS or not all(math.isfinite(v) for v in losses) \
+            or moved <= 0:
+        raise AssertionError(f"trainer: step {trained.step}, losses {losses}, moved {moved}")
+    step_s = rec["train/step_s_per_step"]
+    log(f"{tag} trainer: {TRAIN_STEPS} steps of tless-refiner in {t_run:.1f} s with set-up; "
+        f"{1e3 * step_s:.1f} ms/step, {B / step_s:.1f} samples/s, {B * n_it / step_s:.1f} "
+        f"crop-iterations/s (data wait {1e3 * rec['train/data_s_per_step']:.1f} ms/step); loss "
+        f"{rec['train/loss_total']:.4f}, grad_norm {rec['train/grad_norm']:.3f}, parameters moved "
+        f"up to {moved:.3g}; kernel launches {launches_train} (want {want} of raster_setup and "
+        f"of raster_resolve)")
+
+    # peak memory and step time with remat on and off, a step on its own
+    items = data["train"][0][0]
+    host = collate([items[i] for i in range(B)])
+    batch = {k: host[k].to(dev) for k in ("images", "K", "TCO", "bboxes")}
+    batch["label_ids"] = db.ids_for(host["labels"])
+    gen = torch.Generator().manual_seed(5)
+    del trained
+    for remat in (True, False):
+        cfg_r = dataclasses.replace(tcfg, predictor=dataclasses.replace(tcfg.predictor,
+                                                                       remat=remat))
+        state = tpt.create_train_state(cfg_r, dev)
+        step = tpt.make_train_step(cfg_r, db)
+        step(state, batch, tpt.draw_step(cfg_r, state.pp, B, db.points.shape[1], gen))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step(state, batch, tpt.draw_step(cfg_r, state.pp, B, db.points.shape[1], gen))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{tag} remat {remat}: peak max_memory_allocated {peak / 2**30:.2f} GiB "
+            f"({(peak - base) / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB held between "
+            f"steps), step {1e3 * dt:.1f} ms")
+        if remat == tcfg.predictor.remat:  # the config's own: split and profiled below
+            kept = state
+        else:
+            del state
+    torch.cuda.empty_cache()
+
+    # one step split by CUDA events, then one profiled step
+    state = kept
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+    def split_step():
+        draws = tpt.draw_step(tcfg, state.pp, B, db.points.shape[1], gen)
+        state.optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss, _ = tpt.pose_loss(state.pp, tcfg, db, batch, draws)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        tpt.apply_gradients(state, tcfg)
+        ev[3].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+    split_step()  # the first step after empty_cache() allocates afresh
+    fwd, bwd, opt = split_step()
+    log(f"{tag} one step (remat {tcfg.predictor.remat}) by CUDA events on the stream: forward + "
+        f"loss {fwd:.1f} ms, backward {bwd:.1f} ms, clip + Adam {opt:.1f} ms")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        span = sum(split_step())  # the step's span on the stream, by its events
+    events = prof.key_averages()
+    (OUT_DIR / "chip_smoke_train_profile.txt").write_text(
+        f"{card}\n{events.table(sort_by='self_cuda_time_total', row_limit=50)}\n")
+    dev_us = {e.key: getattr(e, attr) for e in events if e.device_type == DeviceType.CUDA}
+    busy = sum(dev_us.values()) / 1e3
+    raster = sum(v for k, v in dev_us.items() if "raster_" in k) / 1e3
+    n_kernels = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
+    log(f"{tag} profiled step: span on the stream {span:.1f} ms, device busy {busy:.1f} ms (busy "
+        f"share {busy / span:.3f}) in {n_kernels} kernels, raster kernels {raster:.3f} ms "
+        f"({100 * raster / busy:.2f} % of busy); top kernels:")
+    for k, v in sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"    {v / 1e3:9.2f} ms  {k[:90]}")
+
     # -- results --------------------------------------------------------------
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-                    launches=launches[name], library_ms=None, **rows_json[name])
+                    launches=launches[name], launches_training=launches_train[name],
+                    library_ms=None, **rows_json[name])
                for name in ("raster_setup", "raster_resolve", "raster_resolve_attr")]
     log(card)
     log(json.dumps({"kernels": kernels}))

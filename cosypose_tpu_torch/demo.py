@@ -3,7 +3,8 @@
 
 Two UV-spheres (5 cm and 7.5 cm radius, the second with a continuous
 symmetry) and seeded random images/intrinsics/poses, as numpy arrays, so the
-JAX package and the port can be fed identical inputs.
+JAX package and the port can be fed identical inputs; and `DemoPoseDataset`,
+an in-memory training set of PoseDataset-shaped items made the same way.
 """
 
 from __future__ import annotations
@@ -97,3 +98,44 @@ def first_render_inputs(B: int, image_size=(480, 640), render_size=(240, 320), l
                                image_size, render_size).contiguous()
     return dict(tri_verts=md["tri_verts"], tri_valid=md["tri_valid"], TCO=TCO, K_crop=K_crop,
                 colors=md["tri_colors"])
+
+
+class DemoPoseDataset:
+    """n PoseDataset-shaped items made in memory from a seed: {image (3,H,W)
+    uint8, K (3,3), TCO (4,4) float32, bbox (4,) float32, label}.
+
+    Poses, intrinsics and labels are drawn as `make_inputs` draws them (f =
+    600 px at the image centre, identity rotation, x, y in ±0.1 m, z in
+    0.5–1.2 m); images are uniform noise; the bbox is the box of the object's
+    mesh points projected at its pose.
+    """
+
+    def __init__(self, n: int, image_size=(480, 640), seed: int = 0, specs=None):
+        specs = specs if specs is not None else demo_specs()
+        H, W = image_size
+        rng = np.random.RandomState(seed)
+        self.K = np.zeros((n, 3, 3), np.float32)
+        self.K[:, 0, 0] = self.K[:, 1, 1] = 600.0
+        self.K[:, 0, 2], self.K[:, 1, 2], self.K[:, 2, 2] = W / 2, H / 2, 1.0
+        self.TCO = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+        self.TCO[:, 0, 3] = rng.uniform(-0.1, 0.1, n)
+        self.TCO[:, 1, 3] = rng.uniform(-0.1, 0.1, n)
+        self.TCO[:, 2, 3] = rng.uniform(0.5, 1.2, n)
+        label_ids = rng.randint(0, len(specs), n)
+        self.labels = [specs[i].label for i in label_ids]
+        self.images = rng.randint(0, 256, (n, 3, H, W), dtype=np.uint8)
+        scale = {"mm": 0.001, "m": 1.0}
+        pts = [np.asarray(s.vertices, np.float64) * scale[s.mesh_units] for s in specs]
+        self.bboxes = np.zeros((n, 4), np.float32)
+        for i, obj in enumerate(label_ids):
+            cam = pts[obj] @ self.TCO[i, :3, :3].T.astype(np.float64) + self.TCO[i, :3, 3]
+            uvw = cam @ self.K[i].T.astype(np.float64)
+            uv = uvw[:, :2] / uvw[:, 2:3]
+            self.bboxes[i] = np.concatenate([uv.min(0), uv.max(0)])
+
+    def __len__(self):
+        return len(self.labels)
+
+    def __getitem__(self, idx):
+        return dict(image=self.images[idx], K=self.K[idx], TCO=self.TCO[idx],
+                    bbox=self.bboxes[idx], label=self.labels[idx])

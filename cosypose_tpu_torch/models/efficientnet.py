@@ -5,8 +5,16 @@ width/depth scaling and a configurable input channel count; no classifier.
 Module names follow the reference's EfficientNet-PyTorch (`_conv_stem`,
 `_bn0`, `_blocks.N._expand_conv`, …, `_conv_head`, `_bn1`), so
 `cosypose_tpu.utils.torch_compat` reads this state_dict as it reads the
-reference's. Inference only: BatchNorm uses its running statistics and
-drop-connect is the identity.
+reference's.
+
+Train mode (`net.train()`) follows the JAX package's flax modules:
+BatchNorm normalises with the batch statistics and moves its running
+statistics the flax way (momentum 0.99, the BIASED batch variance, where
+torch.nn.BatchNorm2d would take the unbiased one); drop-connect zeroes a whole
+sample's residual branch at rate `drop_connect_rate · block_idx / n_blocks`
+and scales the kept ones by 1/(1 - rate). The drop-connect masks are drawn
+outside the forward (`draw_drop_masks`) and passed in, so a rematerialised
+forward sees the same masks.
 
 Convolutions pad as TensorFlow's "SAME", as flax does: total padding
 max((ceil(n/s)-1)*s + k - n, 0), split (p//2, p - p//2). On stride-2 convs
@@ -15,6 +23,7 @@ this is asymmetric, which torch's `padding=k//2` is not.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -45,7 +54,8 @@ BASE_BLOCKS = [
 ]
 
 BN_EPS = 1e-3
-BN_MOMENTUM = 0.01  # flax's 0.99 in torch's convention
+FLAX_MOMENTUM = 0.99
+BN_MOMENTUM = 1 - FLAX_MOMENTUM  # in torch's convention
 
 
 def round_filters(filters: int, width_mult: float, divisor: int = 8) -> int:
@@ -82,29 +92,74 @@ class Conv2dSame(nn.Conv2d):
         return F.conv2d(x, self.weight, self.bias, self.stride, 0, self.dilation, self.groups)
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with flax's running-statistics update in train mode:
+    running = 0.99·running + (1 - 0.99)·batch, the batch variance biased.
+
+    `update_stats` False (see `frozen_stats`) leaves the running statistics
+    alone: a replayed forward under activation checkpointing, validation.
+    """
+
+    def __init__(self, ch: int):
+        super().__init__(ch, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.update_stats = True
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        # torch's fused batch norm hands back the batch mean and the UNBIASED
+        # batch variance in buffers given to it at momentum 1. A replayed
+        # forward takes the same path, so that it saves the same tensors.
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        if not self.update_stats:
+            return y
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.mul_(FLAX_MOMENTUM).add_(mean, alpha=1 - FLAX_MOMENTUM)
+            self.running_var.mul_(FLAX_MOMENTUM).add_(var * ((n - 1) / n),
+                                                      alpha=1 - FLAX_MOMENTUM)
+        return y
+
+
+@contextlib.contextmanager
+def frozen_stats(module: nn.Module):
+    """No BatchNorm2d in `module` moves its running statistics inside the block."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    saved = [m.update_stats for m in bns]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, s in zip(bns, saved):
+            m.update_stats = s
 
 
 class MBConvBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int,
-                 expand_ratio: int, se_ratio: float):
+                 expand_ratio: int, se_ratio: float, drop_rate: float = 0.0):
         super().__init__()
         mid = in_ch * expand_ratio
         self.has_expand = expand_ratio != 1
         if self.has_expand:
             self._expand_conv = Conv2dSame(in_ch, mid, 1, bias=False)
-            self._bn0 = _bn(mid)
+            self._bn0 = BatchNorm2d(mid)
         self._depthwise_conv = Conv2dSame(mid, mid, kernel, stride=stride, groups=mid, bias=False)
-        self._bn1 = _bn(mid)
+        self._bn1 = BatchNorm2d(mid)
         se_ch = max(1, int(in_ch * se_ratio))
         self._se_reduce = Conv2dSame(mid, se_ch, 1)
         self._se_expand = Conv2dSame(se_ch, mid, 1)
         self._project_conv = Conv2dSame(mid, out_ch, 1, bias=False)
-        self._bn2 = _bn(out_ch)
+        self._bn2 = BatchNorm2d(out_ch)
         self.residual = stride == 1 and in_ch == out_ch
+        # drop-connect applies to residual blocks only, as in the JAX package
+        self.drop_rate = drop_rate if self.residual else 0.0
 
-    def forward(self, x):
+    def forward(self, x, keep: torch.Tensor | None = None):
+        """keep: (B,) bool drop-connect mask of this block (train mode, drop_rate
+        > 0); None leaves the residual branch whole."""
         inp = x
         if self.has_expand:
             x = F.silu(self._bn0(self._expand_conv(x)))
@@ -113,32 +168,50 @@ class MBConvBlock(nn.Module):
         s = self._se_expand(F.silu(self._se_reduce(s)))
         x = x * torch.sigmoid(s)
         x = self._bn2(self._project_conv(x))
-        return x + inp if self.residual else x
+        if not self.residual:
+            return x
+        if keep is not None:
+            keep_prob = 1.0 - self.drop_rate
+            x = torch.where(keep.to(x.device)[:, None, None, None], x / keep_prob,
+                            torch.zeros((), dtype=x.dtype, device=x.device))
+        return x + inp
 
 
 class EfficientNet(nn.Module):
     """Input (B, in_channels, H, W) → final conv features (B, head_ch, H/32, W/32)."""
 
-    def __init__(self, variant: str = "efficientnet-b3", in_channels: int = 6):
+    def __init__(self, variant: str = "efficientnet-b3", in_channels: int = 6,
+                 drop_connect_rate: float = 0.2):
         super().__init__()
         w_mult, d_mult, _, _ = EFFICIENTNET_PARAMS[variant]
         self.variant = variant
         stem_ch = round_filters(32, w_mult)
         self._conv_stem = Conv2dSame(in_channels, stem_ch, 3, stride=2, bias=False)
-        self._bn0 = _bn(stem_ch)
+        self._bn0 = BatchNorm2d(stem_ch)
         blocks = []
+        n_blocks = len(block_names(variant))
         for repeat, kernel, stride, expand, cin, cout, se in BASE_BLOCKS:
             cin_r, cout_r = round_filters(cin, w_mult), round_filters(cout, w_mult)
             for i in range(round_repeats(repeat, d_mult)):
+                rate = drop_connect_rate * len(blocks) / n_blocks
                 blocks.append(MBConvBlock(cin_r if i == 0 else cout_r, cout_r, kernel,
-                                          stride if i == 0 else 1, expand, se))
+                                          stride if i == 0 else 1, expand, se, rate))
         self._blocks = nn.ModuleList(blocks)
         self.n_features = round_filters(1280, w_mult)
         self._conv_head = Conv2dSame(round_filters(320, w_mult), self.n_features, 1, bias=False)
-        self._bn1 = _bn(self.n_features)
+        self._bn1 = BatchNorm2d(self.n_features)
 
-    def forward(self, x):
+    def draw_drop_masks(self, batch_size: int, generator: torch.Generator) -> list:
+        """Drop-connect keep masks for one train-mode forward, drawn on the CPU
+        from `generator`: per block a (B,) bool tensor, kept with probability
+        1 - rate, or None for a block that drops nothing."""
+        return [torch.rand(batch_size, generator=generator) < 1.0 - b.drop_rate
+                if b.drop_rate > 0 else None for b in self._blocks]
+
+    def forward(self, x, drop_masks: list | None = None):
+        """x (B, in_channels, H, W); drop_masks from draw_drop_masks, or None
+        for no drop-connect (eval)."""
         x = F.silu(self._bn0(self._conv_stem(x)))
-        for block in self._blocks:
-            x = block(x)
+        for i, block in enumerate(self._blocks):
+            x = block(x, None if drop_masks is None else drop_masks[i])
         return F.silu(self._bn1(self._conv_head(x)))

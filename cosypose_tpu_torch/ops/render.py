@@ -4,10 +4,15 @@ Three steps (ops/rasterizer_cuda.py): the triangle setup, a stable sort of the
 rows by projected y-centre, and the binned depth resolve. CUDA tensors go
 through the two hand-written kernels (csrc/raster_setup.cu,
 csrc/raster_resolve.cu) and CPU tensors through their plain PyTorch versions.
-There is no fallback: a CUDA input that a kernel refuses raises.
+There is no fallback: a CUDA input that a kernel refuses raises. The render
+has no gradient (the kernels are outside autograd, and the JAX package's
+train forward stops the gradient at the pose and intrinsics it renders from):
+an input that would carry one is refused rather than cut silently.
 """
 
 from __future__ import annotations
+
+import torch
 
 from .rasterizer import RenderOutput
 from .rasterizer_cuda import resolve, setup, sort_order
@@ -22,6 +27,10 @@ def render(tri_verts, tri_valid, TCO, K, image_size=(240, 320), colors=None,
     A tile that touches more than max_tris_per_tile triangles (in chunks of 8
     sorted rows) drops the highest chunks, as the JAX package's binning does.
     """
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (tri_verts, TCO, K, colors, tri_attr)):
+        raise ValueError("render has no gradient: pass inputs that do not require grad "
+                         "(detach them, or call it under torch.no_grad())")
     rows, ykey = setup(tri_verts, tri_valid, TCO, K, image_size, colors, z_near, tri_attr)
     rgb, depth, attr = resolve(rows, sort_order(ykey), image_size, tile, max_tris_per_tile,
                                with_attr=tri_attr is not None)

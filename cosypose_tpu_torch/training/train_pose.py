@@ -1,0 +1,175 @@
+"""Pose-model training loop (port of cosypose_tpu/training/train_pose.py,
+single device).
+
+Dataset concat with repeat factors, an epoch loop over a fixed epoch_size
+sampler, validation every val_epoch_interval epochs, checkpoints every
+save_epoch_interval epochs, jsonlines logging with the per-epoch split of
+host data time and step time, resume and pretrain. Batches come from a
+torch.utils.data.DataLoader over the JAX package's sampler and batch order
+(full batches only), in place of its threaded PrefetchLoader.
+"""
+
+from __future__ import annotations
+
+import logging
+import pathlib
+import time
+
+import numpy as np
+import torch
+from torch.utils.data import BatchSampler, DataLoader
+
+from ..data.wrappers import PartialSampler
+from ..utils.device import resolve_device
+from .checkpoint import (latest_checkpoint, load_checkpoint, restore_into_state,
+                         save_checkpoint, save_config)
+from .logs import MetricsAccumulator, RunLogger
+from .pose_training import create_train_state, draw_step, make_train_step, make_val_step
+
+logger = logging.getLogger(__name__)
+
+EXP_DIR = pathlib.Path(__file__).resolve().parents[2] / "local_data" / "experiments"
+
+
+class ConcatDataset:
+    """Dataset concat with integer repeat factors (ref: train_pose.py:216-227)."""
+
+    def __init__(self, datasets_with_repeats):
+        self.datasets = []
+        for ds, repeat in datasets_with_repeats:
+            self.datasets.extend([ds] * int(repeat))
+        self.lengths = [len(d) for d in self.datasets]
+        self.cum = np.cumsum([0] + self.lengths)
+
+    def __len__(self):
+        return int(self.cum[-1])
+
+    def __getitem__(self, idx):
+        d = int(np.searchsorted(self.cum[1:], idx, side="right"))
+        return self.datasets[d][idx - self.cum[d]]
+
+
+def collate(items) -> dict:
+    """PoseDataset items (image uint8 CHW, K, TCO, bbox, label) → a batch of
+    tensors (images uint8, K, TCO, bboxes float32) and the labels."""
+    return dict(images=torch.as_tensor(np.stack([it["image"] for it in items])),
+                K=torch.as_tensor(np.stack([it["K"] for it in items]), dtype=torch.float32),
+                TCO=torch.as_tensor(np.stack([it["TCO"] for it in items]), dtype=torch.float32),
+                bboxes=torch.as_tensor(np.stack([it["bbox"] for it in items]),
+                                       dtype=torch.float32),
+                labels=[it["label"] for it in items])
+
+
+def make_loader(dataset, sampler, batch_size: int, n_workers: int, pin_memory: bool):
+    """Full batches of `batch_size` in the sampler's order; worker processes
+    (spawned) when n_workers > 0."""
+    if len(sampler) < batch_size:
+        raise ValueError(f"epoch_size {len(sampler)} < batch {batch_size}: "
+                         "no full batch can be formed")
+    return DataLoader(dataset, batch_sampler=BatchSampler(sampler, batch_size, drop_last=True),
+                      collate_fn=collate, num_workers=n_workers, pin_memory=pin_memory,
+                      multiprocessing_context="spawn" if n_workers > 0 else None)
+
+
+def train_pose(cfg, scene_datasets, mesh_db, resume: bool = False,
+               pretrain_run_id: str | None = None, exp_dir=None, eval_callback=None,
+               device: str | torch.device = "cuda"):
+    """Run the training loop; returns (train state, run directory).
+
+    cfg: training.configs.RunConfig. scene_datasets: {'train': [(ds, repeat)],
+    'val': [...]} of PoseDataset-shaped datasets (items: image uint8 CHW, K,
+    TCO, bbox, label). mesh_db: BatchedMeshes of the training objects on
+    `device`. eval_callback: fn(state, epoch) → metrics dict, run every
+    cfg.test_epoch_interval epochs and at the last one.
+    """
+    device = resolve_device(device)
+    if mesh_db.device != device:
+        raise ValueError(f"mesh_db is on {mesh_db.device}, training on {device}")
+    exp_dir = pathlib.Path(exp_dir or EXP_DIR)
+    run_dir = exp_dir / cfg.run_id
+    run_dir.mkdir(parents=True, exist_ok=True)
+    save_config(run_dir, cfg)
+    run_logger = RunLogger(run_dir)
+
+    tcfg = cfg.train
+    state = create_train_state(tcfg, device, torch.Generator().manual_seed(0))
+    start_epoch = 0
+    if pretrain_run_id:
+        ckpt = latest_checkpoint(exp_dir / pretrain_run_id)
+        if ckpt is None:
+            raise FileNotFoundError(f"no checkpoint for pretrain run {pretrain_run_id}")
+        state.pp.net.load_state_dict(load_checkpoint(ckpt)["net"])
+        logger.info(f"Loaded pretrain weights from {ckpt}")
+    if resume:
+        ckpt = latest_checkpoint(run_dir)
+        if ckpt is not None:
+            payload = load_checkpoint(ckpt)
+            restore_into_state(state, payload)
+            start_epoch = int(payload["epoch"]) + 1
+            logger.info(f"Resumed from {ckpt} at epoch {start_epoch}")
+
+    step_fn = make_train_step(tcfg, mesh_db)
+    val_fn = make_val_step(tcfg, mesh_db)
+    train_ds = ConcatDataset(scene_datasets["train"])
+    val_ds = ConcatDataset(scene_datasets["val"]) if scene_datasets.get("val") else None
+    generator = torch.Generator().manual_seed(1)
+    n_points = mesh_db.points.shape[1]
+    pin = device.type == "cuda"
+
+    def device_batch(batch):
+        return dict(images=batch["images"].to(device, non_blocking=True),
+                    K=batch["K"].to(device, non_blocking=True),
+                    TCO=batch["TCO"].to(device, non_blocking=True),
+                    bboxes=batch["bboxes"].to(device, non_blocking=True),
+                    label_ids=mesh_db.ids_for(batch["labels"]))
+
+    for epoch in range(start_epoch, tcfg.n_epochs):
+        loader = make_loader(train_ds, PartialSampler(train_ds, tcfg.epoch_size, seed=epoch),
+                             tcfg.batch_size, cfg.n_dataloader_workers, pin)
+        acc = MetricsAccumulator()
+        # per-epoch split: host data wait vs dispatch + device time of the steps
+        t_data = t_step = 0.0
+        t_last, n_steps = time.time(), 0
+        t_mark = time.perf_counter()
+        for batch in loader:
+            t_data += time.perf_counter() - t_mark
+            draws = draw_step(tcfg, state.pp, tcfg.batch_size, n_points, generator)
+            metrics = step_fn(state, device_batch(batch), draws)
+            acc.add(metrics)  # tensors; converted at epoch end
+            n_steps += 1
+            if time.time() - t_last > 60.0:
+                logger.info(f"epoch {epoch}: step {n_steps}, "
+                            f"loss {float(metrics['loss_total']):.4f}")
+                t_last = time.time()
+            t_step += time.perf_counter() - t_mark
+            t_mark = time.perf_counter()
+        if n_steps:
+            # the steps run ahead of the card: wait for the last one, and
+            # charge the tail to the step time
+            float(metrics["loss_total"])
+            t_step += time.perf_counter() - t_mark
+            acc.add({"data_s_per_step": t_data / n_steps, "step_s_per_step": t_step / n_steps})
+
+        record = run_logger.append(epoch, acc.means())
+        logger.info(f"epoch {epoch}: {record}")
+        if epoch % cfg.save_epoch_interval == 0:
+            save_checkpoint(run_dir, state, epoch)
+        if eval_callback is not None and (epoch % cfg.test_epoch_interval == 0
+                                          or epoch == tcfg.n_epochs - 1):
+            test_metrics = eval_callback(state, epoch)
+            if test_metrics:
+                run_logger.append(epoch, {},
+                                  extra={f"test/{k}": v for k, v in test_metrics.items()})
+        if val_ds is not None and epoch % cfg.val_epoch_interval == 0:
+            val_sampler = PartialSampler(val_ds, max(tcfg.batch_size, tcfg.epoch_size // 10),
+                                         seed=0)
+            val_acc = MetricsAccumulator()
+            for batch in make_loader(val_ds, val_sampler, tcfg.batch_size,
+                                     cfg.n_dataloader_workers, pin):
+                draws = draw_step(tcfg, state.pp, tcfg.batch_size, n_points, generator)
+                val_acc.add(val_fn(state, device_batch(batch), draws))
+            run_logger.append(epoch, {},
+                              extra={f"val/{k}": v for k, v in val_acc.means().items()})
+
+    save_checkpoint(run_dir, state, tcfg.n_epochs - 1)
+    return state, run_dir

@@ -6,6 +6,9 @@ array-like) leaves. Layouts: conv kernels HWIO → OIHW (a depthwise kernel
 (kh,kw,1,C) becomes (C,1,kh,kw) by the same transpose), Dense (in,out) →
 (out,in), BatchNorm scale/bias/mean/var → weight/bias/running_mean/running_var,
 and the JAX block `block{stage}_{i}` → `_blocks.N` in stage-major order.
+`load_jax_train_state` puts a JAX TrainState's params and batch_stats into
+the port's train state (the pretrain path): any head_init_scale, since the
+pose kernel is carried as it is.
 """
 
 from __future__ import annotations
@@ -57,3 +60,12 @@ def jax_pose_variables_to_state_dict(variables: dict,
     sd["pose_fc.weight"] = _t(np.asarray(params["pose_fc"]["kernel"]).T)
     sd["pose_fc.bias"] = _t(params["pose_fc"]["bias"])
     return sd
+
+
+def load_jax_train_state(state, params: dict, batch_stats: dict) -> None:
+    """Load a JAX TrainState's `params` and `batch_stats` (trees with numpy
+    leaves) into the port's TrainState's net, in place. The optimizer state
+    and the step are left as they are, as the JAX package's pretrain does."""
+    sd = jax_pose_variables_to_state_dict({"params": params, "batch_stats": batch_stats},
+                                          state.pp.cfg.backbone)
+    state.pp.net.load_state_dict(sd)

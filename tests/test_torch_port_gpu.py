@@ -1,4 +1,5 @@
-"""The CUDA raster kernels against their plain PyTorch versions, on the card.
+"""The CUDA raster kernels against their plain PyTorch versions, and the
+train step on the card against the CPU, on the card.
 
 Marked `gpu`; each test asks the `cuda` fixture for the card and skips where
 there is none (decided at run time, never at import). Run them on a machine
@@ -10,8 +11,11 @@ at atol 1e-4 on depth and rgb, with mask and attribute exactly equal. The
 setup kernel is held at rasterizer_cuda.SETUP_TOL (a few ulps from PyTorch's
 summation order, explained there). A whole render on the card against the CPU
 may differ where a pixel centre lies within rounding of an edge: such pixels
-(mask differs, or rgb/depth beyond 1e-4) are counted and bounded.
+(mask differs, or rgb/depth beyond 1e-4) are counted and bounded. The
+train-step tests state their tolerances where they are.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -167,3 +171,67 @@ def test_pose_predictor_card_matches_cpu(cuda):
         outs[dev] = pp.forward(md, *args, n_iterations=2)["TCO_final"].cpu()
     assert (outs["cuda"] - outs["cpu"]).abs().max().item() <= 1e-3
     assert (outs["cpu"] - torch.as_tensor(TCO)).abs().max().item() > 1e-3
+
+
+def test_train_step_card_matches_cpu(cuda):
+    """One train step (B0, 48x64, batch 8, 2 iterations) on the card against
+    the CPU from the same weights, batch and draws, at the tolerances the CPU
+    tests state between two float32 implementations of the step
+    (chip_smoke.train_step_card_vs_cpu)."""
+    import chip_smoke
+
+    errs = chip_smoke.train_step_card_vs_cpu()
+    assert all(e <= tol for e, tol in errs.values()), errs
+
+
+def _train_setup(device, remat, drop_connect_rate=0.5):
+    from cosypose_tpu_torch.training import pose_training as tpt
+    from cosypose_tpu_torch.training.train_pose import collate
+
+    import chip_smoke
+
+    cfg = chip_smoke.small_train_cfg()
+    cfg = dataclasses.replace(cfg, predictor=dataclasses.replace(
+        cfg.predictor, remat=remat, drop_connect_rate=drop_connect_rate))
+    db = build_mesh_db(demo.demo_specs(), render_max_faces=512, device=device)
+    state = tpt.create_train_state(cfg, device)
+    ds = demo.DemoPoseDataset(cfg.batch_size, (240, 320), seed=2)
+    host = collate([ds[i] for i in range(len(ds))])
+    batch = {k: host[k].to(device) for k in ("images", "K", "TCO", "bboxes")}
+    batch["label_ids"] = db.ids_for(host["labels"])
+    draws = tpt.draw_step(cfg, state.pp, cfg.batch_size, db.points.shape[1],
+                          torch.Generator().manual_seed(0))
+    return tpt, cfg, db, state, batch, draws
+
+
+def test_remat_on_and_off_agree_on_the_card(cuda):
+    """torch.utils.checkpoint replays the forward in backward: with the same
+    drop-connect masks, and the running statistics moved once. cuDNN may
+    pick other algorithms in the replay, so gradients are held at 5e-4 of
+    each tensor's max, the CPU tests' float32 tolerance."""
+    runs = {}
+    for remat in (True, False):
+        tpt, cfg, db, state, batch, draws = _train_setup(cuda, remat)
+        loss, _ = tpt.pose_loss(state.pp, cfg, db, batch, draws)
+        loss.backward()
+        net = state.pp.net
+        runs[remat] = (float(loss.detach()), {n: p.grad.clone() for n, p in net.named_parameters()},
+                       {n: b.clone() for n, b in net.named_buffers()})
+    (l1, g1, b1), (l0, g0, b0) = runs[True], runs[False]
+    assert abs(l1 / l0 - 1) <= 1e-5
+    for n in g0:
+        if not n.endswith("_bn2.bias"):
+            assert float((g1[n] - g0[n]).abs().max()) <= 5e-4 * float(g0[n].abs().max()), n
+    for n in b0:
+        assert torch.allclose(b1[n].float(), b0[n].float(), rtol=1e-5, atol=1e-6), n
+
+
+def test_train_step_launches_the_raster_kernels(cuda):
+    """A train step of n iterations launches each raster kernel n times."""
+    tpt, cfg, db, state, batch, draws = _train_setup(cuda, True, 0.0)
+    before = dict(rasterizer_cuda.RASTER_KERNEL.launches)
+    tpt.make_train_step(cfg, db)(state, batch, draws)
+    torch.cuda.synchronize()
+    after = rasterizer_cuda.RASTER_KERNEL.launches
+    assert after["raster_setup"] - before["raster_setup"] == cfg.n_iterations
+    assert after["raster_resolve"] - before["raster_resolve"] == cfg.n_iterations

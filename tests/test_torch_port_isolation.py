@@ -25,6 +25,8 @@ def _loaded_after(statement: str) -> list[str]:
 def test_every_port_module_is_listed():
     assert "cosypose_tpu_torch.ops.rasterizer_cuda" in MODULES
     assert "cosypose_tpu_torch.integrated.pose_predictor" in MODULES
+    assert "cosypose_tpu_torch.training.train_pose" in MODULES
+    assert "cosypose_tpu_torch.data.wrappers" in MODULES
 
 
 def test_port_imports_no_jax():
