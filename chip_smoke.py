@@ -26,9 +26,25 @@ Phases, none of them caught; any failure exits non-zero:
      a warm-up step, a checkpoint resume round trip, 8 timed steps with both
      kernels' launch counts checked (3 a step); peak memory and time of a
      step with remat on and off; one step split into forward, backward and
-     optimizer by CUDA events, and one profiled step.
+     optimizer by CUDA events, and one profiled step;
+  6. recording and data: kernel A on a full-width procedural scene soup (8
+     objects and the cage, >= 8,872 rows, 10 cameras) against its plain
+     version; the attribute kernel on it (240x320, tile (8, 320), budget
+     6144) against its plain version on the CPU, exactly, and at the
+     config's largest scene (7 objects) on the card; both kernels at the
+     amodal re-render's shape as the sampler builds it (80 items, tile (24,
+     320), budget 768), exactly; record_dataset with CONFIGS["procedural"]
+     (55 chunks x 20 frames) and "procedural-canon" (2 x 10) into
+     build/chip_smoke_data/, with the kernels' launches held to the
+     sampler's render calls, frames/s and a frame's split; the set read back
+     through make_scene_dataset and held to what the sampler produced, and
+     its decode time; the trainer with make_cfg("procedural-refiner") over
+     it, 8 timed steps with 0 loader workers and 32 with 8 (3 launches of
+     each kernel a step); one small scene recorded on the card and on the
+     CPU, equal.
 The last lines are the card's name and power limit, one JSON line of kernel
-numbers (launches while serving, and while training), and the contract line
+numbers (launches while serving, training and recording; the attribute
+kernel's times at the scene shape), and the contract line
 {"ok": true, "device": {...}}. Without a card, or outside the repo, it exits
 non-zero and prints no result. The profiler tables go to
 build/chip_smoke_profile.txt and build/chip_smoke_train_profile.txt.
@@ -87,6 +103,22 @@ REL_GRAD = 4e-3             # of each gradient tensor's max
 REL_STATS = 1e-4            # BatchNorm running statistics, of their scale
 ATOL_PARAM = 1e-6           # beyond what the gradients' difference moves Adam's step
 REL_ZERO = 1e-6             # a gradient that is 0 in exact arithmetic, of the largest
+# recording and data: CONFIGS["procedural"] (240x320, 10 views a scene), a
+# scene of 8 objects and the cage for the attribute kernel (>= 8,872 rows),
+# the recorded set, and the trainer over it (make_cfg("procedural-refiner"))
+SCENE_OBJECTS, SCENE_CAMERAS = 8, 10
+# chunks x frames a chunk: 55 x 20 puts 1,040 frames in the train split, one
+# distinct frame for each sample of the trainer's longest run
+RECORD = {"procedural": (55, 20), "procedural-canon": (2, 10)}
+SMALL_SCENE = (96, 128)
+DATA_ROOT = OUT_DIR / "chip_smoke_data"
+# timed steps of 32 with n loader workers: with 8, twice the 8 x 2 batches
+# that DataLoader's workers queue before the first step, so the run's later
+# half waits on batches asked for while it trains
+LOADER_STEPS = {0: 8, 8: 32}
+# the recorder writes depth as trunc(depth * 1000) of the sampler's whole
+# millimetres / 1000, as the JAX package does: a value may come back 1 mm lower
+DEPTH_TOL = 1e-3 + 1e-6
 
 
 def log(msg: str) -> None:
@@ -296,12 +328,163 @@ def train_step_card_vs_cpu(cfg=None) -> dict:
     return out
 
 
+def setup_vs_plain(args, tri_attr=None):
+    """Kernel A against setup_plain on the same inputs (tri_verts, tri_valid,
+    TCO, K, image_size, colors), held to SETUP_TOL as
+    rasterizer_cuda.setup_error reads it, with validity and attributes equal.
+    Returns (rows, key, plain key, error dict, max abs error over rows valid
+    in both)."""
+    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
+
+    rows, key = rc.setup(*args, tri_attr=tri_attr)
+    rows_p, key_p = rc.setup_plain(*args, tri_attr=tri_attr)
+    err = rc.setup_error(rows, key, rows_p, key_p, args[4])
+    both = (rows[..., rc.LANE_VALID] != 0) & (rows_p[..., rc.LANE_VALID] != 0)
+    abs_err = max(float((rows[both] - rows_p[both]).abs().max()),
+                  float((key[both] - key_p[both]).abs().max()))
+    if err["valid_differs"] or err["attr"] or err["plane"] > rc.SETUP_TOL \
+            or err["bbox_key"] > rc.SETUP_TOL:
+        raise AssertionError(f"raster_setup vs plain: {err} (tolerance {rc.SETUP_TOL})")
+    return rows, key, key_p, err, abs_err
+
+
+def scene_inputs(device, n_objects=SCENE_OBJECTS, seed=0):
+    """A full-width scene of CONFIGS["procedural"] with n_objects procedural
+    objects and the cage, seen by SCENE_CAMERAS cameras, as SceneRenderer
+    composes it: (setup args, instance ids) on `device`."""
+    import numpy as np
+    import torch
+
+    from cosypose_tpu_torch.ops.transforms import invert_T
+    from cosypose_tpu_torch.scripts.run_dataset_recording import _make_sampler
+
+    sampler = _make_sampler("procedural", n_objects_interval=(n_objects, n_objects + 1),
+                            device=device)
+    rng = np.random.RandomState(seed)
+    scene = sampler._sample_objects(rng)
+    scene += sampler._cage_geometry(rng)
+    cams = [sampler._sample_camera(rng) for _ in range(SCENE_CAMERAS)]
+    tv, valid, colors, ids = sampler.renderer.soup(scene)
+
+    def bc(x, dtype=torch.float32):
+        return torch.as_tensor(x, dtype=dtype, device=device)[None].expand(
+            SCENE_CAMERAS, *x.shape).contiguous()
+
+    TCW = invert_T(torch.as_tensor(np.stack([c["TWC"] for c in cams]), device=device))
+    K = torch.as_tensor(np.stack([c["K"] for c in cams]), device=device)
+    return (bc(tv), bc(valid, torch.bool), TCW, K, sampler.resolution, bc(colors)), bc(ids)
+
+
+def procedural_scene(device, n_objects=SCENE_OBJECTS, seed=0):
+    """The attribute kernel's input at scene_inputs(...): (rows, order,
+    image size) on `device`, from kernel A (card) or its plain version (CPU)."""
+    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
+
+    args, ids = scene_inputs(device, n_objects, seed)
+    rows, key = rc.setup(*args, tri_attr=ids)
+    return rows, rc.sort_order(key), args[4]
+
+
+def amodal_inputs(device, seed=0):
+    """The render() inputs of the amodal re-render as RecordingSceneSampler
+    builds them for one scene of CONFIGS["procedural"] (n_views_per_scene x
+    the largest object count, one 1216-row procedural mesh an item, the
+    padding far behind the camera), taken at the call: (setup args, tile,
+    budget) on `device`."""
+    from cosypose_tpu_torch.rendering import scene_renderer
+    from cosypose_tpu_torch.scripts.run_dataset_recording import _make_sampler
+
+    sampler = _make_sampler("procedural", device=device)
+    calls, render = [], scene_renderer.render
+
+    def keep(*args, **kwargs):
+        calls.append((args, kwargs))
+        return render(*args, **kwargs)
+
+    scene_renderer.render = keep
+    try:
+        sampler.sample_scene_frames(seed, int(sampler.n_views_per_scene))
+    finally:
+        scene_renderer.render = render
+    args, kw = [c for c in calls if c[1].get("tri_attr") is None][-1]
+    return ((*args, kw["image_size"], kw["colors"]), kw["tile"], kw["max_tris_per_tile"])
+
+
+def record_card_vs_cpu(root: pathlib.Path):
+    """One small scene (the demo cubes at 96x128, 3 views, textures, cage)
+    recorded on the card (raster kernels) and on the CPU (plain versions)
+    from the same seed: ({quantity: (error, tolerance)}, {kind: (pixels that
+    differ, pixels)}); the caller checks the first.
+
+    The sampler's host draws are the same, so cameras, poses and the kept
+    objects must agree. The resolve kernel is bit-exact against its plain
+    version on the same rows; the setup kernel's rows differ from its plain
+    version's in their last bits. Whole-millimetre depth is a truncation, so
+    a pixel whose depth lies within those bits of a millimetre may come out
+    1 mm apart: on this scene 2 of 36,864 depth pixels do (measured on an
+    H100), and depth is held to 1 mm. Everything else, measured equal, is
+    held exactly: GT JSON, boxes, visible fractions, rgb and mask pixels.
+    """
+    import numpy as np
+
+    from cosypose_tpu_torch import demo
+    from cosypose_tpu_torch.ops.mesh_db import build_mesh_db
+    from cosypose_tpu_torch.recording import RecordingSceneSampler, record_dataset
+    from cosypose_tpu_torch.recording.textures import TextureSampler
+    from cosypose_tpu_torch.utils.png import imread
+
+    scenes = []
+    for d in ("cpu", "cuda"):
+        sampler = RecordingSceneSampler(
+            build_mesh_db(demo.cube_specs(), device=d), resolution=SMALL_SCENE,
+            n_objects_interval=(3, 5), min_visible_pixels=10, border_check=False,
+            camera_distance_interval=(0.5, 0.9), n_views_per_scene=3,
+            texture_sampler=TextureSampler(p_textured=0.8))
+        scenes.append(record_dataset(sampler, root / d, n_chunks=1,
+                                     n_frames_per_chunk=3) / "train_synt" / "000000")
+    cpu, card = scenes
+
+    def numbers(scene_dir, name, key):
+        rows = json.loads((scene_dir / name).read_text())
+        return np.asarray([v for view in rows.values()
+                           for row in (view if isinstance(view, list) else [view])
+                           for v in np.ravel(row[key]).tolist()], np.float64)
+
+    def err(name, key):
+        a, b = numbers(cpu, name, key), numbers(card, name, key)
+        return float(np.abs(a - b).max()) if a.shape == b.shape and a.size else math.inf
+
+    files = sorted(p.relative_to(cpu) for p in cpu.rglob("*.png"))
+    same_files = files == sorted(p.relative_to(card) for p in card.rglob("*.png"))
+    off = {k: [0, 0, 0] for k in ("rgb", "depth", "mask_visib")}  # differ, largest, pixels
+    for f in files if same_files else []:
+        a, b = imread(cpu / f).astype(np.int64), imread(card / f).astype(np.int64)
+        diff = np.abs(a - b) if a.ndim == 2 else np.abs(a - b).max(-1)
+        o = off[f.parts[0]]
+        o[0] += int((diff > 0).sum())
+        o[1] = max(o[1], int(diff.max()))
+        o[2] += diff.size
+    largest = {k: (o[1] if same_files and o[2] else math.inf) for k, o in off.items()}
+    errs = {"GT poses and cameras (mm)": (max(err("scene_gt.json", "cam_t_m2c"),
+                                             err("scene_gt.json", "cam_R_m2c"),
+                                             err("scene_camera.json", "cam_t_w2c"),
+                                             err("scene_camera.json", "cam_K")), 0),
+            "boxes (px)": (max(err("scene_gt_info.json", "bbox_visib"),
+                               err("scene_gt_info.json", "bbox_obj")), 0),
+            "visible fractions": (err("scene_gt_info.json", "visib_fract"), 0),
+            "rgb (of 255)": (largest["rgb"], 0),
+            "depth (mm)": (largest["depth"], 1),
+            "masks (ids)": (largest["mask_visib"], 0)}
+    return errs, {k: (o[0], o[2]) for k, o in off.items()}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
+    t_main = time.perf_counter()
     from cosypose_tpu_torch import demo
     from cosypose_tpu_torch.integrated.pose_predictor import (CoarseRefinePosePredictor,
                                                               LoadedPoseModel)
@@ -346,15 +529,8 @@ def main() -> int:
 
     # kernel A
     args = (first["tri_verts"], first["tri_valid"], TCO, first["K_crop"], RENDER, first["colors"])
-    rows, key = rc.setup(*args)
-    rows_p, key_p = rc.setup_plain(*args)
-    err = rc.setup_error(rows, key, rows_p, key_p, RENDER)
-    both = (rows[..., rc.LANE_VALID] != 0) & (rows_p[..., rc.LANE_VALID] != 0)
-    abs_err = max(float((rows[both] - rows_p[both]).abs().max()),
-                  float((key[both] - key_p[both]).abs().max()))
-    if err["valid_differs"] or err["attr"] or err["plane"] > rc.SETUP_TOL \
-            or err["bbox_key"] > rc.SETUP_TOL:
-        raise AssertionError(f"raster_setup vs plain: {err} (tolerance {rc.SETUP_TOL})")
+    rows, key, key_p, err, abs_err = setup_vs_plain(args)
+    both = rows[..., rc.LANE_VALID] != 0
     order = rc.sort_order(key)
     order_differs = int((order != rc.sort_order(key_p)).any(1).sum())
     ms_a, ev_a = device_ms(lambda: rc.setup(*args)), time_cuda_ms(lambda: rc.setup(*args), 50)
@@ -700,10 +876,257 @@ def main() -> int:
     for k, v in sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]:
         log(f"    {v / 1e3:9.2f} ms  {k[:90]}")
 
+    del state, kept
+    torch.cuda.empty_cache()
+    log(f"phases 1-5 done at {time.perf_counter() - t_main:.0f} s")
+
+    # -- 6. recording and data ----------------------------------------------------
+    import shutil
+
+    import numpy as np
+
+    from cosypose_tpu_torch.data.datasets_cfg import make_object_dataset, make_scene_dataset
+    from cosypose_tpu_torch.data.pose_dataset import PoseDataset
+    from cosypose_tpu_torch.rendering.scene_renderer import SCENE_BUDGET, SCENE_TILE
+    from cosypose_tpu_torch.recording import record_dataset
+    from cosypose_tpu_torch.scripts.run_dataset_recording import CONFIGS, _make_sampler
+
+    # the setup kernel on the scene soup, then the attribute kernel at the
+    # scene shape against its plain version on the CPU
+    args_s, ids_s = scene_inputs(dev)
+    rows_s, key_s, _, err_s, abs_s = setup_vs_plain(args_s, ids_s)
+    order_s, res_s = rc.sort_order(key_s), args_s[4]
+    log(f"{tag} raster_setup at the scene soup ({SCENE_CAMERAS} cameras x {rows_s.shape[1]} rows):"
+        f" vs plain: plane rel err {err_s['plane']:.3g}, bbox/key rel err {err_s['bbox_key']:.3g} "
+        f"(<= {rc.SETUP_TOL}), max abs err {abs_s:.3g}, validity and instance ids equal")
+    Fp_s = rows_s.shape[1]
+    budget_s = min(Fp_s, SCENE_BUDGET)
+    out_k = kernel.resolve(rows_s, order_s, res_s, SCENE_TILE, budget_s, True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p = rc.resolve_plain_binned(rows_s.cpu(), order_s.cpu(), res_s, SCENE_TILE, budget_s,
+                                    True)
+    cpu_plain_s = time.perf_counter() - t0
+    same = all(torch.equal(k.cpu(), p) for k, p in zip(out_k, out_p))
+    e_s = max(float((k.cpu() - p).abs().max()) for k, p in zip(out_k, out_p))
+    if not same or Fp_s < 8872:
+        raise AssertionError(f"raster_resolve_attr at the scene shape ({Fp_s} rows): kernel vs "
+                             f"plain max err {e_s}, not equal")
+    counts_s = rc.bin_chunks(rows_s, order_s, res_s, SCENE_TILE, 1 << 30)[2]
+    b_s, by_s, visits_s, bytes_s = resolve_bound(rows_s, order_s, res_s, SCENE_TILE, budget_s,
+                                                 True)
+    ms_s = device_ms(lambda: kernel.resolve(rows_s, order_s, res_s, SCENE_TILE, budget_s, True))
+    plain_s = time_cuda_ms(lambda: rc.resolve_plain_binned(rows_s, order_s, res_s, SCENE_TILE,
+                                                           budget_s, True), 1, warmup=1)
+    log(f"{tag} raster_resolve_attr at the scene shape ({SCENE_CAMERAS} cameras x {Fp_s} rows "
+        f"of {SCENE_OBJECTS} procedural objects and the cage, {res_s[0]}x{res_s[1]}, tile "
+        f"{SCENE_TILE}, budget {budget_s}; the card takes up to {kernel.max_rows(dev)} rows): "
+        f"equal to the plain version on the CPU (rgb, depth, attr; {cpu_plain_s:.1f} s there); "
+        f"most chunks a tile lists {int(counts_s.max())} of {rc.chunk_budget(budget_s, Fp_s)}; "
+        f"kernel {ms_s:.4f} ms on the device, bound {b_s:.4f} ms by {by_s} ({visits_s:.4g} "
+        f"visits, {bytes_s / 1e6:.1f} MB; {100 * b_s / ms_s:.1f} % of bound), plain on the card "
+        f"{plain_s:.1f} ms, library_ms: none")
+    rows_json["raster_resolve_attr"] = dict(max_abs_err=e_s, ms=ms_s, plain_ms=plain_s,
+                                            bound_ms=b_s, bound_by=by_s)
+    del rows_s, order_s, out_k, out_p
+
+    # the config's own largest scene: CONFIGS["procedural"] draws 3-7 objects
+    n_max = CONFIGS["procedural"]["sampler_kwargs"]["n_objects_interval"][1] - 1
+    rows_7, order_7, _ = procedural_scene(dev, n_objects=n_max)
+    budget_7 = min(rows_7.shape[1], SCENE_BUDGET)
+    out_k = kernel.resolve(rows_7, order_7, res_s, SCENE_TILE, budget_7, True)
+    torch.cuda.synchronize()
+    out_p = rc.resolve_plain_binned(rows_7, order_7, res_s, SCENE_TILE, budget_7, True)
+    if not all(torch.equal(k, p) for k, p in zip(out_k, out_p)):
+        raise AssertionError(f"raster_resolve_attr at a {n_max}-object scene: kernel vs plain "
+                             f"not equal")
+    ms_7 = device_ms(lambda: kernel.resolve(rows_7, order_7, res_s, SCENE_TILE, budget_7, True))
+    b_7, by_7 = resolve_bound(rows_7, order_7, res_s, SCENE_TILE, budget_7, True)[:2]
+    log(f"{tag} raster_resolve_attr at a {n_max}-object scene (the config's largest; "
+        f"{SCENE_CAMERAS} cameras x {rows_7.shape[1]} rows): equal to the plain version on the "
+        f"card; kernel {ms_7:.4f} ms on the device, bound {b_7:.4f} ms by {by_7} "
+        f"({100 * b_7 / ms_7:.1f} % of bound)")
+    del rows_7, order_7, out_k, out_p
+
+    # the plain resolve at the amodal re-render's shape, as the sampler builds it
+    args_a, tile_a, budget_a = amodal_inputs(dev)
+    rows_a, key_a, _, err_a, abs_a = setup_vs_plain(args_a)
+    order_a, res_a = rc.sort_order(key_a), args_a[4]
+    out_k = kernel.resolve(rows_a, order_a, res_a, tile_a, budget_a, False)
+    torch.cuda.synchronize()
+    out_p = rc.resolve_plain_binned(rows_a, order_a, res_a, tile_a, budget_a, False)
+    if not all(torch.equal(k, p) for k, p in zip(out_k[:2], out_p[:2])):
+        raise AssertionError("raster_resolve at the amodal shape: kernel vs plain not equal")
+    ms_a6 = device_ms(lambda: kernel.resolve(rows_a, order_a, res_a, tile_a, budget_a, False))
+    b_a6, by_a6 = resolve_bound(rows_a, order_a, res_a, tile_a, budget_a, False)[:2]
+    counts_a = rc.bin_chunks(rows_a, order_a, res_a, tile_a, 1 << 30)[2]
+    # what the budget drops: the same rows with every chunk of a tile listed
+    whole = kernel.resolve(rows_a, order_a, res_a, tile_a, rows_a.shape[1], False)[1] > 0
+    kept_px, whole_px = int((out_k[1] > 0).sum()), int(whole.sum())
+    over = int((counts_a > rc.chunk_budget(budget_a, rows_a.shape[1])).any(-1).sum())
+    log(f"{tag} amodal re-render: the budget keeps {kept_px} of the {whole_px} object pixels "
+        f"an unlimited one renders; {over} of {rows_a.shape[0]} items have a tile beyond it (the "
+        f"JAX package's accelerator tile and budget)")
+    log(f"{tag} amodal re-render ({rows_a.shape[0]} items x {rows_a.shape[1]} rows, "
+        f"{res_a[0]}x{res_a[1]}, tile {tile_a}, budget {budget_a}): raster_setup vs plain plane "
+        f"rel err {err_a['plane']:.3g}, bbox/key {err_a['bbox_key']:.3g} (<= {rc.SETUP_TOL}), "
+        f"max abs err {abs_a:.3g}; raster_resolve equal to the plain version on the card (rgb, "
+        f"depth); most chunks a tile lists {int(counts_a.max())} of "
+        f"{rc.chunk_budget(budget_a, rows_a.shape[1])}; kernel {ms_a6:.4f} ms on the device, "
+        f"bound {b_a6:.4f} ms by {by_a6} ({100 * b_a6 / ms_a6:.1f} % of bound)")
+    del rows_a, order_a, out_k, out_p
+
+    # recording: CONFIGS["procedural"], then "procedural-canon"
+    shutil.rmtree(DATA_ROOT, ignore_errors=True)
+    produced = []
+
+    def recorder(name):
+        sampler = _make_sampler(name, device=dev)
+        sample = sampler.sample_scene_frames
+
+        def keep(seed, n_views=1):   # the frames as the sampler produced them
+            frames = sample(seed, n_views)
+            if name == "procedural":
+                produced.extend(frames)
+            return frames
+
+        sampler.sample_scene_frames = keep
+        return sampler
+
+    warm = _make_sampler("procedural", device=dev)
+    record_dataset(warm, DATA_ROOT / "warm-up", n_chunks=1, n_frames_per_chunk=10)
+    launches_rec = {}
+    for name, (n_chunks, n_frames) in RECORD.items():
+        sampler = recorder(name)
+        kernel.launches = {k: 0 for k in kernel.launches}
+        t0 = time.perf_counter()
+        record_dataset(sampler, DATA_ROOT / "synt_datasets" / name, n_chunks=n_chunks,
+                       n_frames_per_chunk=n_frames)
+        wall = time.perf_counter() - t0
+        got = dict(kernel.launches)
+        n_scene, n_amodal = sampler.counts["scene_renders"], sampler.counts["amodal_renders"]
+        want = {"raster_setup": n_scene + n_amodal, "raster_resolve": n_amodal,
+                "raster_resolve_attr": n_scene}
+        if got != want:
+            raise AssertionError(f"recording {name} launched {got}, want {want} (one attribute "
+                                 f"launch a scene render, one plain launch an amodal render)")
+        n = n_chunks * n_frames
+        t = sampler.times
+        host = t["sample"] - t["scene_render"] - t["amodal_render"]
+        rest = wall - t["sample"] - t["write"]
+        log(f"{tag} recording {name} ({CONFIGS[name]['resolution']}, "
+            f"{CONFIGS[name]['sampler_kwargs']['n_views_per_scene']} views a scene): {n} frames "
+            f"in {wall:.2f} s, {n / wall:.2f} frames/s; a frame: scene render "
+            f"{1e3 * t['scene_render'] / n:.1f} ms, amodal render "
+            f"{1e3 * t['amodal_render'] / n:.1f} ms, host validity/GT work {1e3 * host / n:.1f} "
+            f"ms, PNG encode + write {1e3 * t['write'] / n:.1f} ms, the rest (JSON, ledger) "
+            f"{1e3 * rest / n:.1f} ms; launches {got} for {n_scene} scene and {n_amodal} amodal "
+            f"render calls")
+        if name == "procedural":
+            launches_rec = got
+
+    # reading back: the registry's synthetic splits, frame by frame against the sampler
+    n_rec = RECORD["procedural"][0] * RECORD["procedural"][1]
+    splits = {w: make_scene_dataset(f"synthetic.procedural.{w}", ds_root=DATA_ROOT,
+                                    load_depth=True) for w in ("train", "val")}
+    items = [splits[w][i] for w in ("train", "val") for i in range(len(splits[w]))]
+    if len(items) != n_rec or len(produced) != n_rec:
+        raise AssertionError(f"read {len(items)} frames back, the sampler made {len(produced)}")
+    n_obj = 0
+    for (rgb, mask, obs), (rgb0, mask0, obs0) in zip(items, produced):
+        objs, objs0 = obs["objects"], obs0["objects"]
+        ok = (np.array_equal(rgb, rgb0) and len(objs) == len(objs0)
+              and np.array_equal(obs["camera"]["K"], obs0["camera"]["K"])
+              and np.abs(obs["camera"]["depth"] - obs0["camera"]["depth"]).max() <= DEPTH_TOL)
+        for n, (o, o0) in enumerate(zip(objs, objs0)):
+            ok &= (o["label"] == o0["label"] and np.array_equal(o["bbox"], o0["bbox"])
+                   and o["visib_fract"] == o0["visib_fract"]
+                   and np.abs(o["TWO"] - o0["TWO"]).max() <= 1e-5
+                   and np.array_equal(mask == n + 1, mask0 == o0["id_in_segm"]))
+        n_obj += len(objs)
+        if not ok:
+            raise AssertionError(f"frame {obs['frame_info']} read back differs from the sampler's")
+    ds_t = splits["train"]
+    t0 = time.perf_counter()
+    for i in range(len(ds_t)):
+        ds_t._load_item(i)
+    dec_depth = (time.perf_counter() - t0) / len(ds_t)
+    ds_t.load_depth = False
+    t0 = time.perf_counter()
+    for i in range(len(ds_t)):
+        ds_t._load_item(i)
+    dec = (time.perf_counter() - t0) / len(ds_t)
+    log(f"{tag} read back {n_rec} frames ({n_obj} GT objects) through "
+        f"make_scene_dataset('synthetic.procedural.train|val'): rgb, masks, GT poses (<= 1e-5 m), "
+        f"boxes, visible fractions and depth equal to what the sampler produced; decode "
+        f"{1e3 * dec:.2f} ms a frame (rgb + masks + JSON), {1e3 * dec_depth:.2f} ms with depth")
+
+    # training on the recorded set: make_cfg("procedural-refiner")
+    run_p = make_cfg("procedural-refiner")
+    tcfg_p = run_p.train
+    Bp, n_it_p = tcfg_p.batch_size, tcfg_p.n_iterations
+    jitter = run_p.rgb_augmentation and not tcfg_p.rgb_aug_device
+    def pose_dataset():   # a fresh one: every frame decodes on its first read
+        return PoseDataset(make_scene_dataset("synthetic.procedural.train", ds_root=DATA_ROOT),
+                           resize=tuple(run_p.input_resize), apply_rgb_augmentation=jitter)
+
+    db_p = build_mesh_db(make_object_dataset(run_p.object_ds_name).mesh_specs(), device=dev)
+    log(f"training data: {len(pose_dataset())} recorded frames of {run_p.input_resize}, host jitter "
+        f"{jitter}; config procedural-refiner: {tcfg_p.predictor.backbone}, render "
+        f"{tcfg_p.predictor.render_size}, {tcfg_p.predictor.compute_dtype}, {n_it_p} iterations, "
+        f"batch {Bp}, {tcfg_p.input_generator}, n_points_loss {tcfg_p.n_points_loss}")
+    exp_p = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_procedural_", dir=OUT_DIR))
+    for workers, steps in LOADER_STEPS.items():
+        pose_ds = pose_dataset()
+        if len(pose_ds) < Bp * steps:
+            raise AssertionError(f"{len(pose_ds)} recorded frames for {steps} steps of {Bp}")
+        cfg_w = dataclasses.replace(run_p, run_id=f"procedural-refiner-w{workers}",
+                                    n_dataloader_workers=workers, val_ds_names=())
+        cfg_w.train = dataclasses.replace(tcfg_p, n_epochs=1, epoch_size=Bp)
+        train_pose(cfg_w, {"train": [(pose_ds, 1)]}, db_p, exp_dir=exp_p, device=dev)  # warm-up
+        cfg_w.train = dataclasses.replace(tcfg_p, n_epochs=2, epoch_size=Bp * steps)
+        kernel.launches = {k: 0 for k in kernel.launches}
+        t0 = time.perf_counter()
+        trained_p, run_dir_p = train_pose(cfg_w, {"train": [(pose_ds, 1)]}, db_p, resume=True,
+                                          exp_dir=exp_p, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(kernel.launches)
+        want = {"raster_setup": steps * n_it_p, "raster_resolve": steps * n_it_p,
+                "raster_resolve_attr": 0}
+        rec = [json.loads(line) for line in (run_dir_p / "log.txt").read_text().splitlines()][-1]
+        losses = [rec[k] for k in rec if k.startswith("train/loss")]
+        if got != want or trained_p.step != 1 + steps or not all(
+                math.isfinite(v) for v in losses):
+            raise AssertionError(f"procedural-refiner with {workers} workers: launches {got} "
+                                 f"(want {want}), step {trained_p.step}, losses {losses}")
+        step_s, data_s = rec["train/step_s_per_step"], rec["train/data_s_per_step"]
+        first, later = rec["train/data_s_first_batch"], rec["train/data_s_second_half"]
+        log(f"{tag} trainer on the recorded set, {workers} loader workers: {steps} steps of "
+            f"procedural-refiner in {wall:.1f} s with set-up; {1e3 * step_s:.1f} ms/step, "
+            f"{Bp / step_s:.1f} samples/s, {Bp * n_it_p / step_s:.1f} crop-iterations/s; data "
+            f"wait {1e3 * data_s:.1f} ms/step ({1e3 * first:.1f} ms before the first batch, "
+            f"{1e3 * later:.1f} ms a step over the last {steps - steps // 2} steps); step "
+            f"without its wait {1e3 * (step_s - data_s):.1f} ms; loss "
+            f"{rec['train/loss_total']:.4f}; launches {got} (3 a step of raster_setup and "
+            f"raster_resolve)")
+        del trained_p
+
+    # a small scene recorded on the card and on the CPU
+    errs, differ = record_card_vs_cpu(DATA_ROOT / "card_vs_cpu")
+    log(f"{tag} recording card vs CPU (demo cubes, {SMALL_SCENE[0]}x{SMALL_SCENE[1]}, 3 views), "
+        f"largest differences: "
+        + ", ".join(f"{k} {e:.3g} (<= {tol})" for k, (e, tol) in errs.items())
+        + "; pixels that differ: " + ", ".join(f"{k} {n} of {t}" for k, (n, t) in differ.items()))
+    bad = {k: v for k, v in errs.items() if not v[0] <= v[1]}
+    if bad:
+        raise AssertionError(f"recording card vs CPU beyond tolerance: {bad}")
+    log(f"phase 6 done at {time.perf_counter() - t_main:.0f} s")
+
     # -- results --------------------------------------------------------------
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], launches_training=launches_train[name],
-                    library_ms=None, **rows_json[name])
+                    launches_recording=launches_rec[name], library_ms=None, **rows_json[name])
                for name in ("raster_setup", "raster_resolve", "raster_resolve_attr")]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -3,8 +3,9 @@
 
 Two UV-spheres (5 cm and 7.5 cm radius, the second with a continuous
 symmetry) and seeded random images/intrinsics/poses, as numpy arrays, so the
-JAX package and the port can be fed identical inputs; and `DemoPoseDataset`,
-an in-memory training set of PoseDataset-shaped items made the same way.
+JAX package and the port can be fed identical inputs; `DemoPoseDataset`,
+an in-memory training set of PoseDataset-shaped items made the same way; and
+`cube_specs`, two cubes for small recorded scenes.
 """
 
 from __future__ import annotations
@@ -46,6 +47,19 @@ def demo_specs() -> list[MeshSpec]:
         MeshSpec(label="obj_000002", vertices=verts * 1500.0, faces=faces,
                  symmetries_continuous=[{"axis": [0, 0, 1], "offset": [0, 0, 0]}]),
     ]
+
+
+def cube_specs() -> list[MeshSpec]:
+    """Two cubes of 10 and 15 cm, 12 triangles each (tests/test_pose_predictor.py's
+    cube_specs): small scenes to record on the CPU."""
+    s = 50.0  # mm
+    verts = np.array([[x, y, z] for x in (-s, s) for y in (-s, s) for z in (-s, s)], np.float64)
+    tris = []
+    for a, b, c, d in [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6), (0, 2, 6, 4),
+                       (1, 5, 7, 3)]:
+        tris += [(a, b, c), (a, c, d)]
+    return [MeshSpec(label="obj_000001", vertices=verts, faces=np.asarray(tris)),
+            MeshSpec(label="obj_000002", vertices=verts * 1.5, faces=np.asarray(tris))]
 
 
 @torch.no_grad()

@@ -48,7 +48,6 @@ ROW = 32   # packed row: 0:3 lam_a, 3:6 lam_b, 6:9 lam_c, 9:12 iz_abc, 12:15 col
 #            18:21 col_c, 21 attr, 22 0, 23 valid, 24:28 bbox (x0, y0, x1, y1), 28:32 cover box
 LANE_ATTR, LANE_VALID, LANE_BBOX, LANE_COVER = 21, 23, 24, 28
 CHUNK = 8  # rows per chunk: the unit of binning
-MAX_ROWS = 8192   # kernel B stages 22 B per row in shared memory: 176 KB of the 227 KB
 WARP_PIXELS = 64  # kernel B's warps take 64 consecutive pixels of a tile, two a lane
 CULL_SLACK = 2.0 ** -20  # rounding slack of row_may_cover, per unit magnitude
 
@@ -406,6 +405,7 @@ class RasterKernels:
     def __init__(self):
         self.launches = {"raster_setup": 0, "raster_resolve": 0, "raster_resolve_attr": 0}
         self._fns = None
+        self._max_rows = {}
 
     def load(self):
         if self._fns is None:
@@ -413,11 +413,27 @@ class RasterKernels:
             setup = ctypes.CDLL(str(libs["setup"][0])).cosypose_raster_setup
             setup.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-            resolve = ctypes.CDLL(str(libs["resolve"][0])).cosypose_raster_resolve
+            lib = ctypes.CDLL(str(libs["resolve"][0]))
+            resolve = lib.cosypose_raster_resolve
             resolve.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-            setup.restype = resolve.restype = ctypes.c_int
-            self._fns = {"setup": setup, "resolve": resolve}
+            max_rows = lib.cosypose_raster_resolve_max_rows
+            max_rows.argtypes = [ctypes.c_int]
+            setup.restype = resolve.restype = max_rows.restype = ctypes.c_int
+            self._fns = {"setup": setup, "resolve": resolve, "max_rows": max_rows}
         return self._fns
+
+    def max_rows(self, device: torch.device) -> int:
+        """The most rows an item may have in kernel B on `device`: kernel B
+        stages 22 B a row in shared memory, so whole chunks within the shared
+        memory a block may opt in to (10,560 on an H100)."""
+        index = device.index or 0
+        if index not in self._max_rows:
+            n = self.load()["max_rows"](index)
+            if n <= 0:
+                raise RuntimeError(f"raster_resolve: cannot read the shared memory limit "
+                                   f"(cudaError {-n})")
+            self._max_rows[index] = n
+        return self._max_rows[index]
 
     def setup(self, tri_verts, tri_valid, TCO, K, image_size, colors=None, z_near=0.05,
               tri_attr=None):
@@ -459,10 +475,11 @@ class RasterKernels:
         _check("rows", rows, rows.device, torch.float32, (B, Fp, ROW))
         _check("order", order, rows.device, torch.int64, (B, Fp))
         Kc = chunk_budget(max_tris_per_tile, Fp)
-        if Fp % CHUNK or Fp > MAX_ROWS or th * tw <= 0 or th * tw % WARP_PIXELS or B > 65535 \
+        max_rows = self.max_rows(rows.device)
+        if Fp % CHUNK or Fp > max_rows or th * tw <= 0 or th * tw % WARP_PIXELS or B > 65535 \
                 or rows.data_ptr() % 16:
             raise ValueError(f"raster_resolve does not take rows {tuple(rows.shape)} (at most "
-                             f"{MAX_ROWS} per item) with tile {tile} (th*tw a multiple of "
+                             f"{max_rows} per item) with tile {tile} (th*tw a multiple of "
                              f"{WARP_PIXELS})")
         fn = self.load()["resolve"]
         rgb = torch.empty(B, 3, H, W, device=rows.device)

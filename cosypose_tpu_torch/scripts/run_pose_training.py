@@ -1,0 +1,72 @@
+"""Pose training CLI (port of cosypose_tpu/scripts/run_pose_training.py).
+
+  python -m cosypose_tpu_torch.scripts.run_pose_training --config procedural-refiner \\
+      [--debug] [--resume] [--pretrain-run-id RUN] [--ds-root DIR] [--n-epochs N] \\
+      [--no-eval-bundle] [--device cpu]
+
+A named config (training/configs.py) gives the hyperparameters, its datasets
+come from the registry (data/datasets_cfg.py) and the mesh database from its
+object dataset, on the card unless --device says otherwise. The JAX package
+runs an evaluation bundle over the first validation set by default; the port
+has no evaluation yet, so a config with a validation set raises unless
+--no-eval-bundle is given (then validation losses are still logged).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+
+from ..data.datasets_cfg import make_object_dataset, make_scene_dataset
+from ..data.pose_dataset import PoseDataset
+from ..ops.mesh_db import build_mesh_db
+from ..training.configs import make_cfg
+from ..training.train_pose import train_pose
+
+EVAL_NOT_PORTED = ("evaluation not ported (ROADMAP queue 1 item 14): pass --no-eval-bundle to "
+                   "train without the in-training evaluation bundle")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", required=True, help="e.g. procedural-refiner, tless-coarse")
+    parser.add_argument("--debug", action="store_true")
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--pretrain-run-id", default=None)
+    parser.add_argument("--ds-root", default=None)
+    parser.add_argument("--no-eval-bundle", action="store_true",
+                        help="skip the in-training evaluation bundle (not ported yet)")
+    parser.add_argument("--n-epochs", type=int, default=None,
+                        help="override the config's epoch budget")
+    parser.add_argument("--exp-dir", default=None, help="runs directory (default config.EXP_DIR)")
+    parser.add_argument("--device", default="cuda", help="'cuda' (the default) or 'cpu'")
+    args = parser.parse_args(argv)
+
+    cfg = make_cfg(args.config, debug=args.debug)
+    if args.n_epochs is not None:
+        cfg.train = dataclasses.replace(cfg.train, n_epochs=args.n_epochs)
+    if cfg.val_ds_names and not args.no_eval_bundle:
+        raise NotImplementedError(EVAL_NOT_PORTED)
+
+    obj_ds = make_object_dataset(cfg.object_ds_name, ds_root=args.ds_root)
+    mesh_db = build_mesh_db(obj_ds.mesh_specs(), device=args.device)
+
+    resize = tuple(cfg.input_resize)
+    # with the device jitter (train.rgb_aug_device) the host chain stays off
+    host_jitter = cfg.rgb_augmentation and not cfg.train.rgb_aug_device
+    train_sets = [(PoseDataset(make_scene_dataset(name, ds_root=args.ds_root), resize=resize,
+                               apply_rgb_augmentation=host_jitter), repeat)
+                  for name, repeat in cfg.train_ds_names]
+    val_sets = [(PoseDataset(make_scene_dataset(name, ds_root=args.ds_root), resize=resize,
+                             apply_rgb_augmentation=False), repeat)
+                for name, repeat in cfg.val_ds_names]
+    return train_pose(cfg, scene_datasets={"train": train_sets, "val": val_sets},
+                      mesh_db=mesh_db, resume=args.resume,
+                      pretrain_run_id=args.pretrain_run_id, exp_dir=args.exp_dir,
+                      device=args.device)
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    main()

@@ -6,11 +6,14 @@ sampler, validation every val_epoch_interval epochs, checkpoints every
 save_epoch_interval epochs, jsonlines logging with the per-epoch split of
 host data time and step time, resume and pretrain. Batches come from a
 torch.utils.data.DataLoader over the JAX package's sampler and batch order
-(full batches only), in place of its threaded PrefetchLoader.
+(full batches only), in place of its threaded PrefetchLoader. Its worker
+processes each hold a copy of the datasets: `seed_worker` gives each copy its
+own random streams, from the epoch and the worker's id.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import pathlib
 import time
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 from torch.utils.data import BatchSampler, DataLoader
 
+from ..config import EXP_DIR
 from ..data.wrappers import PartialSampler
 from ..utils.device import resolve_device
 from .checkpoint import (latest_checkpoint, load_checkpoint, restore_into_state,
@@ -27,8 +31,6 @@ from .logs import MetricsAccumulator, RunLogger
 from .pose_training import create_train_state, draw_step, make_train_step, make_val_step
 
 logger = logging.getLogger(__name__)
-
-EXP_DIR = pathlib.Path(__file__).resolve().parents[2] / "local_data" / "experiments"
 
 
 class ConcatDataset:
@@ -60,15 +62,27 @@ def collate(items) -> dict:
                 labels=[it["label"] for it in items])
 
 
-def make_loader(dataset, sampler, batch_size: int, n_workers: int, pin_memory: bool):
+def seed_worker(epoch: int, worker_id: int) -> None:
+    """DataLoader worker_init_fn: reseed each dataset of the worker's copy
+    that has random streams (`reseed`), from (epoch, worker id, dataset)."""
+    datasets = torch.utils.data.get_worker_info().dataset
+    datasets = getattr(datasets, "datasets", [datasets])
+    for i, ds in enumerate({id(d): d for d in datasets}.values()):
+        if hasattr(ds, "reseed"):
+            ds.reseed(int(np.random.SeedSequence([epoch, worker_id, i]).generate_state(1)[0]))
+
+
+def make_loader(dataset, sampler, batch_size: int, n_workers: int, pin_memory: bool,
+                epoch: int = 0):
     """Full batches of `batch_size` in the sampler's order; worker processes
-    (spawned) when n_workers > 0."""
+    (spawned, reseeded by seed_worker) when n_workers > 0."""
     if len(sampler) < batch_size:
         raise ValueError(f"epoch_size {len(sampler)} < batch {batch_size}: "
                          "no full batch can be formed")
     return DataLoader(dataset, batch_sampler=BatchSampler(sampler, batch_size, drop_last=True),
                       collate_fn=collate, num_workers=n_workers, pin_memory=pin_memory,
-                      multiprocessing_context="spawn" if n_workers > 0 else None)
+                      multiprocessing_context="spawn" if n_workers > 0 else None,
+                      worker_init_fn=functools.partial(seed_worker, epoch) if n_workers else None)
 
 
 def train_pose(cfg, scene_datasets, mesh_db, resume: bool = False,
@@ -125,14 +139,14 @@ def train_pose(cfg, scene_datasets, mesh_db, resume: bool = False,
 
     for epoch in range(start_epoch, tcfg.n_epochs):
         loader = make_loader(train_ds, PartialSampler(train_ds, tcfg.epoch_size, seed=epoch),
-                             tcfg.batch_size, cfg.n_dataloader_workers, pin)
+                             tcfg.batch_size, cfg.n_dataloader_workers, pin, epoch)
         acc = MetricsAccumulator()
         # per-epoch split: host data wait vs dispatch + device time of the steps
-        t_data = t_step = 0.0
+        waits, t_step = [], 0.0
         t_last, n_steps = time.time(), 0
         t_mark = time.perf_counter()
         for batch in loader:
-            t_data += time.perf_counter() - t_mark
+            waits.append(time.perf_counter() - t_mark)  # the first starts the workers
             draws = draw_step(tcfg, state.pp, tcfg.batch_size, n_points, generator)
             metrics = step_fn(state, device_batch(batch), draws)
             acc.add(metrics)  # tensors; converted at epoch end
@@ -148,7 +162,12 @@ def train_pose(cfg, scene_datasets, mesh_db, resume: bool = False,
             # charge the tail to the step time
             float(metrics["loss_total"])
             t_step += time.perf_counter() - t_mark
-            acc.add({"data_s_per_step": t_data / n_steps, "step_s_per_step": t_step / n_steps})
+            # the later half's wait: batches asked for after training began,
+            # past what the loader's workers queue before the first step when
+            # the epoch is longer than twice that queue
+            acc.add({"data_s_per_step": sum(waits) / n_steps, "step_s_per_step": t_step / n_steps,
+                     "data_s_first_batch": waits[0],
+                     "data_s_second_half": float(np.mean(waits[n_steps // 2:]))})
 
         record = run_logger.append(epoch, acc.means())
         logger.info(f"epoch {epoch}: {record}")
@@ -165,7 +184,7 @@ def train_pose(cfg, scene_datasets, mesh_db, resume: bool = False,
                                          seed=0)
             val_acc = MetricsAccumulator()
             for batch in make_loader(val_ds, val_sampler, tcfg.batch_size,
-                                     cfg.n_dataloader_workers, pin):
+                                     cfg.n_dataloader_workers, pin, epoch):
                 draws = draw_step(tcfg, state.pp, tcfg.batch_size, n_points, generator)
                 val_acc.add(val_fn(state, device_batch(batch), draws))
             run_logger.append(epoch, {},

@@ -134,7 +134,7 @@ def test_kernels_refuse_bad_inputs(cuda):
         kernels.resolve(rows, order.int(), (64, 64), (16, 16))
     with pytest.raises(ValueError):
         kernels.resolve(rows, order, (64, 64), (4, 8))    # not whole warps
-    big = torch.zeros(1, rasterizer_cuda.MAX_ROWS + 8, rasterizer_cuda.ROW, device=cuda)
+    big = torch.zeros(1, kernels.max_rows(cuda) + 8, rasterizer_cuda.ROW, device=cuda)
     with pytest.raises(ValueError):
         kernels.resolve(big, torch.arange(big.shape[1], device=cuda)[None], (64, 64), (16, 16))
 
@@ -235,3 +235,69 @@ def test_train_step_launches_the_raster_kernels(cuda):
     after = rasterizer_cuda.RASTER_KERNEL.launches
     assert after["raster_setup"] - before["raster_setup"] == cfg.n_iterations
     assert after["raster_resolve"] - before["raster_resolve"] == cfg.n_iterations
+
+
+def test_resolve_attr_at_the_scene_shape(cuda):
+    """The attribute variant at a full-width procedural scene (8 objects and
+    the cage, more than 8,872 rows an item, 10 cameras, tile (8, 320), budget
+    6144), the shape the recording path gives it: equal to its plain version,
+    on rows from the setup kernel, which is within SETUP_TOL of its own."""
+    import chip_smoke
+
+    args, ids = chip_smoke.scene_inputs(cuda)
+    rows, key = chip_smoke.setup_vs_plain(args, ids)[:2]  # raises beyond SETUP_TOL
+    order, res = rasterizer_cuda.sort_order(key), args[4]
+    assert rows.shape[1] >= 8872
+    budget = min(rows.shape[1], 6144)
+    out = rasterizer_cuda.RASTER_KERNEL.resolve(rows, order, res, (8, 320), budget, True)
+    torch.cuda.synchronize()
+    plain = rasterizer_cuda.resolve_plain_binned(rows, order, res, (8, 320), budget, True)
+    assert all(torch.equal(k, p) for k, p in zip(out, plain))
+    assert set(out[2].unique().tolist()) >= {0.0, 1.0, 8.0}
+
+
+def test_resolve_at_the_amodal_shape(cuda):
+    """The plain variant at the amodal re-render's shape, its inputs taken
+    from the sampler's own call (10 views x 8 objects, 1216 rows, 240x320,
+    tile (24, 320), budget 768): setup within SETUP_TOL of its plain
+    version, resolve equal to its plain version."""
+    import chip_smoke
+
+    args, tile, budget = chip_smoke.amodal_inputs(cuda)
+    assert tuple(args[0].shape[:2]) == (80, 1216) and (tile, budget) == ((24, 320), 768)
+    rows, key = chip_smoke.setup_vs_plain(args)[:2]
+    order = rasterizer_cuda.sort_order(key)
+    out = rasterizer_cuda.RASTER_KERNEL.resolve(rows, order, args[4], tile, budget)
+    torch.cuda.synchronize()
+    plain = rasterizer_cuda.resolve_plain_binned(rows, order, args[4], tile, budget)
+    assert torch.equal(out[0], plain[0]) and torch.equal(out[1], plain[1])
+    assert (out[1] > 0).any()
+
+
+def test_resolve_row_cap(cuda):
+    """Kernel B stages 22 B a row in shared memory: it takes max_rows() rows an
+    item (whole chunks within the card's opt-in shared memory; 10,560 on an
+    H100) and refuses more with a clear error."""
+    kernels = rasterizer_cuda.RASTER_KERNEL
+    cap = kernels.max_rows(cuda)
+    assert cap >= 8872 and cap % rasterizer_cuda.CHUNK == 0
+    optin = getattr(torch.cuda.get_device_properties(cuda), "shared_memory_per_block_optin", None)
+    assert optin is None or 22 * cap <= optin < 22 * (cap + 8)
+    rows = torch.zeros(1, cap, rasterizer_cuda.ROW, device=cuda)
+    order = torch.arange(cap, device=cuda)[None]
+    rgb, depth, attr = kernels.resolve(rows, order, (64, 64), (16, 16), with_attr=True)
+    torch.cuda.synchronize()
+    assert not depth.any() and not attr.any()
+    big = torch.zeros(1, cap + 8, rasterizer_cuda.ROW, device=cuda)
+    with pytest.raises(ValueError, match=f"at most {cap}"):
+        kernels.resolve(big, torch.arange(cap + 8, device=cuda)[None], (64, 64), (16, 16))
+
+
+def test_recorded_frame_card_matches_cpu(cuda, tmp_path):
+    """One small scene recorded on the card (kernels) and on the CPU (plain
+    versions): GT, boxes, visible fractions, rgb and masks equal, depth
+    within 1 mm (chip_smoke.record_card_vs_cpu)."""
+    import chip_smoke
+
+    errs, _ = chip_smoke.record_card_vs_cpu(tmp_path)
+    assert all(e <= tol for e, tol in errs.values()), errs

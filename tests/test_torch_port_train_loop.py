@@ -85,6 +85,9 @@ def test_train_pose_two_epochs_logs_and_checkpoints(world, tmp_path):
     for r in train_recs:
         assert np.isfinite(r["train/loss_total"]) and r["train/grad_norm"] > 0
         assert r["train/step_s_per_step"] > 0 and r["train/data_s_per_step"] >= 0
+        # two steps an epoch: the mean holds the first wait and the later half's
+        assert r["train/data_s_per_step"] == pytest.approx(
+            (r["train/data_s_first_batch"] + r["train/data_s_second_half"]) / 2)
         assert "train/loss_TCO-iter=1" in r and "train/loss_orn" in r
     assert sum("val/loss_total" in r for r in recs) == 3
     assert calls == [0, 2]  # test_epoch_interval 30: epoch 0 and the last

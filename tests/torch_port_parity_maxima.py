@@ -1,14 +1,18 @@
 """Largest differences between the port and the JAX package on the CPU parity
-cases of tests/test_torch_port_rasterizer.py, tests/test_torch_port_slice.py
-and tests/test_torch_port_training.py.
+cases of tests/test_torch_port_rasterizer.py, tests/test_torch_port_slice.py,
+tests/test_torch_port_training.py, tests/test_torch_port_recording.py and
+tests/test_torch_port_data.py.
 
     python -m tests.torch_port_parity_maxima     # from the repo root
 
 Prints one JSON object: for each case and output, the max abs difference, and
 for masks and attributes the count of pixels that differ; for the train steps
 the differences relative to each tensor's max (or rtol), port vs JAX, port vs
-the float64 step and JAX vs the float64 step. The tests hold these to their
-tolerances; this script reports how far inside them the port lies.
+the float64 step and JAX vs the float64 step; for recording, the scene
+renders, sampled frames and recorded GT; for the data layer, the PNG codec
+and the Pillow operations against PIL and the decode time of a 240x320 RGB
+frame on this host (the port's file and Pillow's). The tests hold these to
+their tolerances; this script reports how far inside them the port lies.
 """
 
 import json
@@ -52,6 +56,7 @@ def main():
             t: max(_err(port[k].tensors[t], ref[k].tensors[t]) for k in ref)
             for t in ("poses", "poses_input", "K_crop", "boxes_rend", "boxes_crop")}
     res.update(training())
+    res.update(recording_and_data())
     print(json.dumps(res, indent=1))
 
 
@@ -137,6 +142,103 @@ def training() -> dict:
             "params_over_1e-6": int(sum(int(((port["state_dict"][n] - torch.as_tensor(
                 np.asarray(sd[n]))).abs() > 1e-6).sum()) for n in g_port)),
             "n_params": int(sum(g.numel() for g in g_port.values()))}
+    return res
+
+
+def recording_and_data() -> dict:
+    import io
+    import tempfile
+    import time
+    import zlib
+
+    from PIL import Image, ImageFilter
+
+    from cosypose_tpu.recording import record_dataset as j_record
+    from cosypose_tpu.rendering import SceneRenderer as JSceneRenderer
+    from cosypose_tpu_torch.data import pillow_ops
+    from cosypose_tpu_torch.recording import record_dataset as t_record
+    from cosypose_tpu_torch.rendering import SceneRenderer
+    from cosypose_tpu_torch.utils import png
+    from tests import test_torch_port_data as D
+    from tests import test_torch_port_recording as REC
+
+    res = {}
+    dbs = (REC.j_build_mesh_db(REC.cube_specs()),
+           REC.build_mesh_db(REC.port_specs(REC.cube_specs()), device="cpu"))
+    js, ts = REC.samplers(dbs, n_objects_interval=(4, 5))
+    scene, cams = REC._scene(ts)
+    ref = JSceneRenderer(dbs[0]).render_scene(scene, cams, render_depth=True)
+    out = SceneRenderer(dbs[1]).render_scene(scene, cams, render_depth=True)
+    res["recording/scene_render"] = {
+        "rgb_in_255ths": max(float(np.abs(r["rgb"] - o["rgb"]).max() * 255) for r, o in zip(ref, out)),
+        "rgb_px_differ": sum(int((r["rgb"] != o["rgb"]).any(-1).sum()) for r, o in zip(ref, out)),
+        "depth_m": max(float(np.abs(r["depth"] - o["depth"]).max()) for r, o in zip(ref, out)),
+        "ids_px_differ": sum(int((r["instance_ids"] != o["instance_ids"]).sum())
+                             for r, o in zip(ref, out))}
+    js, ts = REC.samplers(dbs)
+    jf, tf = js.sample_scene_frames(7, 3), ts.sample_scene_frames(7, 3)
+    res["recording/sample_scene_frames"] = {
+        "rgb_max": max(int(np.abs(a[0].astype(int) - b[0]).max()) for a, b in zip(jf, tf)),
+        "ids_px_differ": sum(int((a[1] != b[1]).sum()) for a, b in zip(jf, tf)),
+        "depth_m": max(float(np.abs(a[2]["camera"]["depth"] - b[2]["camera"]["depth"]).max())
+                       for a, b in zip(jf, tf)),
+        "visib_fract": max(abs(x["visib_fract"] - y["visib_fract"])
+                           for a, b in zip(jf, tf) for x, y in zip(a[2]["objects"], b[2]["objects"]))}
+    with tempfile.TemporaryDirectory() as tmp:
+        js, ts = REC.samplers(dbs)
+        jdir = j_record(js, f"{tmp}/jax", n_chunks=2, n_frames_per_chunk=4)
+        tdir = t_record(ts, f"{tmp}/port", n_chunks=2, n_frames_per_chunk=4)
+        gt = 0.0
+        for chunk in ("000000", "000001"):
+            for name in ("scene_camera.json", "scene_gt.json", "scene_gt_info.json"):
+                a = json.loads((jdir / "train_synt" / chunk / name).read_text())
+                b = json.loads((tdir / "train_synt" / chunk / name).read_text())
+                flat = [np.ravel(np.asarray(x[k], np.float64)) - np.ravel(np.asarray(y[k]))
+                        for va, vb in zip(a.values(), b.values())
+                        for x, y in zip(va if isinstance(va, list) else [va],
+                                        vb if isinstance(vb, list) else [vb]) for k in x]
+                gt = max(gt, max(float(np.abs(f).max()) for f in flat))
+        res["recording/record_dataset"] = {"gt_json_max_abs_mm": gt}
+
+    def decode_ms(data, reps=5):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            png.decode(data)
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    # a 240x320 RGB frame: noise over a gradient, and uniform noise (on which
+    # Pillow's adaptive filtering picks more Average and Paeth rows)
+    images = {"gradient": D._image(240, 320, 3, seed=0),
+              "noise": np.random.RandomState(0).randint(0, 256, (240, 320, 3)).astype(np.uint8)}
+    for name, im in images.items():
+        buf = io.BytesIO()
+        Image.fromarray(im).save(buf, format="PNG")
+        pil_bytes, port_bytes = buf.getvalue(), png.encode(im)
+        filters = np.frombuffer(zlib.decompress(b"".join(
+            d for k, d in png._chunks(pil_bytes) if k == b"IDAT")), np.uint8).reshape(240, -1)[:, 0]
+        res[f"data/png/{name}"] = {
+            "pillow_file_px_differ": int((png.decode(pil_bytes) != im).sum()),
+            "port_file_px_differ_in_pil": int(
+                (np.asarray(Image.open(io.BytesIO(port_bytes))) != im).sum()),
+            "pillow_rows_by_filter": np.bincount(filters, minlength=5).tolist(),
+            "decode_ms_port_file_this_host": decode_ms(port_bytes),
+            "decode_ms_pillow_file_this_host": decode_ms(pil_bytes),
+            "bytes_port_file": len(port_bytes), "bytes_pillow_file": len(pil_bytes)}
+    rgb = images["gradient"]
+    differ = {}
+    for src, dst in D.RESIZES:
+        im = D._image(*src, 3, seed=src[0])
+        ref = np.asarray(Image.fromarray(im).resize(dst[::-1], Image.BILINEAR))
+        differ["resize_bilinear"] = differ.get("resize_bilinear", 0) + int(
+            (pillow_ops.resize_bilinear(im, dst) != ref).sum())
+    for r in (0.5, 1.0, 1.37, 2.0, 2.99):
+        ref = np.asarray(Image.fromarray(rgb).filter(ImageFilter.GaussianBlur(radius=r)))
+        differ["gaussian_blur"] = differ.get("gaussian_blur", 0) + int(
+            (pillow_ops.gaussian_blur(rgb, r) != ref).sum())
+    for name, (ours, theirs) in D.ENHANCERS.items():
+        differ[name] = sum(int((ours(rgb, f) != np.asarray(theirs(Image.fromarray(rgb)).enhance(f)))
+                               .sum()) for f in (0.0, 0.37, 1.0, 2.5, 19.9, 49.9))
+    res["data/pillow_ops_values_differ"] = differ
     return res
 
 
