@@ -41,10 +41,22 @@ Phases, none of them caught; any failure exits non-zero:
      its decode time; the trainer with make_cfg("procedural-refiner") over
      it, 8 timed steps with 0 loader workers and 32 with 8 (3 launches of
      each kernel a step); one small scene recorded on the card and on the
-     CPU, equal.
+     CPU, equal;
+  7. evaluation, on what phase 6 leaves: run_procedural_accuracy at full
+     width (the procedural-refiner-w0 checkpoint, B3 bf16, 240x320, the 60
+     recorded val frames, 4 iterations from gt + noise), with the kernels'
+     launches held to its chunks of 64 objects; compute_bop19_ar of its
+     predictions over the same frames, VSD through BatchRenderer on the
+     recorded depth, launches held to the (image, label) groups, a frame's
+     time split into VSD renders, host VSD and MSSD/MSPD; both kernels at
+     the VSD shape (the largest group) against their plain versions, and the
+     object pixels BatchRenderer's budget keeps over all groups; train_pose
+     of procedural-refiner with its validation set and the evaluation bundle
+     (test/... metrics in log.txt, the state dict bitwise unchanged across a
+     callback); the whole evaluation of 3 frames on the card and on the CPU.
 The last lines are the card's name and power limit, one JSON line of kernel
-numbers (launches while serving, training and recording; the attribute
-kernel's times at the scene shape), and the contract line
+numbers (launches while serving, training, recording and evaluating; the
+attribute kernel's times at the scene shape), and the contract line
 {"ok": true, "device": {...}}. Without a card, or outside the repo, it exits
 non-zero and prints no result. The profiler tables go to
 build/chip_smoke_profile.txt and build/chip_smoke_train_profile.txt.
@@ -119,6 +131,32 @@ LOADER_STEPS = {0: 8, 8: 32}
 # the recorder writes depth as trunc(depth * 1000) of the sampler's whole
 # millimetres / 1000, as the JAX package does: a value may come back 1 mm lower
 DEPTH_TOL = 1e-3 + 1e-6
+# evaluation: the recorded val split (3 chunks of 20 frames) and the
+# procedural-refiner-w0 run of phase 6
+EVAL_FRAMES, EVAL_ITERATIONS, EVAL_BSZ = 60, 4, 64
+EVAL_CPU_FRAMES = 3         # the evaluation card vs CPU
+BUNDLE_FRAMES, BUNDLE_STEPS = 30, 2   # the bundle's frames; train steps an epoch, 2 epochs
+# evaluation card vs CPU over 3 frames: BOP19 AR of the accuracy CLI's seeded
+# initial poses, and the meters of the GT poses with this noise (poses they
+# match: the CLI's initial poses lie beyond the 0.1-diameter threshold). The
+# procedural objects have no symmetry, so ADD(-S) is ADD there; the ADD-S
+# meter drives the nearest-point errors on the card.
+METER_NOISE = dict(euler_deg_std=(1.0, 1.0, 1.0), trans_std=(0.002, 0.002, 0.002))
+METER_TYPES = ("ADD(-S)", "ADD-S")
+# |card - CPU| limits (0 where not listed) and pixel counts, as measured on
+# an H100. The AR metrics and the meters' counts, AP and match sets come out
+# equal; the meters' float32 errors and what derives from them differ by up
+# to 1.02e-9 (ADD-S AUC). The two setups' rows
+# differ in their last bits (the setup kernel's tolerance, SETUP_TOL), and
+# with the same sort order, at any budget, that alone changes the winning
+# surface at 273 of 1,228,800 rendered pixels, by up to 7.04 cm, and the
+# place in e_VSD of 5 of 6,597 pixels.
+EVAL_CPU_LIMITS = {**{f"{t} {k}": 1.1e-9 for t in METER_TYPES
+                      for k in ("norm", "AUC", "AUC/objects/mean", "matched errors (m)")},
+                   "largest depth difference where both draw (m)": 0.0705}
+EVAL_CPU_COUNTS = {"render mask pixels that differ": 0,
+                   f"depth pixels beyond {ATOL_KERNEL} m where both draw": 273,
+                   "VSD pixels that differ": 5}
 
 
 def log(msg: str) -> None:
@@ -149,7 +187,8 @@ def time_cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def device_ms(fn, reps: int = 20) -> float:
     """Mean device time of the kernels fn() launches, by torch.profiler: for
-    calls too short for CUDA events, which then time the host's dispatch."""
+    calls too short for CUDA events, which then time the host's dispatch.
+    Raises where the profiler records no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -160,10 +199,32 @@ def device_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    attr = "self_device_time_total" if events and hasattr(events[0], "self_device_time_total") \
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise RuntimeError(f"torch.profiler recorded no device activity ({len(averages)} host "
+                           f"events)")
+    attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") \
         else "self_cuda_time_total"
     return sum(getattr(e, attr) for e in events) / 1e3 / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device time of fn() by CUDA events, its launches queued behind a
+    spin kernel so that the host's enqueue time stays off the clock (fn must
+    not synchronize)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)   # ~25 ms of spinning: longer than enqueuing reps calls
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound(n_ops: float, n_bytes: float):
@@ -476,6 +537,212 @@ def record_card_vs_cpu(root: pathlib.Path):
             "depth (mm)": (largest["depth"], 1),
             "masks (ids)": (largest["mask_visib"], 0)}
     return errs, {k: (o[0], o[2]) for k, o in off.items()}
+
+
+def bop19_ar_timed(preds, scene_ds, mesh_db, n_frames: int, keep: bool = False):
+    """compute_bop19_ar of preds over the first n_frames of scene_ds, VSD
+    through BatchRenderer(mesh_db), with its time split. Returns (summary,
+    {total, render, vsd, mssd_mspd}: seconds, the render calls [(label ids,
+    poses, K, resolution, object pixels[, depth on the CPU])], and with keep
+    the vsd calls' arguments). A render's time runs until its depth is on
+    the host; the rest of the total is reading the frames."""
+    from cosypose_tpu_torch.evaluation import bop_metrics as bm
+    from cosypose_tpu_torch.rendering.scene_renderer import BatchRenderer
+
+    renderer = BatchRenderer(mesh_db)
+    times = dict(render=0.0, vsd=0.0, mssd_mspd=0.0)
+    renders, vsds = [], []
+    render = renderer.render
+
+    def render_timed(label_ids, TCO, K, resolution=None, render_depth=False):
+        t0 = time.perf_counter()
+        out = render(label_ids, TCO, K, resolution=resolution, render_depth=render_depth)
+        depth = out.depth.cpu()
+        times["render"] += time.perf_counter() - t0
+        renders.append((label_ids, TCO, K, resolution, int((depth > 0).sum()))
+                       + ((depth,) if keep else ()))
+        return out
+
+    def timed(key, fn, calls=None):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            times[key] += time.perf_counter() - t0
+            if calls is not None:
+                calls.append(args)
+            return out
+        return run
+
+    saved = {k: getattr(bm, k) for k in ("vsd", "mssd", "mspd")}
+    renderer.render = render_timed
+    bm.vsd = timed("vsd", saved["vsd"], vsds if keep else None)
+    bm.mssd = timed("mssd_mspd", saved["mssd"])
+    bm.mspd = timed("mssd_mspd", saved["mspd"])
+    try:
+        t0 = time.perf_counter()
+        ar = bm.compute_bop19_ar(preds, scene_ds, mesh_db, renderer=renderer, n_frames=n_frames)
+        times["total"] = time.perf_counter() - t0
+    finally:
+        for k, f in saved.items():
+            setattr(bm, k, f)
+    return ar, times, renders, vsds
+
+
+def vsd_setup_args(mesh_db, label_ids, TCO, K, resolution):
+    """The setup arguments of one BatchRenderer.render call, as it builds them."""
+    import numpy as np
+    import torch
+
+    ids = torch.as_tensor(np.asarray(label_ids), dtype=torch.long, device=mesh_db.device)
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=mesh_db.device)
+
+    return (mesh_db.tri_verts[ids], mesh_db.tri_valid[ids], f32(TCO), f32(K), tuple(resolution),
+            mesh_db.tri_colors[ids])
+
+
+def vsd_budget_drop(mesh_db, renders):
+    """Over BatchRenderer calls: (object pixels drawn under its budget, those
+    an unlimited budget draws, items with a tile listing more chunks than the
+    budget, items)."""
+    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
+    from cosypose_tpu_torch.rendering.scene_renderer import OBJECT_BUDGET, OBJECT_TILE
+
+    kept = whole = over = items = 0
+    for label_ids, TCO, K, res, n_px, *_ in renders:
+        rows, key = rc.setup(*vsd_setup_args(mesh_db, label_ids, TCO, K, res))
+        order = rc.sort_order(key)
+        depth = rc.resolve(rows, order, tuple(res), OBJECT_TILE, rows.shape[1])[1]
+        counts = rc.bin_chunks(rows, order, tuple(res), OBJECT_TILE, 1 << 30)[2]
+        kept += n_px
+        whole += int((depth > 0).sum())
+        over += int((counts > rc.chunk_budget(OBJECT_BUDGET, rows.shape[1])).any(-1).sum())
+        items += rows.shape[0]
+    return kept, whole, over, items
+
+
+def vsd_pixel_states(d_est, d_gt, d_scene, diameter):
+    """What e_VSD counts at each pixel (bop_metrics.vsd's arithmetic): in the
+    union of the visible masks (H, W), and matched within each τ (n_tau, H, W)."""
+    import numpy as np
+
+    from cosypose_tpu_torch.evaluation import bop_metrics as bm
+
+    d_est, d_gt, d_scene = (np.asarray(d, np.float32) for d in (d_est, d_gt, d_scene))
+    visib_gt = bm._visib_mask(d_scene, d_gt, bm.VSD_DELTA)
+    visib_est = bm._visib_mask(d_scene, d_est, bm.VSD_DELTA) | ((d_est > 0) & visib_gt)
+    diff = np.abs(d_gt - d_est)
+    matched = (visib_gt & visib_est)[None] & (diff[None] <= bm.VSD_TAUS_REL[:, None, None]
+                                              * diameter)
+    return visib_gt | visib_est, matched
+
+
+def evaluation_card_vs_cpu(preds, scene_ds, dbs: dict, n_frames: int):
+    """compute_bop19_ar (VSD through BatchRenderer) of preds, and a
+    PoseErrorMeter of each METER_TYPES of the GT poses with METER_NOISE, over
+    the first n_frames of scene_ds, from the same poses with the mesh
+    database on the card and on the CPU. Raises if a meter matches no pose on
+    either side. Returns
+    {quantity: |card - CPU|} (the metrics, the meter's summary and matched
+    errors, the largest depth difference where both draw; inf where a value
+    is nan on either side or the match sets differ) and {count: (n, out of)}:
+    the meter's matches, render mask pixels, depth pixels beyond ATOL_KERNEL
+    where both draw, and pixels whose place in e_VSD (union, matched at some
+    τ) differs; then, to say where depth differs, both setups' rows through
+    the card's sort and resolve: the items the two sort differently, and the
+    depth pixels beyond ATOL_KERNEL at BatchRenderer's budget and at an
+    unlimited one."""
+    import numpy as np
+    import torch
+
+    from cosypose_tpu_torch.evaluation.data_utils import parse_obs_data
+    from cosypose_tpu_torch.evaluation.meters import PoseErrorMeter
+    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
+    from cosypose_tpu_torch.ops.transforms import add_pose_noise
+    from cosypose_tpu_torch.rendering.scene_renderer import OBJECT_BUDGET, OBJECT_TILE
+    from cosypose_tpu_torch.utils.tensor_collection import TensorCollection, concatenate
+
+    gt = concatenate([parse_obs_data(scene_ds[i][2]) for i in range(n_frames)])
+    frames = set(zip(gt.infos["scene_id"].tolist(), gt.infos["view_id"].tolist()))
+    sub = preds[[i for i, k in enumerate(zip(preds.infos["scene_id"].tolist(),
+                                             preds.infos["view_id"].tolist())) if k in frames]]
+    near = TensorCollection({**{k: gt.infos[k] for k in ("scene_id", "view_id", "label")},
+                             "score": np.ones(len(gt.infos["label"]))},
+                            poses=add_pose_noise(gt.poses.cpu(), torch.Generator().manual_seed(0),
+                                                 **METER_NOISE))
+    runs = {}
+    for d, db in dbs.items():
+        ar, _, renders, vsds = bop19_ar_timed(sub, scene_ds, db, n_frames, keep=True)
+        meters = {}
+        for error_type in METER_TYPES:
+            meter = PoseErrorMeter(db, error_type=error_type, report_AP=True,
+                                   report_error_AUC=True, report_error_stats=True)
+            meter.add(near, gt)
+            summary, dfs = meter.summary()
+            if not summary["n_matched"]:
+                raise AssertionError(f"the {error_type} meter on the {d} matched no pose: "
+                                     f"{summary}")
+            meters[error_type] = (summary, dfs["matches"])
+        runs[d] = (ar, meters, renders, vsds)
+    (ar_k, met_k, ren_k, vsd_k), (ar_c, met_c, ren_c, vsd_c) = runs["cuda"], runs["cpu"]
+
+    def diff(a, b):
+        return math.inf if math.isnan(a) or math.isnan(b) else abs(a - b)
+
+    errs = {f"BOP19 {k}": diff(ar_k[k], ar_c[k]) for k in ("AR", "AR_vsd", "AR_mssd", "AR_mspd",
+                                                           "n_gt")}
+    for error_type in METER_TYPES:
+        (sum_k, m_k), (sum_c, m_c) = met_k[error_type], met_c[error_type]
+        if list(sum_k) != list(sum_c):
+            raise AssertionError(f"the {error_type} meter's summaries differ in keys: {sum_k}, "
+                                 f"{sum_c}")
+        errs.update({f"{error_type} {k}": diff(sum_k[k], sum_c[k]) for k in sum_c})
+        same_matches = all(np.array_equal(m_k[k], m_c[k]) for k in (
+            "scene_id", "view_id", "label", "pred_inst_id", "gt_inst_id"))
+        errs[f"{error_type} matched errors (m)"] = (
+            float(np.abs(m_k["norm"] - m_c["norm"]).max()) if same_matches else math.inf)
+    depth_err, mask_px, depth_px, px = 0.0, 0, 0, 0
+    for rk, rc_ in zip(ren_k, ren_c):
+        dk, dc = rk[-1], rc_[-1]
+        both = (dk > 0) & (dc > 0)
+        if both.any():
+            depth_err = max(depth_err, float((dk - dc)[both].abs().max()))
+        depth_px += int(((dk - dc).abs() > ATOL_KERNEL)[both].sum())
+        mask_px += int(((dk > 0) != (dc > 0)).sum())
+        px += dk.numel()
+    errs["largest depth difference where both draw (m)"] = depth_err
+    vsd_px = union_px = 0
+    for a, b in zip(vsd_k, vsd_c):
+        (uk, mk), (uc, mc) = vsd_pixel_states(*a), vsd_pixel_states(*b)
+        vsd_px += int(((uk != uc) | (mk != mc).any(0)).sum())
+        union_px += int((uk | uc).sum())
+
+    n_sorted, n_items, beyond = 0, 0, {"budget": 0, "unlimited": 0}
+    for label_ids, TCO, K, res, *_ in ren_k:
+        args = vsd_setup_args(dbs["cuda"], label_ids, TCO, K, res)
+        rows_k, key_k = rc.setup(*args)
+        rows_c, key_c = (x.to(rows_k.device) for x in rc.setup_plain(
+            *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)))
+        o_k, o_c = rc.sort_order(key_k), rc.sort_order(key_c)
+        n_sorted += int((o_k != o_c).any(1).sum())
+        n_items += o_k.shape[0]
+        for name, budget in (("budget", OBJECT_BUDGET), ("unlimited", rows_k.shape[1])):
+            dk = rc.resolve(rows_k, o_k, tuple(res), OBJECT_TILE, budget)[1]
+            dc = rc.resolve(rows_c, o_c, tuple(res), OBJECT_TILE, budget)[1]
+            beyond[name] += int(((dk - dc).abs() > ATOL_KERNEL)[(dk > 0) & (dc > 0)].sum())
+    counts = {**{f"{t} GT poses matched on the card": (met_k[t][0]["n_matched"],
+                                                       met_k[t][0]["n_gt_valid"])
+                 for t in METER_TYPES},
+              "render mask pixels that differ": (mask_px, px),
+              f"depth pixels beyond {ATOL_KERNEL} m where both draw": (depth_px, px),
+              "VSD pixels that differ": (vsd_px, union_px),
+              "render calls": (len(ren_k), len(ren_c)), "VSD pairs": (len(vsd_k), len(vsd_c)),
+              "items the two setups sort differently": (n_sorted, n_items),
+              f"depth pixels beyond {ATOL_KERNEL} m from the two setups' rows on the card, budget "
+              f"{OBJECT_BUDGET}": (beyond["budget"], px),
+              "the same, unlimited budget": (beyond["unlimited"], px)}
+    return errs, counts
 
 
 def main() -> int:
@@ -1123,10 +1390,179 @@ def main() -> int:
         raise AssertionError(f"recording card vs CPU beyond tolerance: {bad}")
     log(f"phase 6 done at {time.perf_counter() - t_main:.0f} s")
 
+    # -- 7. evaluation ------------------------------------------------------------
+    from cosypose_tpu_torch.evaluation.eval_bundle import make_eval_bundle
+    from cosypose_tpu_torch.rendering.scene_renderer import OBJECT_BUDGET, OBJECT_TILE
+    from cosypose_tpu_torch.scripts import run_procedural_accuracy
+
+    # the accuracy CLI at full width on the recorded val split
+    acc_args = ["--run-id", "procedural-refiner-w0", "--config", "procedural-refiner",
+                "--dataset", "synthetic.procedural.val", "--ds-root", str(DATA_ROOT),
+                "--exp-dir", str(exp_p), "--init", "gt+noise",
+                "--out", str(OUT_DIR / "chip_smoke_accuracy.json")]
+    run_procedural_accuracy.main(acc_args + ["--n-frames", "4", "--n-iterations", "1"])  # warm-up
+    kernel.launches = {k: 0 for k in kernel.launches}
+    t0 = time.perf_counter()
+    acc = run_procedural_accuracy.main(acc_args + ["--n-frames", str(EVAL_FRAMES),
+                                                   "--n-iterations", str(EVAL_ITERATIONS)])
+    torch.cuda.synchronize()
+    wall_acc = time.perf_counter() - t0
+    launches_acc = dict(kernel.launches)
+    n_eval = len(acc["TCO_init"])
+    chunks_e = math.ceil(n_eval / EVAL_BSZ)
+    want = {"raster_setup": chunks_e * EVAL_ITERATIONS, "raster_resolve": chunks_e * EVAL_ITERATIONS,
+            "raster_resolve_attr": 0}
+    per_pair = acc["per_pair"]
+    final_e = acc["predictions"][f"iteration={EVAL_ITERATIONS}"]
+    if launches_acc != want or not all(math.isfinite(v) for e in per_pair.values()
+                                       for v in e.values()) \
+            or not torch.isfinite(final_e.poses).all():
+        raise AssertionError(f"accuracy CLI: launches {launches_acc} (want {want}), per-pair "
+                             f"errors {per_pair}")
+    init_e, last_e = per_pair["init"], per_pair[f"iteration={EVAL_ITERATIONS}"]
+    log(f"{tag} run_procedural_accuracy (procedural-refiner-w0, {EVAL_FRAMES} val frames, "
+        f"{n_eval} objects, {chunks_e} chunks of {EVAL_BSZ}, {EVAL_ITERATIONS} iterations, "
+        f"gt+noise): {wall_acc:.2f} s with set-up, {EVAL_FRAMES / wall_acc:.2f} frames/s, "
+        f"{n_eval * EVAL_ITERATIONS / wall_acc:.1f} crop-iterations/s; ADD median "
+        f"{1e3 * init_e['ADD_median']:.2f} -> {1e3 * last_e['ADD_median']:.2f} mm, rotation "
+        f"{init_e['rot_deg_median']:.2f} -> {last_e['rot_deg_median']:.2f} deg, matched-AUC "
+        f"ADD(-S) {acc['matched_auc']['init'].get('AUC', math.nan):.4f} -> "
+        f"{acc['matched_auc']['refined'].get('AUC', math.nan):.4f}; launches {launches_acc} "
+        f"(want {want})")
+
+    # BOP19 Average Recall of those predictions, VSD on the recorded depth
+    val_depth = make_scene_dataset("synthetic.procedural.val", ds_root=DATA_ROOT, load_depth=True)
+    groups = {(s, v, lab) for s, v, lab in zip(final_e.infos["scene_id"].tolist(),
+                                               final_e.infos["view_id"].tolist(),
+                                               final_e.infos["label"].tolist())}
+    kernel.launches = {k: 0 for k in kernel.launches}
+    ar, ar_t, renders, _ = bop19_ar_timed(final_e, val_depth, db_p, EVAL_FRAMES)
+    launches_ar = dict(kernel.launches)
+    want = {"raster_setup": len(groups), "raster_resolve": len(groups), "raster_resolve_attr": 0}
+    if launches_ar != want or len(renders) != len(groups) or ar["n_gt"] <= 0 \
+            or not all(0.0 <= ar[k] <= 1.0 for k in ("AR", "AR_vsd", "AR_mssd", "AR_mspd")):
+        raise AssertionError(f"compute_bop19_ar: launches {launches_ar} (want {want}), "
+                             f"{len(renders)} renders, {ar}")
+    per_frame = {k: 1e3 * v / EVAL_FRAMES for k, v in ar_t.items()}
+    sizes = sorted(len(r[0]) for r in renders)
+    log(f"{tag} compute_bop19_ar over {EVAL_FRAMES} frames ({ar['n_gt']} valid GT, {len(groups)} "
+        f"(image, label) groups of {sizes[0]}-{sizes[-1]} renders, median {sizes[len(sizes) // 2]}): "
+        f"AR {ar['AR']:.4f}, AR_vsd {ar['AR_vsd']:.4f}, AR_mssd {ar['AR_mssd']:.4f}, AR_mspd "
+        f"{ar['AR_mspd']:.4f}; {per_frame['total']:.1f} ms a frame: VSD renders "
+        f"{per_frame['render']:.1f}, host VSD {per_frame['vsd']:.1f}, MSSD/MSPD "
+        f"{per_frame['mssd_mspd']:.1f}, reading the frame and the rest "
+        f"{per_frame['total'] - per_frame['render'] - per_frame['vsd'] - per_frame['mssd_mspd']:.1f}"
+        f"; launches {launches_ar} (want one a group)")
+    launches_eval = {k: launches_acc[k] + launches_ar[k] for k in launches_acc}
+
+    # both kernels at the VSD shape: the largest group, as _vsd_matrix builds it
+    big = max(renders, key=lambda r: len(r[0]))
+    args_v = vsd_setup_args(db_p, *big[:4])
+    rows_v, key_v, _, err_v, abs_v = setup_vs_plain(args_v)
+    order_v, res_v = rc.sort_order(key_v), args_v[4]
+    out_k = kernel.resolve(rows_v, order_v, res_v, OBJECT_TILE, OBJECT_BUDGET, False)
+    torch.cuda.synchronize()
+    out_p = rc.resolve_plain_binned(rows_v, order_v, res_v, OBJECT_TILE, OBJECT_BUDGET, False)
+    if not all(torch.equal(k, p) for k, p in zip(out_k[:2], out_p[:2])):
+        raise AssertionError("raster_resolve at the VSD shape: kernel vs plain not equal")
+    # after phase 6 torch.profiler records no device activity in this process
+    # (PERF.md §7), so this phase times by CUDA events behind a spin kernel
+    ms_v = queued_ms(lambda: kernel.resolve(rows_v, order_v, res_v, OBJECT_TILE, OBJECT_BUDGET,
+                                            False), 50)
+    plain_v = time_cuda_ms(lambda: rc.resolve_plain_binned(rows_v, order_v, res_v, OBJECT_TILE,
+                                                           OBJECT_BUDGET, False), 5, warmup=1)
+    ms_va = queued_ms(lambda: rc.setup(*args_v), 50)
+    b_v, by_v, visits_v, bytes_v = resolve_bound(rows_v, order_v, res_v, OBJECT_TILE,
+                                                 OBJECT_BUDGET, False)
+    b_va, by_va = setup_bound(args_v[0], args_v[1], args_v[5], None, rows_v, key_v)[:2]
+    kept_v, whole_v, over_v, items_v = vsd_budget_drop(db_p, renders)
+    log(f"{tag} VSD shape (B={rows_v.shape[0]}: estimates and GTs of one group, "
+        f"{rows_v.shape[1]} rows, {res_v[0]}x{res_v[1]}, tile {OBJECT_TILE}, budget "
+        f"{OBJECT_BUDGET}; device times by CUDA events behind a spin kernel): raster_setup vs plain plane rel err {err_v['plane']:.3g}, bbox/key "
+        f"{err_v['bbox_key']:.3g} (<= {rc.SETUP_TOL}), max abs err {abs_v:.3g}, {ms_va:.4f} ms on "
+        f"the device (bound {b_va:.4f} ms by {by_va}); raster_resolve equal to the plain version "
+        f"(rgb, depth), {ms_v:.4f} ms on the device, bound {b_v:.4f} ms by {by_v} ({visits_v:.4g} "
+        f"visits, {bytes_v / 1e6:.2f} MB; {100 * b_v / ms_v:.1f} % of bound), plain on the card "
+        f"{plain_v:.2f} ms, library_ms: none")
+    log(f"{tag} VSD renders over all {len(renders)} groups: the budget keeps {kept_v} of the "
+        f"{whole_v} object pixels an unlimited one draws ({100 * (1 - kept_v / max(whole_v, 1)):.2f}"
+        f" % dropped); {over_v} of {items_v} items have a tile beyond it")
+    del rows_v, order_v, out_k, out_p
+
+    # the evaluation bundle in training: procedural-refiner with its validation set
+    run_e = make_cfg("procedural-refiner")
+    cfg_e = dataclasses.replace(run_e, run_id="procedural-refiner-eval", n_dataloader_workers=0,
+                                val_ds_names=(("synthetic.procedural.val", 1),),
+                                test_epoch_interval=1)
+    cfg_e.train = dataclasses.replace(run_e.train, n_epochs=2, epoch_size=Bp * BUNDLE_STEPS)
+    val_scene = make_scene_dataset("synthetic.procedural.val", ds_root=DATA_ROOT)
+    t0 = time.perf_counter()
+    bundle = make_eval_bundle(cfg_e, db_p, val_scene, n_frames=BUNDLE_FRAMES, device=dev)
+    t_bundle = time.perf_counter() - t0
+    t_calls = []
+
+    def callback(state, epoch):
+        t0 = time.perf_counter()
+        metrics = bundle(state, epoch)
+        t_calls.append(time.perf_counter() - t0)
+        return metrics
+
+    val_pose = PoseDataset(val_scene, resize=tuple(run_e.input_resize), apply_rgb_augmentation=False)
+    state_e, run_dir_e = train_pose(cfg_e, {"train": [(pose_dataset(), 1)],
+                                            "val": [(val_pose, 1)]}, db_p, exp_dir=exp_p,
+                                    eval_callback=callback, device=dev)
+    recs = [json.loads(line) for line in (run_dir_e / "log.txt").read_text().splitlines()]
+    tests = [r for r in recs if "test/init/ADD_median" in r]
+    last_key = f"test/iter={run_e.train.n_iterations}/ADD_median"
+    if len(tests) != 2 or not all(math.isfinite(r.get(last_key, math.nan)) for r in tests) \
+            or not any("val/loss_total" in r for r in recs):
+        raise AssertionError(f"train_pose with the evaluation bundle: log {recs}")
+    before = {k: v.clone() for k, v in state_e.pp.net.state_dict().items()}
+    was_training = state_e.pp.net.training
+    state_e.pp.net.train()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics_e = bundle(state_e, 2)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    after = state_e.pp.net.state_dict()
+    if not state_e.pp.net.training or not all(torch.equal(before[k], after[k]) for k in before):
+        raise AssertionError("the evaluation callback changed the training module")
+    log(f"{tag} train_pose(procedural-refiner, {BUNDLE_STEPS} steps x 2 epochs, val set on, "
+        f"test_epoch_interval 1) with make_eval_bundle over {BUNDLE_FRAMES} val frames (built in "
+        f"{t_bundle:.2f} s): log.txt holds test/init/ADD_median and {last_key[5:]} at both epochs "
+        f"({1e3 * tests[0]['test/init/ADD_median']:.2f} -> {1e3 * tests[-1][last_key]:.2f} mm), "
+        f"callbacks in training {', '.join(f'{t:.2f}' for t in t_calls)} s; one more callback "
+        f"{1e3 * t_one:.1f} ms (ADD median {1e3 * metrics_e[last_key[5:]]:.2f} mm) leaves the state "
+        f"dict bitwise unchanged and train mode on (it was {was_training})")
+    del state_e, bundle
+
+    # the evaluation of a few frames on the card and on the CPU, same predictions
+    db_cpu = build_mesh_db(make_object_dataset(run_p.object_ds_name).mesh_specs(), device="cpu")
+    t0 = time.perf_counter()
+    # AR of the CLI's initial poses (gt + noise from a seeded torch.Generator):
+    # the same on every run, unlike the trained model's output
+    seeded = TensorCollection(final_e.infos, poses=torch.as_tensor(acc["TCO_init"]))
+    errs, counts = evaluation_card_vs_cpu(seeded, val_depth, {"cuda": db_p, "cpu": db_cpu},
+                                          EVAL_CPU_FRAMES)
+    log(f"{tag} evaluation card vs CPU ({EVAL_CPU_FRAMES} frames; BOP19 AR of the CLI's initial "
+        f"poses, the ADD(-S) meter of the GT poses with noise {METER_NOISE}; "
+        f"{time.perf_counter() - t0:.1f} s):"
+        f" |card - CPU| " + ", ".join(f"{k} {v:.3g} (<= {EVAL_CPU_LIMITS.get(k, 0.0)})"
+                                      for k, v in errs.items())
+        + "; " + ", ".join(f"{k} {n} of {t}" for k, (n, t) in counts.items()))
+    bad = {k: v for k, v in errs.items() if not v <= EVAL_CPU_LIMITS.get(k, 0.0)}
+    bad.update({k: n for k, (n, _) in counts.items() if k in EVAL_CPU_COUNTS
+                and n > EVAL_CPU_COUNTS[k]})
+    if bad or counts["render calls"][0] != counts["render calls"][1]:
+        raise AssertionError(f"evaluation card vs CPU beyond its limits: {bad}")
+    log(f"phase 7 done at {time.perf_counter() - t_main:.0f} s")
+
     # -- results --------------------------------------------------------------
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], launches_training=launches_train[name],
-                    launches_recording=launches_rec[name], library_ms=None, **rows_json[name])
+                    launches_recording=launches_rec[name], launches_evaluation=launches_eval[name],
+                    library_ms=None, **rows_json[name])
                for name in ("raster_setup", "raster_resolve", "raster_resolve_attr")]
     log(card)
     log(json.dumps({"kernels": kernels}))

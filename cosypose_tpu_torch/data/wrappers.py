@@ -1,4 +1,5 @@
-"""Samplers of the training loop (port of PartialSampler and ListSampler in
+"""Samplers of the training loop and the multiview grouping (port of
+PartialSampler, ListSampler and MultiViewWrapper in
 cosypose_tpu/data/wrappers.py). PartialSampler draws with numpy's
 RandomState exactly as the JAX package does, so epoch orders are equal."""
 
@@ -31,3 +32,40 @@ class ListSampler:
 
     def __len__(self):
         return len(self.ids)
+
+
+class MultiViewWrapper:
+    """A scene dataset's frames in view groups of at most n_views a scene,
+    in the JAX package's seeded order; item idx is the list of the group's
+    (rgb, mask, obs), each obs's frame_info carrying its group_id."""
+
+    def __init__(self, scene_ds, n_views: int = 4, seed: int = 0):
+        from .bop import FrameIndex
+
+        self.scene_ds = scene_ds
+        self.n_views = n_views
+        scene_ids = np.asarray(scene_ds.frame_index["scene_id"])
+        rng = np.random.RandomState(seed)
+        self.groups = []
+        for scene_id in np.unique(scene_ids):
+            ids = np.flatnonzero(scene_ids == scene_id)
+            ids = ids[rng.permutation(len(ids))]
+            for start in range(0, len(ids), n_views):
+                self.groups.append(dict(group_id=len(self.groups), scene_id=int(scene_id),
+                                        ds_ids=ids[start:start + n_views]))
+        self.frame_index = FrameIndex(dict(
+            group_id=[g["group_id"] for g in self.groups],
+            scene_id=[g["scene_id"] for g in self.groups],
+            n_views=[len(g["ds_ids"]) for g in self.groups]))
+
+    def __len__(self):
+        return len(self.groups)
+
+    def __getitem__(self, idx):
+        g = self.groups[idx]
+        out = []
+        for ds_idx in g["ds_ids"]:
+            rgb, mask, obs = self.scene_ds[int(ds_idx)]
+            obs = dict(obs, frame_info=dict(obs["frame_info"], group_id=g["group_id"]))
+            out.append((rgb, mask, obs))
+        return out

@@ -6,10 +6,10 @@
 
 A named config (training/configs.py) gives the hyperparameters, its datasets
 come from the registry (data/datasets_cfg.py) and the mesh database from its
-object dataset, on the card unless --device says otherwise. The JAX package
-runs an evaluation bundle over the first validation set by default; the port
-has no evaluation yet, so a config with a validation set raises unless
---no-eval-bundle is given (then validation losses are still logged).
+object dataset, on the card unless --device says otherwise. A config with a
+validation set gets the in-training evaluation bundle over its first one
+(evaluation/eval_bundle.py: test/... metrics in log.txt every
+test_epoch_interval epochs) unless --no-eval-bundle is given.
 """
 
 from __future__ import annotations
@@ -20,12 +20,10 @@ import logging
 
 from ..data.datasets_cfg import make_object_dataset, make_scene_dataset
 from ..data.pose_dataset import PoseDataset
+from ..evaluation.eval_bundle import make_eval_bundle
 from ..ops.mesh_db import build_mesh_db
 from ..training.configs import make_cfg
 from ..training.train_pose import train_pose
-
-EVAL_NOT_PORTED = ("evaluation not ported (ROADMAP queue 1 item 14): pass --no-eval-bundle to "
-                   "train without the in-training evaluation bundle")
 
 
 def main(argv=None):
@@ -36,7 +34,7 @@ def main(argv=None):
     parser.add_argument("--pretrain-run-id", default=None)
     parser.add_argument("--ds-root", default=None)
     parser.add_argument("--no-eval-bundle", action="store_true",
-                        help="skip the in-training evaluation bundle (not ported yet)")
+                        help="skip the default in-training evaluation bundle")
     parser.add_argument("--n-epochs", type=int, default=None,
                         help="override the config's epoch budget")
     parser.add_argument("--exp-dir", default=None, help="runs directory (default config.EXP_DIR)")
@@ -46,9 +44,6 @@ def main(argv=None):
     cfg = make_cfg(args.config, debug=args.debug)
     if args.n_epochs is not None:
         cfg.train = dataclasses.replace(cfg.train, n_epochs=args.n_epochs)
-    if cfg.val_ds_names and not args.no_eval_bundle:
-        raise NotImplementedError(EVAL_NOT_PORTED)
-
     obj_ds = make_object_dataset(cfg.object_ds_name, ds_root=args.ds_root)
     mesh_db = build_mesh_db(obj_ds.mesh_specs(), device=args.device)
 
@@ -58,13 +53,17 @@ def main(argv=None):
     train_sets = [(PoseDataset(make_scene_dataset(name, ds_root=args.ds_root), resize=resize,
                                apply_rgb_augmentation=host_jitter), repeat)
                   for name, repeat in cfg.train_ds_names]
-    val_sets = [(PoseDataset(make_scene_dataset(name, ds_root=args.ds_root), resize=resize,
-                             apply_rgb_augmentation=False), repeat)
-                for name, repeat in cfg.val_ds_names]
+    val_scenes = [(make_scene_dataset(name, ds_root=args.ds_root), repeat)
+                  for name, repeat in cfg.val_ds_names]
+    val_sets = [(PoseDataset(ds, resize=resize, apply_rgb_augmentation=False), repeat)
+                for ds, repeat in val_scenes]
+    eval_callback = None
+    if val_scenes and not args.no_eval_bundle:
+        eval_callback = make_eval_bundle(cfg, mesh_db, val_scenes[0][0], device=args.device)
     return train_pose(cfg, scene_datasets={"train": train_sets, "val": val_sets},
                       mesh_db=mesh_db, resume=args.resume,
                       pretrain_run_id=args.pretrain_run_id, exp_dir=args.exp_dir,
-                      device=args.device)
+                      eval_callback=eval_callback, device=args.device)
 
 
 if __name__ == "__main__":

@@ -301,3 +301,50 @@ def test_recorded_frame_card_matches_cpu(cuda, tmp_path):
 
     errs, _ = chip_smoke.record_card_vs_cpu(tmp_path)
     assert all(e <= tol for e, tol in errs.values()), errs
+
+
+def test_vsd_card_matches_cpu(cuda):
+    """One group's VSD (2 estimates and 2 GTs of a demo cube at 240x320,
+    BatchRenderer's tile and budget) on the card (kernels) and on the CPU
+    (plain versions), against the same scene depth. Depth where both draw
+    within the kernel tests' 1e-4; the pixels whose mask differs, and those
+    whose place in e_VSD differs (chip_smoke.vsd_pixel_states: in the union,
+    matched at some τ), within 1e-4 of the pixels, as the render test holds
+    masks; the VSD errors then differ by at most 2 such pixels over the
+    smallest union, and not at all when none differs."""
+    import chip_smoke
+    from cosypose_tpu_torch.evaluation import bop_metrics
+    from cosypose_tpu_torch.rendering.scene_renderer import BatchRenderer
+
+    K = np.array([[500.0, 0, 160], [0, 500.0, 120], [0, 0, 1]])
+    gts = [np.eye(4), np.eye(4)]
+    gts[0][:3, 3], gts[1][:3, 3] = (0.03, 0.01, 0.6), (-0.05, -0.02, 0.7)
+    ests = [g.copy() for g in gts]
+    ests[0][:3, 3] += (0.004, -0.002, 0.01)
+    ests[1][:3, :3] = np.array([[0.96, -0.28, 0], [0.28, 0.96, 0], [0, 0, 1]])
+    runs, scene = {}, None
+    for dev in ("cpu", "cuda"):
+        db = build_mesh_db(demo.cube_specs(), device=dev)
+        diam = db.infos["obj_000001"]["diameter_m"]
+        renderer = BatchRenderer(db)
+        lids, poses, Ks = bop_metrics.vsd_render_inputs(0, ests, gts, K)
+        depth = renderer.render(lids, poses, Ks, resolution=IMAGE, render_depth=True).depth.cpu()
+        if scene is None:   # the GTs' nearest surface, from the CPU render
+            d = depth[len(ests):].numpy()
+            scene = np.where(d > 0, d, np.inf).min(0)
+            scene = np.where(np.isfinite(scene), scene, 0).astype(np.float32)
+        runs[dev] = (depth.numpy(), bop_metrics._vsd_matrix(renderer, 0, ests, gts, K, scene, diam))
+    (d_cpu, M_cpu), (d_card, M_card) = runs["cpu"], runs["cuda"]
+    both = (d_cpu > 0) & (d_card > 0)
+    assert np.abs(d_cpu - d_card)[both].max() <= ATOL
+    assert int(((d_cpu > 0) != (d_card > 0)).sum()) <= 1e-4 * d_cpu.size
+    vsd_px = union = 0
+    for a in range(len(ests)):
+        for b in range(len(gts)):
+            (u_c, m_c), (u_k, m_k) = (chip_smoke.vsd_pixel_states(d[a], d[len(ests) + b], scene,
+                                                                  diam) for d in (d_cpu, d_card))
+            vsd_px += int(((u_c != u_k) | (m_c != m_k).any(0)).sum())
+            union = min(union, int(u_c.sum())) if union else int(u_c.sum())
+    assert vsd_px <= 1e-4 * d_cpu[0].size * len(ests) * len(gts)
+    assert np.abs(M_card - M_cpu).max() <= 2 * vsd_px / union
+    assert M_cpu.shape == (2, 2, 10) and M_cpu[0, 0].min() < M_cpu[0, 1].min()

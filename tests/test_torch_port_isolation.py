@@ -1,6 +1,6 @@
 """The port stands alone: importing any of its modules, or chip_smoke.py,
-loads neither jax nor the JAX package, nor PIL or pandas (which the card's
-machine does not have)."""
+loads neither jax nor the JAX package, nor PIL, pandas or scikit-learn (which
+the card's machine does not have)."""
 
 import ast
 import pathlib
@@ -17,7 +17,7 @@ MODULES = sorted(
 def _loaded_after(statement: str) -> list[str]:
     code = (f"import sys; {statement}; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'cosypose_tpu', 'PIL', 'pandas')))")
+            "('jax', 'jaxlib', 'flax', 'cosypose_tpu', 'PIL', 'pandas', 'sklearn')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True)
     return ast.literal_eval(out.stdout.strip().splitlines()[-1])
@@ -31,6 +31,12 @@ def test_every_port_module_is_listed():
     assert "cosypose_tpu_torch.recording.scene_sampler" in MODULES
     assert "cosypose_tpu_torch.data.pose_dataset" in MODULES
     assert "cosypose_tpu_torch.utils.png" in MODULES
+    for name in ("table", "data_utils", "meters", "bop_metrics", "eval_runners", "runner_utils",
+                 "pred_runners", "bop_export", "eval_bundle"):
+        assert f"cosypose_tpu_torch.evaluation.{name}" in MODULES
+    assert "cosypose_tpu_torch.ops.symmetric" in MODULES
+    assert "cosypose_tpu_torch.scripts.run_procedural_accuracy" in MODULES
+    assert "cosypose_tpu_torch.scripts.run_bop_eval" in MODULES
 
 
 def test_port_imports_no_jax():

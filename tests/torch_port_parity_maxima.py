@@ -1,7 +1,9 @@
 """Largest differences between the port and the JAX package on the CPU parity
 cases of tests/test_torch_port_rasterizer.py, tests/test_torch_port_slice.py,
-tests/test_torch_port_training.py, tests/test_torch_port_recording.py and
-tests/test_torch_port_data.py.
+tests/test_torch_port_training.py, tests/test_torch_port_recording.py,
+tests/test_torch_port_data.py and the evaluation tests
+(tests/test_torch_port_eval.py, test_torch_port_bop_metrics.py,
+test_torch_port_eval_pipeline.py).
 
     python -m tests.torch_port_parity_maxima     # from the repo root
 
@@ -11,8 +13,11 @@ the differences relative to each tensor's max (or rtol), port vs JAX, port vs
 the float64 step and JAX vs the float64 step; for recording, the scene
 renders, sampled frames and recorded GT; for the data layer, the PNG codec
 and the Pillow operations against PIL and the decode time of a 240x320 RGB
-frame on this host (the port's file and Pillow's). The tests hold these to
-their tolerances; this script reports how far inside them the port lies.
+frame on this host (the port's file and Pillow's); for evaluation, the
+symmetric distances and the meters' errors relative to their largest value,
+the meters' summaries, VSD's rendered depth and matrices, the BOP19 AR and the
+poses and metrics of the evaluation pipeline. The tests hold these to their
+tolerances; this script reports how far inside them the port lies.
 """
 
 import json
@@ -57,6 +62,7 @@ def main():
             for t in ("poses", "poses_input", "K_crop", "boxes_rend", "boxes_crop")}
     res.update(training())
     res.update(recording_and_data())
+    res.update(evaluation())
     print(json.dumps(res, indent=1))
 
 
@@ -239,6 +245,137 @@ def recording_and_data() -> dict:
         differ[name] = sum(int((ours(rgb, f) != np.asarray(theirs(Image.fromarray(rgb)).enhance(f)))
                                .sum()) for f in (0.0, 0.37, 1.0, 2.5, 19.9, 49.9))
     res["data/pillow_ops_values_differ"] = differ
+    return res
+
+
+def evaluation() -> dict:
+    import dataclasses
+    import tempfile
+    import types
+    from pathlib import Path
+
+    import jax.numpy as jnp
+    import torch
+
+    from cosypose_tpu.evaluation import bop_metrics as jb
+    from cosypose_tpu.evaluation import eval_bundle as jbundle
+    from cosypose_tpu.evaluation import meters as jm
+    from cosypose_tpu.ops import symmetric as jsym
+    from cosypose_tpu.ops import transforms as jtransforms
+    from cosypose_tpu.rendering.scene_renderer import BatchRenderer as JBatchRenderer
+    from cosypose_tpu.utils.tensor_collection import PandasTensorCollection
+    from cosypose_tpu_torch.data.bop import BOPDataset
+    from cosypose_tpu_torch.evaluation import bop_metrics as tb
+    from cosypose_tpu_torch.evaluation import eval_bundle as tbundle
+    from cosypose_tpu_torch.evaluation import meters as tm
+    from cosypose_tpu_torch.ops import symmetric as tsym
+    from cosypose_tpu_torch.ops.mesh_db import MeshSpec, build_mesh_db
+    from cosypose_tpu_torch.rendering.scene_renderer import BatchRenderer
+    from cosypose_tpu_torch.training import pose_training as tpt
+    from cosypose_tpu_torch.utils.tensor_collection import TensorCollection
+    from cosypose_tpu_torch.utils.weights import load_jax_train_state
+    from tests import test_torch_port_bop_metrics as BM
+    from tests import test_torch_port_eval as E
+    from tests import test_torch_port_eval_pipeline as P
+
+    res = {}
+    rng = np.random.RandomState(0)
+    B, Pn, S = 5, 60, 4
+    T1, T2 = E.random_poses(rng, B, z=0.6), E.random_poses(rng, B, z=0.6)
+    pts = rng.uniform(-0.05, 0.05, (B, Pn, 3)).astype(np.float32)
+    syms = np.tile(np.concatenate([np.eye(4, dtype=np.float32)[None],
+                                   E.random_poses(rng, S - 1, 0.0)])[None], (B, 1, 1, 1))
+    sym_valid = np.ones((B, S), bool)
+    j, t = (lambda *a: [jnp.asarray(x) for x in a]), (lambda *a: [torch.as_tensor(x) for x in a])
+    res["eval/symmetric_rel"] = {
+        "mesh_points_dist": E._rel(tsym.mesh_points_dist(*t(T1, T2, pts)),
+                                   jsym.mesh_points_dist(*j(T1, T2, pts))),
+        "chamfer_dist": E._rel(tsym.chamfer_dist(*t(T1, T2, pts)), jsym.chamfer_dist(*j(T1, T2, pts))),
+        "symmetric_distance_batched_fast": E._rel(
+            tsym.symmetric_distance_batched_fast(*t(T1, T2, pts, syms, sym_valid))[0],
+            jsym.symmetric_distance_batched_fast(*j(T1, T2, pts, syms, sym_valid))[0])}
+
+    specs = E.meter_specs()
+    dbs = (E.j_build_mesh_db([E.JMeshSpec(**s) for s in specs], keep_geometry=False),
+           build_mesh_db([MeshSpec(**s) for s in specs], device="cpu"))
+    rng = np.random.RandomState(4)
+    T1, T2 = E.random_poses(rng, 9, z=0.7), E.random_poses(rng, 9, z=0.7)
+    labels = np.asarray([f"obj_{i % 3 + 1:06d}" for i in range(9)])
+    errs = {}
+    for et in ("ADD", "ADD-S", "ADD(-S)"):
+        ref = jm.PoseErrorMeter(dbs[0], error_type=et).compute_errors_batch(T1, T2, labels)
+        port = tm.PoseErrorMeter(dbs[1], error_type=et).compute_errors_batch(T1, T2, labels)
+        errs[et] = max(E._rel(port[k], ref[k]) for k in ref)
+    res["eval/meter_errors_rel"] = errs
+    summ = {}
+    for case in E.METER_CASES:
+        (ref, _), (port, _) = E.run_meters(dbs, case, seed=3)
+        summ[case] = max(0.0 if (np.isnan(v) and np.isnan(port[k])) else abs(port[k] - v)
+                         for k, v in ref.items())
+    res["eval/meter_summaries_max_abs"] = summ
+
+    jdb, tdb = (BM.j_build_mesh_db(BM.cube_specs()),
+                build_mesh_db([MeshSpec(**dataclasses.asdict(s)) for s in BM.cube_specs()],
+                              device="cpu"))
+    res_ = (48, 64)
+    K = np.array([[60.0, 0, 32], [0, 60.0, 24], [0, 0, 1]], np.float32)
+    rng = np.random.RandomState(2)
+    gts = [BM.random_pose(rng, z=1.0, t_scale=0.1).astype(np.float32) for _ in range(2)]
+    ests = [g.copy() for g in gts] + [gts[0] @ BM._pose(BM._rotz(0.3)).astype(np.float32)]
+    ests[1][2, 3] += 0.05
+    jr, tr = JBatchRenderer(jdb, resolution=res_), BatchRenderer(tdb, resolution=res_)
+    lids, poses, Ks = tb.vsd_render_inputs(1, ests, gts, K)
+    ref = np.asarray(jr.render(jnp.asarray(lids), jnp.asarray(poses), jnp.asarray(Ks),
+                               resolution=res_, render_depth=True).depth)
+    port = tr.render(lids, poses, Ks, resolution=res_, render_depth=True).depth.numpy()
+    d_scene = np.where(ref[3] > 0, ref[3], np.where(ref[4] > 0, ref[4], 0)).astype(np.float32)
+    res["eval/vsd"] = {
+        "depth_max_abs_m": float(np.abs(port - ref).max()),
+        "mask_px_differ": int(((port > 0) != (ref > 0)).sum()),
+        "matrix_max_abs": float(np.abs(tb._vsd_matrix(tr, 1, ests, gts, K, d_scene, 0.26)
+                                       - jb._vsd_matrix(jr, 1, ests, gts, K, d_scene, 0.26)).max())}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = BM.build_bop_fixture(Path(tmp))
+        tdb_f = build_mesh_db(BM.BOPObjectDataset(root / "models").mesh_specs(), device="cpu")
+        jdb_f = BM.j_build_mesh_db(BM.JBOPObjectDataset(root / "models").mesh_specs())
+        BM.write_fixture_depth(root, tdb_f)
+        df, poses = BM.fixture_predictions()
+        ref = jb.compute_bop19_ar(PandasTensorCollection(df, poses=jnp.asarray(poses)),
+                                  BM.JBOPDataset(root, split="test", load_depth=True), jdb_f,
+                                  renderer=JBatchRenderer(jdb_f))
+        port = tb.compute_bop19_ar(TensorCollection({k: df[k].values for k in df.columns},
+                                                    poses=torch.as_tensor(poses)),
+                                   BOPDataset(root, split="test", load_depth=True), tdb_f,
+                                   renderer=BatchRenderer(tdb_f))
+        res["eval/bop19_ar_abs"] = {k: abs(port[k] - ref[k])
+                                    for k in ("AR", "AR_vsd", "AR_mssd", "AR_mspd")}
+
+        # the in-training callback from the same TCO_init and weights
+        jpp, v, _ = P.make_weights()
+        cfg = P.bundle_cfg()
+        jds, tds = P.JBOPDataset(root, split="test"), BOPDataset(root, split="test")
+        for o in P.BOPObjectDataset(root / "models").objects:
+            jdb_f.infos[o["label"]]["diameter_m"] = tdb_f.infos[o["label"]]["diameter_m"] = \
+                o["diameter_m"]
+        TCO_gt = tbundle.collect_gt(tds, 3, with_images=False)[3]
+        TCO_init = P.add_pose_noise(torch.as_tensor(TCO_gt), torch.Generator().manual_seed(7),
+                                    euler_deg_std=(5, 5, 5), trans_std=(0.005, 0.005, 0.01)).numpy()
+        j_noise, t_noise = jtransforms.add_pose_noise, tbundle.add_pose_noise
+        jtransforms.add_pose_noise = lambda key, T, **kw: jnp.asarray(TCO_init)
+        tbundle.add_pose_noise = lambda T, gen, **kw: torch.as_tensor(TCO_init)
+        try:
+            ref = jbundle.make_eval_bundle(
+                types.SimpleNamespace(train=cfg.train, input_resize=cfg.input_resize), jpp,
+                jdb_f, jds, n_frames=3)(
+                types.SimpleNamespace(params=v["params"], batch_stats=v["batch_stats"]), 0)
+            state = tpt.create_train_state(cfg.train, "cpu")
+            load_jax_train_state(state, v["params"], v["batch_stats"])
+            port = tbundle.make_eval_bundle(cfg, tdb_f, tds, n_frames=3, device="cpu")(state, 0)
+        finally:
+            jtransforms.add_pose_noise, tbundle.add_pose_noise = j_noise, t_noise
+        res["eval/bundle_metrics_abs"] = {k: abs(port[k] - ref[k]) for k in ref
+                                          if k.startswith("iter=1/")}
     return res
 
 
