@@ -53,10 +53,23 @@ Phases, none of them caught; any failure exits non-zero:
      object pixels BatchRenderer's budget keeps over all groups; train_pose
      of procedural-refiner with its validation set and the evaluation bundle
      (test/... metrics in log.txt, the state dict bitwise unchanged across a
-     callback); the whole evaluation of 3 frames on the card and on the CPU.
+     callback); the whole evaluation of 3 frames on the card and on the CPU;
+  8. the detection path, on what phase 6 records: the CenterNet detector
+     (WideResNet-18, 21 classes) forward and decode at 480x640, batch 16, in
+     both cls_modes (ms a batch, frames/s, peak memory), and card vs CPU on
+     2 frames at 240x320; detector-procedural trained on the recorded train
+     frames with 8 loader workers, a checkpoint saved; procedural-refiner-mini
+     (WideResNet-18 bf16, 120x160, batch 64) trained on procedural-canon,
+     launches held to its steps, its checkpoint and config.yaml saved; the
+     CorrNet flatten+lk and FlowNetS predictors card vs CPU; both kernels at
+     the mini refiner's render shape (B=64, 120x160) against their plain
+     versions; run_bop_inference --dataset procedural over the 60 val frames
+     with those two checkpoints (detector -> refiner -> CSV, ADD(-S) and
+     BOP19 AR), launches held to its refiner chunks x 4 iterations plus one
+     per AR group.
 The last lines are the card's name and power limit, one JSON line of kernel
-numbers (launches while serving, training, recording and evaluating; the
-attribute kernel's times at the scene shape), and the contract line
+numbers (launches while serving, training, recording, evaluating and on the
+detection path; the attribute kernel's times at the scene shape), and the contract line
 {"ok": true, "device": {...}}. Without a card, or outside the repo, it exits
 non-zero and prints no result. The profiler tables go to
 build/chip_smoke_profile.txt and build/chip_smoke_train_profile.txt.
@@ -154,6 +167,18 @@ METER_TYPES = ("ADD(-S)", "ADD-S")
 EVAL_CPU_LIMITS = {**{f"{t} {k}": 1.1e-9 for t in METER_TYPES
                       for k in ("norm", "AUC", "AUC/objects/mean", "matched errors (m)")},
                    "largest depth difference where both draw (m)": 0.0705}
+# the detection path: the detector at BOP's width (bop_config input 640x480,
+# batch 16, 21 classes, 64 detections); card vs CPU at 240x320 on 2 frames
+# (head outputs within ATOL_SLICE; decoded sets differ at near-tie peaks,
+# counted, at most DET_SET_DIFF an image); detector-procedural trained for
+# DET_STEPS steps with its 8 loader workers; procedural-refiner-mini for
+# MINI_STEPS; run_bop_inference over the 60 recorded val frames, keeping
+# every positive-score detection (a detector this briefly trained scores
+# below the CLI's 0.3 default)
+DET_BATCH, DET_CLASSES, DET_REPS = 16, 21, 5
+DET_CPU_SIZE, DET_SET_DIFF = (240, 320), 4
+DET_STEPS, MINI_STEPS = 24, 8
+BOP_DETECTION_TH = 0.0
 EVAL_CPU_COUNTS = {"render mask pixels that differ": 0,
                    f"depth pixels beyond {ATOL_KERNEL} m where both draw": 273,
                    "VSD pixels that differ": 5}
@@ -394,18 +419,21 @@ def setup_vs_plain(args, tri_attr=None):
     TCO, K, image_size, colors), held to SETUP_TOL as
     rasterizer_cuda.setup_error reads it, with validity and attributes equal.
     Returns (rows, key, plain key, error dict, max abs error over rows valid
-    in both)."""
+    in both). The bbox and key lanes are measured against the terms of the
+    projection (setup_error with K): crop intrinsics of far-off poses put the
+    principal point thousands of pixels outside the crop."""
     from cosypose_tpu_torch.ops import rasterizer_cuda as rc
 
     rows, key = rc.setup(*args, tri_attr=tri_attr)
     rows_p, key_p = rc.setup_plain(*args, tri_attr=tri_attr)
-    err = rc.setup_error(rows, key, rows_p, key_p, args[4])
+    err = rc.setup_error(rows, key, rows_p, key_p, args[4], K=args[3])
     both = (rows[..., rc.LANE_VALID] != 0) & (rows_p[..., rc.LANE_VALID] != 0)
     abs_err = max(float((rows[both] - rows_p[both]).abs().max()),
                   float((key[both] - key_p[both]).abs().max()))
     if err["valid_differs"] or err["attr"] or err["plane"] > rc.SETUP_TOL \
             or err["bbox_key"] > rc.SETUP_TOL:
-        raise AssertionError(f"raster_setup vs plain: {err} (tolerance {rc.SETUP_TOL})")
+        raise AssertionError(f"raster_setup vs plain: {err} (tolerance {rc.SETUP_TOL}; largest "
+                             f"|cx|, |cy| {args[3][:, :2, 2].abs().max().item():.1f} px)")
     return rows, key, key_p, err, abs_err
 
 
@@ -1558,11 +1586,225 @@ def main() -> int:
         raise AssertionError(f"evaluation card vs CPU beyond its limits: {bad}")
     log(f"phase 7 done at {time.perf_counter() - t_main:.0f} s")
 
+    # -- 8. the detection path ------------------------------------------------------
+    from cosypose_tpu_torch.data.detection_dataset import DetectionDataset
+    from cosypose_tpu_torch.models.detector import (CenterNetDetector, DetectorConfig,
+                                                    decode_detections, init_detector_weights)
+    from cosypose_tpu_torch.scripts import run_bop_inference, run_detector_training
+    from cosypose_tpu_torch.training.detector_training import train_detector
+
+    # the detector at BOP's width, both cls_modes, seeded weights
+    x_det = torch.rand(DET_BATCH, 3, *IMAGE, generator=torch.Generator().manual_seed(0)).to(dev)
+    x_cpu = torch.rand(2, 3, *DET_CPU_SIZE, generator=torch.Generator().manual_seed(1))
+    for cls_mode in ("percls", "softmax"):
+        det = CenterNetDetector(DetectorConfig(n_classes=DET_CLASSES, cls_mode=cls_mode))
+        init_detector_weights(det, torch.Generator().manual_seed(0))
+        det.eval()
+        with torch.no_grad():
+            heads_cpu = det(x_cpu)
+            dec_cpu = decode_detections(heads_cpu, det.cfg.max_detections)
+            det.to(dev)
+            heads_card = det(x_cpu.to(dev))
+            dec_card = decode_detections(heads_card, det.cfg.max_detections)
+            torch.cuda.reset_peak_memory_stats()
+            ms_fwd = time_cuda_ms(lambda: det(x_det), DET_REPS)
+            ms_det = time_cuda_ms(lambda: decode_detections(det(x_det), det.cfg.max_detections),
+                                  DET_REPS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        err = max(float((heads_card[k].cpu() - heads_cpu[k]).abs().max()) for k in heads_cpu)
+        differ, n_det = [], 0
+        for b in range(x_cpu.shape[0]):
+            sets = [{(int(c), tuple(np.round(bx.tolist(), 3)))
+                     for c, bx, sc in zip(d["class_ids"][b].cpu(), d["boxes"][b].cpu(),
+                                          d["scores"][b].cpu()) if sc > 0}
+                    for d in (dec_cpu, dec_card)]
+            differ.append(len(sets[0] ^ sets[1]) // 2)
+            n_det += len(sets[0])
+        log(f"{tag} detector {cls_mode} (WideResNet-18, {DET_CLASSES} classes, "
+            f"{det.cfg.max_detections} detections, fp32): {DET_BATCH}x{IMAGE[0]}x{IMAGE[1]} "
+            f"forward {ms_fwd:.2f} ms, forward + decode {ms_det:.2f} ms a batch "
+            f"({1e3 * DET_BATCH / ms_det:.1f} frames/s), peak {peak:.2f} GiB; card vs CPU at "
+            f"{DET_CPU_SIZE[0]}x{DET_CPU_SIZE[1]} on 2 frames: head outputs max |diff| "
+            f"{err:.3g} (<= {ATOL_SLICE}), decoded detections that differ {differ} of {n_det} "
+            f"(<= {DET_SET_DIFF} an image)")
+        if err > ATOL_SLICE or max(differ) > DET_SET_DIFF or n_det == 0:
+            raise AssertionError(f"detector {cls_mode} card vs CPU: heads {err}, sets {differ}")
+        del det, heads_card, dec_card
+
+    # detector-procedural on the recorded train frames, 8 loader workers
+    run_d = run_detector_training.make_cfg("detector-procedural")
+    labels_d = run_detector_training.label_to_category_id(make_object_dataset("procedural"))
+    tcfg_d = dataclasses.replace(
+        run_d.train, n_epochs=1, epoch_size=run_d.train.batch_size * DET_STEPS,
+        detector=dataclasses.replace(run_d.train.detector, n_classes=len(labels_d)))
+    det_ds = DetectionDataset(make_scene_dataset("synthetic.procedural.train", ds_root=DATA_ROOT),
+                              labels_d, resize=tuple(run_d.input_size))
+    t0 = time.perf_counter()
+    state_d = train_detector(tcfg_d, det_ds, exp_p / run_d.run_id,
+                             n_workers=run_d.n_dataloader_workers, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = [json.loads(line) for line in
+           (exp_p / run_d.run_id / "log.txt").read_text().splitlines()][-1]
+    losses = {k[6:]: v for k, v in rec.items() if k.startswith("train/loss")}
+    if state_d.step != DET_STEPS or not all(math.isfinite(v) for v in losses.values()) \
+            or not list((exp_p / run_d.run_id / "checkpoint").glob("epoch_*.pt")):
+        raise AssertionError(f"detector-procedural: step {state_d.step}, losses {losses}")
+    step_s, data_s = rec["train/step_s_per_step"], rec["train/data_s_per_step"]
+    Bd = tcfg_d.batch_size
+    log(f"{tag} train_detector(detector-procedural, {run_d.input_size}, batch {Bd}, "
+        f"{run_d.n_dataloader_workers} loader workers): {DET_STEPS} steps in {wall:.1f} s with "
+        f"set-up; {1e3 * step_s:.1f} ms/step, {Bd / step_s:.1f} samples/s; data wait "
+        f"{1e3 * data_s:.1f} ms/step ({1e3 * rec['train/data_s_first_batch']:.1f} ms before the "
+        f"first batch, {1e3 * rec['train/data_s_second_half']:.1f} ms a step over the last "
+        f"{DET_STEPS - DET_STEPS // 2}); step without its wait {1e3 * (step_s - data_s):.1f} ms; "
+        + ", ".join(f"{k} {v:.4f}" for k, v in losses.items()) + "; checkpoint saved")
+    del state_d
+
+    # procedural-refiner-mini on procedural-canon
+    run_m = make_cfg("procedural-refiner-mini")
+    tcfg_m = run_m.train
+    Bm, n_it_m = tcfg_m.batch_size, tcfg_m.n_iterations
+    canon = PoseDataset(make_scene_dataset("synthetic.procedural-canon.train", ds_root=DATA_ROOT),
+                        resize=tuple(run_m.input_resize),
+                        apply_rgb_augmentation=run_m.rgb_augmentation and not tcfg_m.rgb_aug_device)
+    repeat = math.ceil(Bm * MINI_STEPS / len(canon))
+    cfg_m = dataclasses.replace(run_m, n_dataloader_workers=0, val_ds_names=())
+    cfg_m.train = dataclasses.replace(tcfg_m, n_epochs=1, epoch_size=Bm)
+    train_pose(cfg_m, {"train": [(canon, repeat)]}, db_p, exp_dir=exp_p, device=dev)  # warm-up
+    cfg_m.train = dataclasses.replace(tcfg_m, n_epochs=2, epoch_size=Bm * MINI_STEPS)
+    kernel.launches = {k: 0 for k in kernel.launches}
+    t0 = time.perf_counter()
+    state_m, run_dir_m = train_pose(cfg_m, {"train": [(canon, repeat)]}, db_p, resume=True,
+                                    exp_dir=exp_p, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(kernel.launches)
+    want = {"raster_setup": MINI_STEPS * n_it_m, "raster_resolve": MINI_STEPS * n_it_m,
+            "raster_resolve_attr": 0}
+    rec = [json.loads(line) for line in (run_dir_m / "log.txt").read_text().splitlines()][-1]
+    if got != want or state_m.step != 1 + MINI_STEPS or not (run_dir_m / "config.yaml").exists() \
+            or not math.isfinite(rec["train/loss_total"]):
+        raise AssertionError(f"procedural-refiner-mini: launches {got} (want {want}), step "
+                             f"{state_m.step}, log {rec}")
+    step_s, data_s = rec["train/step_s_per_step"], rec["train/data_s_per_step"]
+    pred_m = tcfg_m.predictor
+    log(f"{tag} train_pose(procedural-refiner-mini: {pred_m.backbone}, {pred_m.pooling}, "
+        f"{pred_m.compute_dtype}, render {pred_m.render_size}, batch {Bm}, {n_it_m} iteration, "
+        f"0 loader workers) over {len(canon)} procedural-canon frames x {repeat}: {MINI_STEPS} "
+        f"steps in {wall:.1f} s with set-up; {1e3 * step_s:.1f} ms/step ({1e3 * data_s:.1f} of "
+        f"it data wait), {Bm / step_s:.1f} samples/s; loss {rec['train/loss_total']:.4f}; "
+        f"launches {got} (want {want}); checkpoint and config.yaml saved")
+    del state_m
+
+    # the new backbones and poolings, card vs CPU
+    images_b, K_b, TCO_b, labels_b = demo.make_inputs(2, *RENDER)
+    db_cpu_demo = build_mesh_db(demo.demo_specs(), render_max_faces=LOD, device="cpu")
+    for name in ("procedural-diag-corr-flat-lk", "tless-refiner-ablation-network"):
+        pcfg = dataclasses.replace(make_cfg(name).train.predictor, compute_dtype=torch.float32,
+                                   n_points_crop=200)
+        outs, weights = {}, None
+        for d, mdb in (("cpu", db_cpu_demo), (dev, db)):
+            pp = PosePredictor(pcfg, device=d)
+            if weights is None:
+                w = pp.net.pose_fc.weight
+                with torch.no_grad():
+                    w.copy_(5e-3 * torch.randn(w.shape, generator=torch.Generator().manual_seed(2)))
+                weights = pp.net.state_dict()
+            pp.net.load_state_dict(weights)
+            md = gather_mesh_data(mdb, torch.as_tensor(labels_b, device=d).long(), 200)
+            args_b = [torch.as_tensor(a, device=d) for a in (images_b, K_b, TCO_b)]
+            outs[str(d)] = pp.forward(md, *args_b, n_iterations=2)["TCO_final"].cpu()
+        err = float((outs["cuda"] - outs["cpu"]).abs().max())
+        moved = float((outs["cpu"] - torch.as_tensor(TCO_b)).abs().max())
+        log(f"{tag} {name} predictor ({pcfg.backbone}, {pcfg.pooling}, {pcfg.input_mode}, "
+            f"render {pcfg.render_size}, fp32), B=2, 2 iterations: TCO card vs CPU max |diff| "
+            f"{err:.3g} (<= {ATOL_SLICE}); the poses moved {moved:.3g}")
+        if not err <= ATOL_SLICE or moved <= ATOL_SLICE:
+            raise AssertionError(f"{name}: card vs CPU {err}, moved {moved}")
+
+    # run_bop_inference --dataset procedural: detector -> refiner -> CSV + metrics
+    bop_args = ["--dataset", "procedural", "--inference-ds", "synthetic.procedural.val",
+                "--ds-root", str(DATA_ROOT), "--exp-dir", str(exp_p), "--detector", run_d.run_id,
+                "--refiner", run_m.run_id, "--detection-th", str(BOP_DETECTION_TH),
+                "--out-dir", str(OUT_DIR / "chip_smoke_bop")]
+    run_bop_inference.main(bop_args + ["--n-frames", "4"])  # warm-up
+    kernel.launches = {k: 0 for k in kernel.launches}
+    t0 = time.perf_counter()
+    bop = run_bop_inference.main(bop_args)
+    torch.cuda.synchronize()
+    wall_bop = time.perf_counter() - t0
+    launches_det = dict(kernel.launches)
+    preds_b = bop["predictions"]["pose"]
+    per_frame = {}
+    for key in zip(preds_b.infos["scene_id"].tolist(), preds_b.infos["view_id"].tolist()):
+        per_frame[key] = per_frame.get(key, 0) + 1
+    chunks_b = sum(math.ceil(n / EVAL_BSZ) for n in per_frame.values())
+    val_b = make_scene_dataset("synthetic.procedural.val", ds_root=DATA_ROOT)
+    n_frames_b = len(val_b)
+    ar_groups = sum(len({o["label"] for o in val_b[i][2]["objects"]}) for i in range(n_frames_b))
+    n_ref = 4
+    want = {"raster_setup": chunks_b * n_ref + ar_groups,
+            "raster_resolve": chunks_b * n_ref + ar_groups, "raster_resolve_attr": 0}
+    ar_b, meter_b = bop["metrics"]["bop19_ar"], bop["metrics"]["pose"]
+    csv_rows = len(bop["csv_paths"]["pose"].read_text().splitlines()) - 1
+    if launches_det != want or csv_rows != len(preds_b) or not torch.isfinite(preds_b.poses).all() \
+            or not all(0.0 <= ar_b[k] <= 1.0 for k in ("AR", "AR_vsd", "AR_mssd", "AR_mspd")):
+        raise AssertionError(f"run_bop_inference: launches {launches_det} (want {want}), CSV rows "
+                             f"{csv_rows} for {len(preds_b)} predictions, AR {ar_b}")
+    sec = bop["seconds"]
+    log(f"{tag} run_bop_inference --dataset procedural ({n_frames_b} val frames, detector "
+        f"{run_d.run_id} -> {run_m.run_id}, {n_ref} iterations, detection threshold "
+        f"{BOP_DETECTION_TH}): {wall_bop:.2f} s with set-up and metrics, "
+        f"{n_frames_b / wall_bop:.2f} frames/s end to end; detection {sec['detection']:.2f} s "
+        f"({n_frames_b / sec['detection']:.1f} frames/s), pose {sec['pose']:.2f} s "
+        f"({n_frames_b / sec['pose']:.1f} frames/s); {len(preds_b) / n_frames_b:.1f} detections "
+        f"a frame ({len(preds_b)} in {chunks_b} refiner chunks of {EVAL_BSZ}); CSV {csv_rows} "
+        f"rows; ADD(-S) AUC {meter_b.get('AUC', math.nan):.4f} over {meter_b.get('n_gt', 0):.0f} "
+        f"GT; BOP19 AR {ar_b['AR']:.4f} (vsd {ar_b['AR_vsd']:.4f}, mssd {ar_b['AR_mssd']:.4f}, "
+        f"mspd {ar_b['AR_mspd']:.4f}) over {ar_groups} (image, label) groups; launches "
+        f"{launches_det} (want {want})")
+
+    # both kernels at the mini refiner's render shape: one frame's chunk, padded
+    first_key = next(iter(per_frame))
+    rows_f = np.flatnonzero((preds_b.infos["scene_id"] == first_key[0])
+                            & (preds_b.infos["view_id"] == first_key[1]))
+    rows_f = np.concatenate([rows_f, np.full(EVAL_BSZ - len(rows_f), rows_f[-1])])
+    chunk = preds_b[rows_f]
+    res_m, tile_m, budget_m = pred_m.render_size, pred_m.raster_tile, pred_m.raster_max_tris_per_tile
+    args_m = vsd_setup_args(db_p, db_p.ids_for(chunk.infos["label"]).cpu().numpy(),
+                            chunk.poses_input, chunk.K_crop, res_m)
+    rows_m, key_m, _, err_m, abs_m = setup_vs_plain(args_m)
+    order_m = rc.sort_order(key_m)
+    out_k = kernel.resolve(rows_m, order_m, res_m, tile_m, budget_m, False)
+    torch.cuda.synchronize()
+    out_p = rc.resolve_plain_binned(rows_m, order_m, res_m, tile_m, budget_m, False)
+    if not all(torch.equal(k, p) for k, p in zip(out_k[:2], out_p[:2])):
+        raise AssertionError("raster_resolve at the mini refiner's shape: kernel vs plain differ")
+    ms_m = queued_ms(lambda: kernel.resolve(rows_m, order_m, res_m, tile_m, budget_m, False), 50)
+    ms_ma = queued_ms(lambda: rc.setup(*args_m), 50)
+    plain_m = time_cuda_ms(lambda: rc.resolve_plain_binned(rows_m, order_m, res_m, tile_m,
+                                                           budget_m, False), 3, warmup=1)
+    b_m, by_m, visits_m, bytes_m = resolve_bound(rows_m, order_m, res_m, tile_m, budget_m, False)
+    b_ma, by_ma = setup_bound(args_m[0], args_m[1], args_m[5], None, rows_m, key_m)[:2]
+    cxy = chunk.K_crop[:, :2, 2].abs().max().item()
+    log(f"{tag} mini refiner shape (B={rows_m.shape[0]} x {rows_m.shape[1]} rows, "
+        f"largest |cx|, |cy| of the crops {cxy:.1f} px, "
+        f"{res_m[0]}x{res_m[1]}, tile {tile_m}, budget {budget_m}; CUDA events behind a spin "
+        f"kernel): raster_setup vs plain plane rel err {err_m['plane']:.3g} (<= {rc.SETUP_TOL}), "
+        f"max abs err {abs_m:.3g}, {ms_ma:.4f} ms (bound {b_ma:.4f} ms by {by_ma}, "
+        f"{100 * b_ma / ms_ma:.1f} %); raster_resolve equal to the plain version, {ms_m:.4f} ms "
+        f"(bound {b_m:.4f} ms by {by_m}, {visits_m:.4g} visits, {bytes_m / 1e6:.2f} MB; "
+        f"{100 * b_m / ms_m:.1f} % of bound), plain on the card {plain_m:.2f} ms, library_ms: "
+        f"none")
+    log(f"phase 8 done at {time.perf_counter() - t_main:.0f} s")
+
     # -- results --------------------------------------------------------------
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], launches_training=launches_train[name],
                     launches_recording=launches_rec[name], launches_evaluation=launches_eval[name],
-                    library_ms=None, **rows_json[name])
+                    launches_detection_path=launches_det[name], library_ms=None,
+                    **rows_json[name])
                for name in ("raster_setup", "raster_resolve", "raster_resolve_attr")]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,7 +1,9 @@
-"""Samplers of the training loop and the multiview grouping (port of
-PartialSampler, ListSampler and MultiViewWrapper in
-cosypose_tpu/data/wrappers.py). PartialSampler draws with numpy's
-RandomState exactly as the JAX package does, so epoch orders are equal."""
+"""Samplers of the training loop, dataset concatenation and the multiview
+grouping (port of PartialSampler, ListSampler, ConcatSceneDataset and
+MultiViewWrapper in cosypose_tpu/data/wrappers.py, and of the training
+loop's dataset concat). PartialSampler
+draws with numpy's RandomState exactly as the JAX package does, so epoch
+orders are equal."""
 
 from __future__ import annotations
 
@@ -32,6 +34,40 @@ class ListSampler:
 
     def __len__(self):
         return len(self.ids)
+
+
+class ConcatDataset:
+    """Dataset concat with integer repeat factors (ref: train_pose.py:216-227)."""
+
+    def __init__(self, datasets_with_repeats):
+        self.datasets = []
+        for ds, repeat in datasets_with_repeats:
+            self.datasets.extend([ds] * int(repeat))
+        self.lengths = [len(d) for d in self.datasets]
+        self.cum = np.cumsum([0] + self.lengths)
+
+    def __len__(self):
+        return int(self.cum[-1])
+
+    def __getitem__(self, idx):
+        if not 0 <= idx < len(self):
+            raise IndexError(idx)
+        d = int(np.searchsorted(self.cum[1:], idx, side="right"))
+        return self.datasets[d][idx - int(self.cum[d])]
+
+
+class ConcatSceneDataset(ConcatDataset):
+    """Several scene datasets as one: items in order, and their frame
+    indexes concatenated (a FrameIndex of the columns all of them have)."""
+
+    def __init__(self, datasets):
+        from .bop import FrameIndex
+
+        super().__init__([(ds, 1) for ds in datasets])
+        columns = set.intersection(*(set(ds.frame_index.columns) for ds in self.datasets))
+        self.frame_index = FrameIndex({
+            k: np.concatenate([ds.frame_index[k] for ds in self.datasets])
+            for k in self.datasets[0].frame_index.columns if k in columns})
 
 
 class MultiViewWrapper:

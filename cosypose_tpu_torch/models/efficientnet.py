@@ -55,7 +55,6 @@ BASE_BLOCKS = [
 
 BN_EPS = 1e-3
 FLAX_MOMENTUM = 0.99
-BN_MOMENTUM = 1 - FLAX_MOMENTUM  # in torch's convention
 
 
 def round_filters(filters: int, width_mult: float, divisor: int = 8) -> int:
@@ -94,14 +93,17 @@ class Conv2dSame(nn.Conv2d):
 
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with flax's running-statistics update in train mode:
-    running = 0.99·running + (1 - 0.99)·batch, the batch variance biased.
+    running = m·running + (1 - m)·batch, the batch variance biased, with
+    flax's momentum m (0.99 here; 0.9 in the WideResNet, CorrNet and
+    detector modules) and epsilon.
 
     `update_stats` False (see `frozen_stats`) leaves the running statistics
     alone: a replayed forward under activation checkpointing, validation.
     """
 
-    def __init__(self, ch: int):
-        super().__init__(ch, eps=BN_EPS, momentum=BN_MOMENTUM)
+    def __init__(self, ch: int, eps: float = BN_EPS, flax_momentum: float = FLAX_MOMENTUM):
+        super().__init__(ch, eps=eps, momentum=1 - flax_momentum)
+        self.flax_momentum = flax_momentum
         self.update_stats = True
 
     def forward(self, x):
@@ -116,10 +118,10 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.update_stats:
             return y
         n = x.numel() // x.shape[1]
+        m = self.flax_momentum
         with torch.no_grad():
-            self.running_mean.mul_(FLAX_MOMENTUM).add_(mean, alpha=1 - FLAX_MOMENTUM)
-            self.running_var.mul_(FLAX_MOMENTUM).add_(var * ((n - 1) / n),
-                                                      alpha=1 - FLAX_MOMENTUM)
+            self.running_mean.mul_(m).add_(mean, alpha=1 - m)
+            self.running_var.mul_(m).add_(var * ((n - 1) / n), alpha=1 - m)
         return y
 
 
@@ -179,6 +181,8 @@ class MBConvBlock(nn.Module):
 
 class EfficientNet(nn.Module):
     """Input (B, in_channels, H, W) → final conv features (B, head_ch, H/32, W/32)."""
+
+    n_halvings = 5  # stride-2 "SAME" convs, each giving ⌈n/2⌉
 
     def __init__(self, variant: str = "efficientnet-b3", in_channels: int = 6,
                  drop_connect_rate: float = 0.2):

@@ -3,25 +3,27 @@ cosypose_tpu/models/pose_predictor.py).
 
 One iteration: project the mesh points → DeepIM crop box → roi_align crop and
 cropped intrinsics → render the object at the current pose in the crop frame
-(the CUDA kernel on the card, its plain version on the CPU) → EfficientNet on
-the 6-channel observed ⊕ rendered stack → global average pool → linear pose
-head → image-space pose update. `forward` loops it n times; outputs are
-stacked per iteration, (n_iter, B, ...), with the JAX package's keys.
-`forward_train` is the same loop with the net in train mode (batch-statistics
-BatchNorm, drop-connect, optional activation checkpointing), the pose and
-the crop intrinsics detached between iterations, as the JAX package's
-stop_gradient does; the crop and the render carry no gradient.
-
-Out of this port so far: the other backbones, the moments/scale/flatten/lk
-poolings and input_mode 'obs+render+diff'.
+(the CUDA kernel on the card, its plain version on the CPU) → the backbone
+(EfficientNet B0–B7, WideResNet-18/34, FlowNetS or CorrNet) on the observed ⊕
+rendered stack (6 channels, or 9 with their difference) → pooling (global
+average, plus spatial moments, second moments, a flattened 1×1-reduced grid
+or Lucas-Kanade pyramid statistics) → linear pose head → image-space pose
+update. `forward` loops it n times; outputs are stacked per iteration,
+(n_iter, B, ...), with the JAX package's keys. `forward_train` is the same
+loop with the net in train mode (batch-statistics BatchNorm, drop-connect,
+optional activation checkpointing), the pose and the crop intrinsics
+detached between iterations, as the JAX package's stop_gradient does; the
+crop and the render carry no gradient.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -31,7 +33,16 @@ from ..ops.pose_ops import apply_imagespace_predictions
 from ..ops.render import render
 from ..ops.transforms import quat_to_matrix, rot6d_to_matrix
 from ..utils.device import resolve_device
+from .corrnet import CorrNet
 from .efficientnet import EfficientNet, frozen_stats
+from .wide_resnet import FlowNetSEncoder, WideResNet18, WideResNet34
+
+POOLINGS = ("gap", "moments", "scale", "flatten", "lk")
+INPUT_MODES = ("obs+render", "obs+render+diff")
+LK_LEVELS = (2, 4, 8)
+FLATTEN_CHANNELS = 16
+LN_EPS = 1e-6  # flax LayerNorm's
+EFFICIENTNETS = tuple(f"efficientnet-b{i}" for i in range(8))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +50,9 @@ class PosePredictorConfig:
     backbone: str = "efficientnet-b3"
     render_size: tuple[int, int] = (240, 320)
     pose_dim: int = 9                # 9: rot6d + vxvyvz; 7: quat xyzw + vxvyvz
+    # '+'-joined from POOLINGS; global average pooling is always in
+    pooling: str = "gap"
+    input_mode: str = "obs+render"   # | 'obs+render+diff': 9 channels, + obs - render
     vxvy_scale: float = 1.0          # output gain on the vx/vy head
     n_points_crop: int = 2000        # points projected for the crop box
     lamb: float = 1.4                # DeepIM crop margin
@@ -55,10 +69,74 @@ class PosePredictorConfig:
     remat: bool = False
 
     def __post_init__(self):
-        if not self.backbone.startswith("efficientnet-b") or "+" in self.backbone:
-            raise ValueError(f"backbone {self.backbone!r} is not ported")
+        if "+dw" in self.backbone:
+            # the JAX package's depthwise lowerings are TPU roofline selectors
+            raise ValueError(f"backbone {self.backbone!r}: the +dw lowerings are not ported "
+                             "(ROADMAP queue 1, leftovers)")
+        if self.backbone not in EFFICIENTNETS and not any(
+                k in self.backbone for k in ("resnet18", "resnet34")) \
+                and self.backbone not in ("flownet", "corrnet"):
+            raise ValueError(f"Unknown backbone {self.backbone}")
+        if not set(self.pooling.split("+")) <= set(POOLINGS):
+            raise ValueError(f"Unknown pooling {self.pooling}")
+        if self.input_mode not in INPUT_MODES:
+            raise ValueError(f"Unknown input mode {self.input_mode}")
         if self.pose_dim not in (7, 9):
             raise ValueError(self.pose_dim)
+
+    @property
+    def in_channels(self) -> int:
+        return 9 if self.input_mode == "obs+render+diff" else 6
+
+
+def make_backbone(cfg: PosePredictorConfig) -> nn.Module:
+    """The backbone a config names, for its input channels; it has
+    n_features and n_halvings (its feature grid is the render size halved,
+    rounding up, that many times)."""
+    n_ch = cfg.in_channels
+    if cfg.backbone.startswith("efficientnet"):
+        return EfficientNet(cfg.backbone, in_channels=n_ch,
+                            drop_connect_rate=cfg.drop_connect_rate)
+    if "resnet34" in cfg.backbone:
+        return WideResNet34(in_channels=n_ch)
+    if "resnet18" in cfg.backbone:
+        return WideResNet18(in_channels=n_ch)
+    if cfg.backbone == "flownet":
+        return FlowNetSEncoder(in_channels=n_ch)
+    return CorrNet(in_channels=n_ch)
+
+
+def feature_grid(cfg: PosePredictorConfig, backbone: nn.Module) -> tuple[int, int]:
+    h, w = cfg.render_size
+    for _ in range(backbone.n_halvings):
+        h, w = math.ceil(h / 2), math.ceil(w / 2)
+    return h, w
+
+
+def lk_pyramid_stats(x: torch.Tensor) -> torch.Tensor:
+    """Pooled Lucas-Kanade statistics of the observed/rendered pair (x NCHW,
+    channels 0:3 observed, 3:6 rendered), fp32: per level (average pools of
+    lvl×lvl), per gradient (gx, gy of the render, central differences on the
+    interior) and per basis (1, X, Y on a [-1, 1] grid), mean(diff·g·basis)
+    over rsqrt(mean((g·basis)²) + 1e-8), each (B, 3). Returns (B, 18 ·
+    len(LK_LEVELS)) in the JAX package's order."""
+    obs, rend = x[:, 0:3].float(), x[:, 3:6].float()
+    diff = obs - rend
+    stats = []
+    for lvl in LK_LEVELS:
+        d, r = F.avg_pool2d(diff, lvl, lvl), F.avg_pool2d(rend, lvl, lvl)
+        gy = 0.5 * (r[:, :, 2:, 1:-1] - r[:, :, :-2, 1:-1])
+        gx = 0.5 * (r[:, :, 1:-1, 2:] - r[:, :, 1:-1, :-2])
+        d = d[:, :, 1:-1, 1:-1]
+        h, w = d.shape[-2:]
+        Y = torch.linspace(-1.0, 1.0, h, device=x.device)[:, None]
+        X = torch.linspace(-1.0, 1.0, w, device=x.device)[None, :]
+        for g in (gx, gy):
+            for basis in (torch.ones_like(X), X, Y):
+                b = (d * g * basis).mean(dim=(2, 3))
+                e = ((g * basis) ** 2).mean(dim=(2, 3))
+                stats.append(b * torch.rsqrt(e + 1e-8))
+    return torch.cat(stats, dim=-1)
 
 
 def identity_pose_bias(pose_dim: int) -> torch.Tensor:
@@ -69,29 +147,60 @@ def identity_pose_bias(pose_dim: int) -> torch.Tensor:
 
 
 class PoseNet(nn.Module):
-    """Backbone + global average pool + linear pose head (the head in fp32)."""
+    """Backbone + pooling + linear pose head (the pooling's reductions and the
+    head in fp32)."""
 
     def __init__(self, cfg: PosePredictorConfig):
         super().__init__()
         self.cfg = cfg
-        self.backbone = EfficientNet(cfg.backbone, in_channels=6,
-                                     drop_connect_rate=cfg.drop_connect_rate)
-        self.pose_fc = nn.Linear(self.backbone.n_features, cfg.pose_dim)
+        self.parts = cfg.pooling.split("+")
+        self.backbone = make_backbone(cfg)
+        n = self.backbone.n_features
+        n_in = n * (1 + 2 * ("moments" in self.parts) + 2 * ("scale" in self.parts))
+        if "flatten" in self.parts:
+            h, w = feature_grid(cfg, self.backbone)
+            self.flatten_reduce = nn.Conv2d(n, FLATTEN_CHANNELS, 1)
+            self.flatten_ln = nn.LayerNorm(FLATTEN_CHANNELS * h * w, eps=LN_EPS)
+            n_in += FLATTEN_CHANNELS * h * w
+        if "lk" in self.parts:
+            self.lk_ln = nn.LayerNorm(18 * len(LK_LEVELS), eps=LN_EPS)
+            n_in += 18 * len(LK_LEVELS)
+        self.pose_fc = nn.Linear(n_in, cfg.pose_dim)
         gain = torch.ones(cfg.pose_dim)
         vx0 = 6 if cfg.pose_dim == 9 else 4
         gain[vx0:vx0 + 2] = cfg.vxvy_scale
         self.register_buffer("head_gain", gain, persistent=False)
 
     def pooled_features(self, x: torch.Tensor, drop_masks: list | None = None) -> torch.Tensor:
-        """x (B, 6, H, W) → globally average-pooled features (B, n_features) fp32."""
+        """x (B, 6|9, H, W) → the pooled features the head reads (B, n_in),
+        fp32. The moments' grids are in the features' dtype (bf16 under a
+        bf16 config), as in the JAX package; the flatten grid is permuted to
+        the JAX package's NHWC order before its LayerNorm."""
         dtype = self.cfg.compute_dtype
         with torch.autocast(x.device.type, dtype=dtype, enabled=dtype != torch.float32):
-            feats = self.backbone(x, drop_masks)
-        return feats.float().mean(dim=(2, 3))
+            feats = self.backbone(x) if drop_masks is None else self.backbone(x, drop_masks)
+        pooled = [feats.float().mean(dim=(2, 3))]
+        if "moments" in self.parts or "scale" in self.parts:
+            h, w = feats.shape[-2:]
+            fy = torch.linspace(-1.0, 1.0, h, device=x.device).to(feats.dtype)[:, None]
+            fx = torch.linspace(-1.0, 1.0, w, device=x.device).to(feats.dtype)[None, :]
+        if "moments" in self.parts:
+            pooled += [(feats * fx).float().mean(dim=(2, 3)),
+                       (feats * fy).float().mean(dim=(2, 3))]
+        if "scale" in self.parts:
+            pooled += [(feats * fx * fx).float().mean(dim=(2, 3)),
+                       (feats * fy * fy).float().mean(dim=(2, 3))]
+        if "flatten" in self.parts:
+            red = self.flatten_reduce(feats.float()).permute(0, 2, 3, 1)
+            pooled.append(self.flatten_ln(red.reshape(red.shape[0], -1)))
+        if "lk" in self.parts:
+            pooled.append(self.lk_ln(lk_pyramid_stats(x)))
+        return torch.cat(pooled, dim=-1)
 
     def forward(self, x: torch.Tensor, drop_masks: list | None = None) -> torch.Tensor:
-        """x (B, 6, H, W) → pose outputs (B, pose_dim) fp32; drop_masks: the
-        backbone's drop-connect masks (train mode), see EfficientNet.forward."""
+        """x (B, 6|9, H, W) → pose outputs (B, pose_dim) fp32; drop_masks: the
+        backbone's drop-connect masks (EfficientNet in train mode), see
+        EfficientNet.forward."""
         out = self.pose_fc(self.pooled_features(x, drop_masks))
         return out * self.head_gain if self.cfg.vxvy_scale != 1.0 else out
 
@@ -139,8 +248,8 @@ class PosePredictor:
         self.net.to(self.device).eval()
 
     def network_input(self, mesh_data: dict, images, K, TCO_input):
-        """Crop and render for one iteration: (x (B,6,h,w) observed ⊕ rendered,
-        K_crop, boxes_rend, boxes_crop)."""
+        """Crop and render for one iteration: (x (B,6|9,h,w) observed ⊕
+        rendered (⊕ their difference), K_crop, boxes_rend, boxes_crop)."""
         cfg = self.cfg
         crop_points = mesh_data["crop_points"]
         boxes_rend = boxes_from_uv(project_points_robust(crop_points, K, TCO_input))
@@ -151,7 +260,10 @@ class PosePredictor:
                           image_size=cfg.render_size, colors=mesh_data.get("tri_colors"),
                           tile=cfg.raster_tile,
                           max_tris_per_tile=cfg.raster_max_tris_per_tile).rgb
-        return torch.cat([images_crop, rendered], dim=1), K_crop, boxes_rend, boxes_crop
+        parts = [images_crop, rendered]
+        if cfg.input_mode == "obs+render+diff":
+            parts.append(images_crop - rendered)
+        return torch.cat(parts, dim=1), K_crop, boxes_rend, boxes_crop
 
     def _net_train(self, x: torch.Tensor, drop_masks: list | None) -> torch.Tensor:
         """The net in train mode on x, its activations recomputed in backward
@@ -206,7 +318,7 @@ class PosePredictor:
                       drop_masks: list | None = None) -> dict:
         """n_iterations of render-and-compare with the net in train mode, the
         pose detached between iterations. Inputs as for `forward`; drop_masks
-        is one list of EfficientNet.draw_drop_masks per iteration, or None
+        is one list of the backbone's draw_drop_masks per iteration, or None
         for no drop-connect. Returns forward's outputs; pose_outputs and
         TCO_output carry the gradient to the net's parameters, and the
         BatchNorm running statistics have moved once per iteration."""

@@ -40,10 +40,13 @@ _R_ZUP = ((0.0, 1.0, 0.0), (0.0, 0.0, -1.0), (-1.0, 0.0, 0.0))
 
 
 def TCO_init_from_boxes_zup_autodepth(boxes_2d: torch.Tensor, model_points_3d: torch.Tensor,
-                                      K: torch.Tensor) -> torch.Tensor:
+                                      K: torch.Tensor,
+                                      points_valid: torch.Tensor | None = None) -> torch.Tensor:
     """BOP20-style coarse init: canonical z-up rotation, depth from the ratio of
     the model's projected extent at z=1 to the detected box.
-    boxes_2d (B,4), model_points_3d (B,P,3), K (B,3,3) → TCO (B,4,4)."""
+    boxes_2d (B,4), model_points_3d (B,P,3), K (B,3,3) → TCO (B,4,4);
+    points_valid (B,P) bool, where given, leaves padded points out of the
+    extent (an item with no valid point gets nan)."""
     bsz = boxes_2d.shape[0]
     dtype, device = boxes_2d.dtype, boxes_2d.device
     z_guess = 1.0
@@ -55,8 +58,18 @@ def TCO_init_from_boxes_zup_autodepth(boxes_2d: torch.Tensor, model_points_3d: t
     R = torch.tensor(_R_ZUP, dtype=dtype, device=device).expand(bsz, 3, 3)
     t0 = torch.cat([xy_init, torch.full((bsz, 1), z_guess, dtype=dtype, device=device)], dim=-1)
     C_pts = transform_pts(make_T(R, t0), model_points_3d)
-    deltax = C_pts[..., 0].amax(dim=1) - C_pts[..., 0].amin(dim=1)
-    deltay = C_pts[..., 1].amax(dim=1) - C_pts[..., 1].amin(dim=1)
+    if points_valid is None:
+        deltax = C_pts[..., 0].amax(dim=1) - C_pts[..., 0].amin(dim=1)
+        deltay = C_pts[..., 1].amax(dim=1) - C_pts[..., 1].amin(dim=1)
+    else:
+        inf = torch.tensor(float("inf"), dtype=dtype, device=device)
+
+        def extent(c):
+            e = torch.where(points_valid, c, -inf).amax(dim=1) \
+                - torch.where(points_valid, c, inf).amin(dim=1)
+            return torch.where(points_valid.any(dim=1), e, torch.nan)
+
+        deltax, deltay = extent(C_pts[..., 0]), extent(C_pts[..., 1])
 
     bb_deltax = boxes_2d[:, 2] - boxes_2d[:, 0] + 1.0
     bb_deltay = boxes_2d[:, 3] - boxes_2d[:, 1] + 1.0

@@ -161,11 +161,16 @@ SETUP_TOL = 2.0 ** -18
 
 
 def setup_error(rows_a: torch.Tensor, key_a: torch.Tensor, rows_b: torch.Tensor,
-                key_b: torch.Tensor, image_size: tuple[int, int]) -> dict:
+                key_b: torch.Tensor, image_size: tuple[int, int],
+                K: torch.Tensor | None = None) -> dict:
     """How far setup outputs a and b (the reference) lie apart, as SETUP_TOL
     reads it: the largest plane and bbox/key errors over rows valid in both,
     the number of rows whose validity differs, and the largest attribute
-    difference."""
+    difference. With the intrinsics K (B,3,3), a bbox or key lane is measured
+    against the terms it sums, u = fx·x/z + cx: |u| + |cx| (v: |v| + |cy|)
+    where that exceeds the image. Crop intrinsics can put the principal
+    point far outside the crop, and u then cancels two large terms, each
+    rounded to its own size."""
     H, W = image_size
     valid_a, valid_b = rows_a[..., LANE_VALID] != 0, rows_b[..., LANE_VALID] != 0
     both = valid_a & valid_b
@@ -177,6 +182,10 @@ def setup_error(rows_a: torch.Tensor, key_a: torch.Tensor, rows_b: torch.Tensor,
     box = b[:, LANE_BBOX:LANE_BBOX + 4].abs()
     X = torch.maximum(box[:, 0], box[:, 2]).clamp_min(W)
     Y = torch.maximum(box[:, 1], box[:, 3]).clamp_min(H)
+    if K is not None:
+        item = both.nonzero()[:, 0]
+        X = torch.maximum(X, torch.maximum(box[:, 0], box[:, 2]) + K[item, 0, 2].double().abs())
+        Y = torch.maximum(Y, torch.maximum(box[:, 1], box[:, 3]) + K[item, 1, 2].double().abs())
 
     def mag(t, i, j, k):
         return t[:, i].abs() * X + t[:, j].abs() * Y + t[:, k].abs()

@@ -7,7 +7,8 @@ cosypose_tpu/training/checkpoint.py), with the JAX package's run layout:
 
 A checkpoint is the whole train state, so a resume is exact: the net's state
 dict (parameters and BatchNorm running statistics), the optimizer's (Adam
-moments and counts), the step and the epoch.
+moments and counts), the step and the epoch. A state is any object with
+`net`, `optimizer` and `step` (the pose and the detector train states).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ def save_checkpoint(run_dir, state, epoch: int, keep: int = 2) -> pathlib.Path:
     the newest `keep` checkpoints."""
     ckpt_dir = pathlib.Path(run_dir) / "checkpoint"
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    payload = dict(net=state.pp.net.state_dict(), optimizer=state.optimizer.state_dict(),
+    payload = dict(net=state.net.state_dict(), optimizer=state.optimizer.state_dict(),
                    step=int(state.step), epoch=int(epoch))
     path = ckpt_dir / f"epoch_{epoch:05d}.pt"
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
@@ -50,7 +51,7 @@ def load_checkpoint(path) -> dict:
 def restore_into_state(state, payload: dict) -> None:
     """Load a payload's net, optimizer and step into `state` (same config),
     in place."""
-    state.pp.net.load_state_dict(payload["net"])
+    state.net.load_state_dict(payload["net"])
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
 

@@ -3,10 +3,10 @@
 A config name resolves to a full hyperparameter set, field for field the JAX
 package's: lr 3e-4, batch 32, epoch_size 115200, 700 epochs, warmup 50,
 lr/10 every 500 epochs, grad clip 0.5, pose_dim 9, n_points_loss 2600, coarse
-input 'fixed' / 'fixed+trans_noise', refiner input 'gt+noise'. Names whose
-model the port does not have yet (the FlowNet ablation, the procedural-diag*
-arms and the *-mini* configs: WRN18, CorrNet, moment/flatten/lk pooling)
-raise PosePredictorConfig's "not ported" error.
+input 'fixed' / 'fixed+trans_noise', refiner input 'gt+noise'. Every name
+of the JAX package resolves: the T-LESS ablations (FlowNetS among them), the
+procedural-diag* arms (WideResNet-18 or CorrNet, moment/scale/flatten/lk
+pooling, the 9-channel input) and procedural-refiner-mini[-moments].
 """
 
 from __future__ import annotations
@@ -89,11 +89,84 @@ def make_cfg(config_name: str, debug: bool = False) -> RunConfig:
         cfg.object_ds_name = "procedural"
         cfg.input_resize = (240, 320)
         cfg.val_epoch_interval = 5
-    elif config_name.startswith("procedural-diag") or \
-            config_name.startswith("procedural-refiner-mini"):
-        # WRN18 / CorrNet backbones with moment, flatten or lk pooling: raises
-        dataclasses.replace(predictor,
-                            backbone="corrnet" if "-corr" in config_name else "wide-resnet18")
+    elif config_name.startswith("procedural-diag"):
+        # procedural-diag[-corr][-gap|-flat][-lk][-sc][-nodiff][-coarse] and
+        # the numeric levers lr, vs, aux, ep, it, lev, rot, hi, zw; b3, fp32
+        # and dc0 switch the backbone to B3, fp32 and no drop-connect
+        parts = config_name.split("-")
+        mini = dataclasses.replace(
+            predictor, backbone="corrnet" if "-corr" in config_name else "wide-resnet18",
+            render_size=(120, 160), compute_dtype=torch.bfloat16,
+            pooling=("gap" if "-gap" in config_name else
+                     "gap+moments+flatten" if "-flat" in config_name else "gap+moments")
+            + ("+scale" if "sc" in parts else "") + ("+lk" if "-lk" in config_name else ""),
+            input_mode="obs+render" if "-nodiff" in config_name else "obs+render+diff")
+        lr, aux, lever, n_epochs, n_iterations, z_weight, rot_deg = \
+            1e-3, None, 0.05, None, 1, 1.0, 0.0
+        for part in parts:
+            if part.startswith("lr"):
+                lr = float(part[2:])
+            elif part.startswith("vs"):
+                mini = dataclasses.replace(mini, vxvy_scale=float(part[2:]))
+            elif part.startswith("aux"):
+                aux = float(part[3:])
+            elif part.startswith("ep"):
+                n_epochs = int(part[2:])
+            elif part.startswith("it"):
+                n_iterations = int(part[2:])
+            elif part.startswith("lev"):
+                lever = float(part[3:])
+            elif part == "rot":
+                rot_deg = 15.0
+            elif part.startswith("rot"):
+                rot_deg = float(part[3:])
+            elif part.startswith("hi"):
+                mini = dataclasses.replace(mini, head_init_scale=float(part[2:]))
+            elif part == "b3":
+                mini = dataclasses.replace(mini, backbone="efficientnet-b3")
+            elif part == "fp32":
+                mini = dataclasses.replace(mini, compute_dtype=torch.float32)
+            elif part == "dc0":
+                mini = dataclasses.replace(mini, drop_connect_rate=0.0)
+            elif part.startswith("zw"):
+                z_weight = float(part[2:])
+        coarse = "-coarse" in config_name
+        if aux is None:
+            aux = 0.3 if (coarse or rot_deg > 0.0) else 0.0
+        if n_epochs is None:
+            n_epochs = 60 if coarse else 20
+        cfg = base(config_name, predictor=mini,
+                   input_generator="fixed+trans_noise" if coarse else "gt+noise",
+                   n_iterations=n_iterations, batch_size=64, epoch_size=6400,
+                   n_epochs=n_epochs, n_epochs_warmup=1, n_points_loss=600, lr=lr,
+                   noise_euler_deg=(rot_deg,) * 3, noise_trans=(0.01, 0.01, 0.03),
+                   aux_regression_weight=aux, aux_rot_lever_m=lever, z_loss_weight=z_weight,
+                   rgb_aug_device="-devaug" in config_name)
+        ds = ("procedural-texsolo" if "-texsolo" in config_name else
+              "procedural-solo" if "-solo" in config_name else "procedural-canon")
+        cfg.train_ds_names = ((f"synthetic.{ds}.train", 1),)
+        cfg.val_ds_names = ((f"synthetic.{ds}.val", 1),)
+        cfg.object_ds_name = "procedural-tex" if "-texsolo" in config_name else "procedural"
+        cfg.input_resize = (120, 160)
+        cfg.val_epoch_interval = 10
+        cfg.test_epoch_interval = 5
+    elif config_name in ("procedural-refiner-mini", "procedural-refiner-mini-moments"):
+        # WRN18 bf16 at 120x160, one iteration, gentler noise; -moments adds
+        # spatial-moment pooling
+        mini = dataclasses.replace(
+            predictor, backbone="wide-resnet18", render_size=(120, 160),
+            compute_dtype=torch.bfloat16,
+            pooling="gap+moments" if config_name.endswith("-moments") else "gap")
+        cfg = base(config_name, predictor=mini, input_generator="gt+noise", n_iterations=1,
+                   batch_size=64, epoch_size=6400,
+                   n_epochs=150 if config_name.endswith("-moments") else 60,
+                   n_epochs_warmup=1, n_points_loss=600, lr=1e-3,
+                   noise_euler_deg=(10.0, 10.0, 10.0), noise_trans=(0.01, 0.01, 0.03))
+        cfg.train_ds_names = (("synthetic.procedural-canon.train", 1),)
+        cfg.val_ds_names = (("synthetic.procedural-canon.val", 1),)
+        cfg.object_ds_name = "procedural"
+        cfg.input_resize = (120, 160)
+        cfg.val_epoch_interval = 10
     elif config_name.startswith("bop-"):
         # bop-<ds>-{pbr|synt+real}-{coarse|refiner}
         ds, data, kind = config_name.split("-")[1:4]

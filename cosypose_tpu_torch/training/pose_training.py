@@ -73,6 +73,10 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     step: int = 0
 
+    @property
+    def net(self) -> torch.nn.Module:
+        return self.pp.net
+
 
 def lr_schedule(cfg: PoseTrainConfig):
     """lr of the update made at a step count: linear warmup over the warmup
@@ -192,23 +196,29 @@ def pose_loss(pp: PosePredictor, cfg: PoseTrainConfig, mesh_db, batch: dict, dra
     return loss, metrics
 
 
-def apply_gradients(state: TrainState, cfg: PoseTrainConfig) -> torch.Tensor:
+def clip_and_step(params, optimizer: torch.optim.Optimizer, clip_grad_norm: float,
+                  lr: float) -> torch.Tensor:
     """Clip the gradients by their global norm as optax does (scaled by
-    max/norm where the norm is at least max, no epsilon), set the scheduled
-    lr for this update, step the optimizer, count the step. Returns the
-    global norm of the unclipped gradients."""
-    grads = [p.grad for p in state.pp.net.parameters() if p.grad is not None]
+    max/norm where the norm is at least max, no epsilon), set the lr, step
+    the optimizer. Returns the global norm of the unclipped gradients."""
+    grads = [p.grad for p in params if p.grad is not None]
     norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-    factor = torch.where(norm < cfg.clip_grad_norm, torch.ones_like(norm),
-                         cfg.clip_grad_norm / norm)
+    factor = torch.where(norm < clip_grad_norm, torch.ones_like(norm), clip_grad_norm / norm)
     for g in grads:
         g.mul_(factor)
-    lr = lr_schedule(cfg)(state.step)
-    for group in state.optimizer.param_groups:
+    for group in optimizer.param_groups:
         group["lr"] = lr
-    state.optimizer.step()
-    state.step += 1
+    optimizer.step()
     return norm.detach()
+
+
+def apply_gradients(state: TrainState, cfg: PoseTrainConfig) -> torch.Tensor:
+    """clip_and_step at the scheduled lr of this update, and count the step.
+    Returns the global norm of the unclipped gradients."""
+    norm = clip_and_step(state.pp.net.parameters(), state.optimizer, cfg.clip_grad_norm,
+                         lr_schedule(cfg)(state.step))
+    state.step += 1
+    return norm
 
 
 def make_train_step(cfg: PoseTrainConfig, mesh_db):

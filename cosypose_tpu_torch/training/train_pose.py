@@ -23,7 +23,7 @@ import torch
 from torch.utils.data import BatchSampler, DataLoader
 
 from ..config import EXP_DIR
-from ..data.wrappers import PartialSampler
+from ..data.wrappers import ConcatDataset, PartialSampler
 from ..utils.device import resolve_device
 from .checkpoint import (latest_checkpoint, load_checkpoint, restore_into_state,
                          save_checkpoint, save_config)
@@ -31,24 +31,6 @@ from .logs import MetricsAccumulator, RunLogger
 from .pose_training import create_train_state, draw_step, make_train_step, make_val_step
 
 logger = logging.getLogger(__name__)
-
-
-class ConcatDataset:
-    """Dataset concat with integer repeat factors (ref: train_pose.py:216-227)."""
-
-    def __init__(self, datasets_with_repeats):
-        self.datasets = []
-        for ds, repeat in datasets_with_repeats:
-            self.datasets.extend([ds] * int(repeat))
-        self.lengths = [len(d) for d in self.datasets]
-        self.cum = np.cumsum([0] + self.lengths)
-
-    def __len__(self):
-        return int(self.cum[-1])
-
-    def __getitem__(self, idx):
-        d = int(np.searchsorted(self.cum[1:], idx, side="right"))
-        return self.datasets[d][idx - self.cum[d]]
 
 
 def collate(items) -> dict:
@@ -73,14 +55,14 @@ def seed_worker(epoch: int, worker_id: int) -> None:
 
 
 def make_loader(dataset, sampler, batch_size: int, n_workers: int, pin_memory: bool,
-                epoch: int = 0):
+                epoch: int = 0, collate_fn=collate):
     """Full batches of `batch_size` in the sampler's order; worker processes
     (spawned, reseeded by seed_worker) when n_workers > 0."""
     if len(sampler) < batch_size:
         raise ValueError(f"epoch_size {len(sampler)} < batch {batch_size}: "
                          "no full batch can be formed")
     return DataLoader(dataset, batch_sampler=BatchSampler(sampler, batch_size, drop_last=True),
-                      collate_fn=collate, num_workers=n_workers, pin_memory=pin_memory,
+                      collate_fn=collate_fn, num_workers=n_workers, pin_memory=pin_memory,
                       multiprocessing_context="spawn" if n_workers > 0 else None,
                       worker_init_fn=functools.partial(seed_worker, epoch) if n_workers else None)
 

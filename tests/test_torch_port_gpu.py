@@ -348,3 +348,54 @@ def test_vsd_card_matches_cpu(cuda):
     assert vsd_px <= 1e-4 * d_cpu[0].size * len(ests) * len(gts)
     assert np.abs(M_card - M_cpu).max() <= 2 * vsd_px / union
     assert M_cpu.shape == (2, 2, 10) and M_cpu[0, 0].min() < M_cpu[0, 1].min()
+
+
+def test_detector_card_matches_cpu(cuda):
+    """CenterNet (WideResNet-18, 21 classes) at 240x320, fp32, seeded weights:
+    head outputs within 1e-3 (cuDNN vs oneDNN summation order); the decoded
+    detections (both cls_modes, NMS on) equal as sets except at most 2 of 64
+    an image, where a near-tie peak or score moves."""
+    from cosypose_tpu_torch.models.detector import (CenterNetDetector, DetectorConfig,
+                                                    decode_detections, init_detector_weights)
+    x = torch.as_tensor(np.random.RandomState(0).uniform(size=(2, 3, 240, 320)),
+                        dtype=torch.float32)
+    for cls_mode in ("percls", "softmax"):
+        model = CenterNetDetector(DetectorConfig(cls_mode=cls_mode)).eval()
+        init_detector_weights(model, torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            cpu = model(x)
+            card = model.to(cuda)(x.to(cuda))
+        for k in cpu:
+            assert (card[k].cpu() - cpu[k]).abs().max().item() <= 1e-3, k
+        dets = {dev: decode_detections({k: v.to(dev) for k, v in cpu.items()}, 64)
+                for dev in ("cpu", cuda)}
+        for b in range(2):
+            sets = [{(int(c), tuple(np.round(bx.tolist(), 3))) for c, bx, s in
+                     zip(d["class_ids"][b].cpu(), d["boxes"][b].cpu(), d["scores"][b].cpu())
+                     if s > 0} for d in dets.values()]
+            assert len(sets[0] ^ sets[1]) <= 4 and len(sets[0]) > 0
+
+
+@pytest.mark.parametrize("config", ["procedural-refiner-mini", "procedural-diag-corr-flat-lk"])
+def test_posenet_backbones_card_matches_cpu(cuda, config):
+    """The WideResNet-18 and CorrNet (flatten + lk pooling, 9 channels)
+    predictors of two configs, in fp32 on the card and on the CPU: TCO within
+    1e-3 after 2 iterations."""
+    from cosypose_tpu_torch.training.configs import make_cfg
+
+    cfg = dataclasses.replace(make_cfg(config).train.predictor, compute_dtype=torch.float32,
+                              n_points_crop=200)
+    images, K, TCO, label_ids = demo.make_inputs(2, 240, 320)
+    outs, weights = {}, None
+    for dev in ("cpu", "cuda"):
+        pp = PosePredictor(cfg, device=dev)
+        weights = weights or pp.net.state_dict()
+        pp.net.load_state_dict(weights)
+        w = pp.net.pose_fc.weight
+        with torch.no_grad():  # a random pose kernel: the iterations move the pose
+            w.copy_(5e-3 * torch.randn(w.shape, generator=torch.Generator().manual_seed(2)))
+        db = build_mesh_db(demo.demo_specs(), render_max_faces=512, device=dev)
+        md = gather_mesh_data(db, torch.as_tensor(label_ids, device=dev).long(), 200)
+        args = [torch.as_tensor(a, device=dev) for a in (images, K, TCO)]
+        outs[dev] = pp.forward(md, *args, n_iterations=2)["TCO_final"].cpu()
+    assert (outs["cuda"] - outs["cpu"]).abs().max().item() <= 1e-3

@@ -37,6 +37,11 @@ def test_every_port_module_is_listed():
     assert "cosypose_tpu_torch.ops.symmetric" in MODULES
     assert "cosypose_tpu_torch.scripts.run_procedural_accuracy" in MODULES
     assert "cosypose_tpu_torch.scripts.run_bop_eval" in MODULES
+    for name in ("models.wide_resnet", "models.corrnet", "models.detector",
+                 "integrated.detector", "data.detection_dataset", "training.detector_training",
+                 "bop_config", "scripts.run_detector_training", "scripts.run_detection_eval",
+                 "scripts.run_bop_inference"):
+        assert f"cosypose_tpu_torch.{name}" in MODULES
 
 
 def test_port_imports_no_jax():

@@ -309,6 +309,34 @@ def test_setup_tolerance_covers_float32_rounding(name):
         > rasterizer_cuda.SETUP_TOL
 
 
+@pytest.mark.parametrize("fx,cx", [(2000.0, -1500.0), (4000.0, -3000.0), (8000.0, -6000.0)])
+def test_setup_tolerance_under_crop_intrinsics(fx, cx):
+    """Crop intrinsics of a far-off pose put the principal point thousands of
+    pixels outside the image, and u = fx·x/z + cx cancels two large terms:
+    float32 then lies beyond SETUP_TOL of float64 on the bbox lanes when they
+    are measured against the image size (measured: 5.9e-6 at cx = -6000),
+    and within an eighth of it when measured against the terms (setup_error
+    with K)."""
+    c = _sphere_case()
+    K = np.array(c["K"], np.float32)
+    K[:, 0, 0] = K[:, 1, 1] = fx
+    K[:, 0, 2], K[:, 1, 2] = cx, cx / 2
+    TCO = c["TCO"].copy()
+    TCO[:, 0, 3] = (64 - cx) / fx * TCO[:, 2, 3]   # the spheres stay in the image
+    TCO[:, 1, 3] = (24 - cx / 2) / fx * TCO[:, 2, 3]
+    args = [_t(a) for a in (c["tv"], c["valid"], TCO, K)]
+    rows, key = rasterizer_cuda.setup_plain(*args, (48, 128), _t(c["colors"]))
+    exact = rasterizer_cuda.setup_plain(*[a.double() if a.is_floating_point() else a
+                                          for a in args], (48, 128), _t(c["colors"]).double())
+    err = rasterizer_cuda.setup_error(rows, key, *exact, (48, 128), K=args[3])
+    assert err["valid_differs"] == 0
+    assert err["bbox_key"] <= rasterizer_cuda.SETUP_TOL / 8
+    assert err["plane"] <= rasterizer_cuda.SETUP_TOL
+    if cx == -6000.0:
+        assert rasterizer_cuda.setup_error(rows, key, *exact, (48, 128))["bbox_key"] \
+            > rasterizer_cuda.SETUP_TOL
+
+
 def test_cover_box_holds_subpixel_triangles():
     """Sub-pixel triangles (edges 3e-5 to 1e-3 px, just above the degenerate
     area) have float32 planes whose inside tests pass at pixels far from their
@@ -349,3 +377,78 @@ def test_ablation_variants_match_the_kernel_source():
     source = rasterizer_cuda.SOURCES["resolve"].read_text()
     for name, swap in VARIANTS.items():
         assert swap is None or source.count(swap[0]) == 1, name
+
+
+# -- documented divergences (ROADMAP §3) ------------------------------------------
+
+SPHERE_POSES_BEYOND = 76       # depth pixels beyond 1e-4 at 240x320, measured
+GRAZING_F64_ERR = 1.5e-3       # either package's depth error there, vs float64
+PIXEL_CENTRE_EDGE_PIXELS = 11  # mask pixels that differ from the Pallas path, measured
+
+
+def _depth_f64(tv, TCO, K, b, y, x):
+    """The nearest triangle's depth at pixel (y, x) of item b in float64:
+    pixel centre (x + 0.5, y + 0.5), barycentric 1/z interpolation."""
+    T, Kb = np.asarray(TCO[b], np.float64), np.asarray(K[b], np.float64)
+    pc = np.asarray(tv[b], np.float64) @ T[:3, :3].T + T[:3, 3]
+    z = pc[..., 2]
+    uv = (pc @ Kb.T)[..., :2] / z[..., None]
+    a, b_, c = uv[:, 0], uv[:, 1], uv[:, 2]
+    px, py = x + 0.5, y + 0.5
+
+    def edge(p, q):
+        return (q[:, 0] - p[:, 0]) * (py - p[:, 1]) - (q[:, 1] - p[:, 1]) * (px - p[:, 0])
+
+    area = (b_[:, 0] - a[:, 0]) * (c[:, 1] - a[:, 1]) - (b_[:, 1] - a[:, 1]) * (c[:, 0] - a[:, 0])
+    w = [edge(b_, c) / area, edge(c, a) / area, edge(a, b_) / area]
+    inside = (w[0] >= 0) & (w[1] >= 0) & (w[2] >= 0) & (z > 0).all(1)
+    iz = w[0] / z[:, 0] + w[1] / z[:, 1] + w[2] / z[:, 2]
+    return np.where(inside, 1.0 / iz, np.inf).min()
+
+
+def test_spheres_at_240x320_depth_divergence_is_documented():
+    """The demo spheres (LOD 512) at 16 random poses, 240x320, against JAX
+    `rasterize` (which agrees with the interpret-mode Pallas path here):
+    masks equal, depth within 1e-4 except at most the measured count of
+    pixels. There both packages sit on grazing planes, where float32 rounds
+    the depth by up to ~1e-3 m: each lies within GRAZING_F64_ERR of a float64
+    render (measured: port 1.37e-3, JAX 1.26e-3; neither is closer at every
+    pixel, the port at 20 of 76)."""
+    db = j_build_mesh_db([MeshSpec(**vars(s)) for s in demo.demo_specs()], render_max_faces=512)
+    rng = np.random.RandomState(0)
+    B = 16
+    TCO = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
+    for b in range(B):
+        Q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        Q[:, 0] *= np.sign(np.linalg.det(Q))
+        TCO[b, :3, :3] = Q
+        TCO[b, :3, 3] = [rng.uniform(-0.02, 0.02), rng.uniform(-0.02, 0.02),
+                         rng.uniform(0.5, 0.8)]
+    labels = np.arange(B) % 2
+    tv, valid = np.asarray(db.tri_verts)[labels], np.asarray(db.tri_valid)[labels]
+    K = make_K(B, fx=400, fy=400, cx=160, cy=120)
+    ref = j_rasterize(_j(tv), _j(valid), _j(TCO), _j(K), image_size=(240, 320))
+    port = render(_t(tv), _t(valid), _t(TCO), _t(K), image_size=(240, 320), tile=(24, 320),
+                  max_tris_per_tile=768)
+    mask = np.asarray(ref.mask)
+    np.testing.assert_array_equal(port.mask.numpy(), mask)
+    dp, dr = port.depth.numpy(), np.asarray(ref.depth)
+    beyond = (np.abs(dp - dr) > ATOL) & mask
+    assert 0 < beyond.sum() <= SPHERE_POSES_BEYOND
+    d64 = np.array([_depth_f64(tv, TCO, K, b, y, x) for b, y, x in np.argwhere(beyond)])
+    assert np.abs(dp[beyond] - d64).max() <= GRAZING_F64_ERR
+    assert np.abs(dr[beyond] - d64).max() <= GRAZING_F64_ERR
+
+
+def test_pixel_centre_edges_divergence_is_documented():
+    """Edges through pixel centres against rasterize_pallas(interpret=True):
+    XLA evaluates a plane as fma(a, x, b·y) + c, the port rounds each op
+    (its kernel's contract), and the inside test's 1e-6 margin lies below
+    either rounding; so the measured count of mask pixels differ."""
+    c = _pixel_centre_edges()
+    ref = rasterize_pallas(_j(c["tv"]), _j(c["valid"]), _j(c["TCO"]), _j(c["K"]),
+                           image_size=IMAGE, interpret=True)
+    port = render(_t(c["tv"]), _t(c["valid"]), _t(c["TCO"]), _t(c["K"]), image_size=IMAGE)
+    differ = int((port.mask.numpy() != np.asarray(ref.mask)).sum())
+    assert 0 < differ <= PIXEL_CENTRE_EDGE_PIXELS
+    assert np.asarray(ref.mask).sum() == 3324

@@ -3,7 +3,9 @@ cases of tests/test_torch_port_rasterizer.py, tests/test_torch_port_slice.py,
 tests/test_torch_port_training.py, tests/test_torch_port_recording.py,
 tests/test_torch_port_data.py and the evaluation tests
 (tests/test_torch_port_eval.py, test_torch_port_bop_metrics.py,
-test_torch_port_eval_pipeline.py).
+test_torch_port_eval_pipeline.py), and the detection path
+(tests/test_torch_port_backbones.py, test_torch_port_detector.py,
+test_torch_port_detector_training.py).
 
     python -m tests.torch_port_parity_maxima     # from the repo root
 
@@ -16,7 +18,11 @@ and the Pillow operations against PIL and the decode time of a 240x320 RGB
 frame on this host (the port's file and Pillow's); for evaluation, the
 symmetric distances and the meters' errors relative to their largest value,
 the meters' summaries, VSD's rendered depth and matrices, the BOP19 AR and the
-poses and metrics of the evaluation pipeline. The tests hold these to their
+poses and metrics of the evaluation pipeline; for the detection path, the
+backbones' features and every pooling's pose outputs, the detector's head
+outputs and decoded scores and boxes, one detector train step (loss terms
+relative, gradients relative to each tensor's max), and the two documented
+rasterizer divergences (ROADMAP §3). The tests hold these to their
 tolerances; this script reports how far inside them the port lies.
 """
 
@@ -63,6 +69,7 @@ def main():
     res.update(training())
     res.update(recording_and_data())
     res.update(evaluation())
+    res.update(detection())
     print(json.dumps(res, indent=1))
 
 
@@ -376,6 +383,71 @@ def evaluation() -> dict:
             jtransforms.add_pose_noise, tbundle.add_pose_noise = j_noise, t_noise
         res["eval/bundle_metrics_abs"] = {k: abs(port[k] - ref[k]) for k in ref
                                           if k.startswith("iter=1/")}
+    return res
+
+
+def detection() -> dict:
+    import jax.numpy as jnp
+    import torch
+
+    from cosypose_tpu.models import detector as jdet
+    from cosypose_tpu.models import pose_predictor as jpp_mod
+    from cosypose_tpu_torch.models import detector as tdet
+    from cosypose_tpu_torch.models.pose_predictor import PosePredictor, PosePredictorConfig
+    from cosypose_tpu_torch.utils.weights import jax_pose_variables_to_state_dict
+    from tests import test_torch_port_backbones as BB
+    from tests import test_torch_port_detector as D
+    from tests import test_torch_port_detector_training as DT
+
+    res = {}
+    for name, (make_j, make_t, tree, n_ch) in BB.BACKBONES.items():
+        x = np.random.RandomState(1).uniform(size=(2, *BB.SIZE, n_ch)).astype(np.float32)
+        jm = make_j()
+        v = BB.jax_variables(jm, x)
+        port = BB.load_backbone(make_t(), tree, v).eval()
+        with torch.no_grad():
+            got = port(BB.nchw(x))
+        ref = np.asarray(jm.apply(v, jnp.asarray(x), train=False)).transpose(0, 3, 1, 2)
+        res[f"detection/backbone/{name}"] = _err(got, ref)
+    for backbone, pooling, mode in BB.POSENETS:
+        kw = dict(backbone=backbone, render_size=BB.SIZE, pooling=pooling, input_mode=mode)
+        jpp = jpp_mod.PosePredictor(jpp_mod.PosePredictorConfig(**kw))
+        v = jax.tree_util.tree_map(np.asarray, dict(jpp.init(jax.random.PRNGKey(0))))
+        v = {"params": v["params"], "batch_stats": v.get("batch_stats", {})}
+        rng = np.random.RandomState(4)
+        BB.randomize(v["params"], rng)
+        BB.randomize(v["batch_stats"], rng)
+        k = v["params"]["pose_fc"]["kernel"]
+        v["params"]["pose_fc"]["kernel"] = rng.normal(0.0, 0.05, k.shape).astype(np.float32)
+        pp = PosePredictor(PosePredictorConfig(**kw), device="cpu")
+        pp.net.load_state_dict(jax_pose_variables_to_state_dict(v))
+        x = rng.uniform(size=(2, *BB.SIZE, 9 if mode.endswith("diff") else 6))
+        x = x.astype(np.float32)
+        with torch.no_grad():
+            got = pp.net(BB.nchw(x))
+        res[f"detection/posenet/{backbone}/{pooling}/{mode}"] = _err(
+            got, jpp.net.apply(v, jnp.asarray(x), train=False))
+    for cls_mode in ("percls", "softmax"):
+        jm, v, port = D.make_pair(cls_mode)
+        x = D.images()
+        heads = jm.apply(v, jnp.asarray(x.transpose(0, 2, 3, 1)), train=False)
+        with torch.no_grad():
+            got = port(torch.as_tensor(x))
+        res[f"detection/detector/{cls_mode}/heads"] = max(_err(got[k], heads[k]) for k in heads)
+        ref = jdet.decode_detections(heads, 16)
+        dec = tdet.decode_detections({k: torch.as_tensor(np.array(a)) for k, a in heads.items()},
+                                     16)
+        res[f"detection/detector/{cls_mode}/decode"] = {
+            k: _err(dec[k], ref[k]) for k in ("scores", "boxes", "mask_logits")}
+        _, tcfg, port_s, ref_s = DT.run_steps(cls_mode)
+        factor = min(1.0, tcfg.clip_grad_norm / ref_s["metrics"]["grad_norm"])
+        res[f"detection/train_step/{cls_mode}"] = {
+            "metrics_rel": max(abs(port_s["metrics"][k] - val) / abs(val)
+                               for k, val in ref_s["metrics"].items()),
+            "grads_rel_to_max": max(
+                float((g.double() - ref_s["grads"][n].double() * factor).abs().max()
+                      / (ref_s["grads"][n].double() * factor).abs().max())
+                for n, g in port_s["grads"].items() if not DT.structurally_zero(n))}
     return res
 
 
