@@ -66,10 +66,27 @@ Phases, none of them caught; any failure exits non-zero:
      versions; run_bop_inference --dataset procedural over the 60 val frames
      with those two checkpoints (detector -> refiner -> CSV, ADD(-S) and
      BOP19 AR), launches held to its refiner chunks x 4 iterations plus one
-     per AR group.
+     per AR group;
+  9. CosyPose stages 2-3 and ICP: ICPRefiner on the 60 recorded val frames
+     (each frame a group, its GT poses 1 cm in x and 2 cm in z off with
+     seeded noise, observed depth masked by the GT visible masks): median
+     translation error before and after, icp_ok share, ms a group split into
+     render, ICP loop and host, one launch of each kernel a group; both
+     kernels at ICP's render shape (a frame's detections at 240x320, tile
+     (24, 320), budget 768) against their plain versions; ICP card vs CPU on
+     the same depths; multiview at the reference's protocol scale
+     (bench_multiview.make_scenario's defaults: 8 views, 12 objects, 2,000
+     RANSAC hypotheses a view pair, BA at 100 iterations) with its stages'
+     times, LM iterations, final loss and peak memory, relative camera poses
+     held to the scene's within 0.02, and card vs CPU (matched candidates
+     and best view pairs equal); the CLIs run_bop_inference --icp on phase
+     8's models, run_cosypose_eval --use-detections-tco --nviews 4 on a CSV
+     of noisy GT poses of the val frames, and run_custom_scenario on the
+     protocol-scale scene written as a scenario directory.
 The last lines are the card's name and power limit, one JSON line of kernel
-numbers (launches while serving, training, recording, evaluating and on the
-detection path; the attribute kernel's times at the scene shape), and the contract line
+numbers (launches while serving, training, recording, evaluating, on the
+detection path and in ICP; the shapes each kernel was held to its plain
+version at; the attribute kernel's times at the scene shape), and the contract line
 {"ok": true, "device": {...}}. Without a card, or outside the repo, it exits
 non-zero and prints no result. The profiler tables go to
 build/chip_smoke_profile.txt and build/chip_smoke_train_profile.txt.
@@ -179,6 +196,32 @@ DET_BATCH, DET_CLASSES, DET_REPS = 16, 21, 5
 DET_CPU_SIZE, DET_SET_DIFF = (240, 320), 4
 DET_STEPS, MINI_STEPS = 24, 8
 BOP_DETECTION_TH = 0.0
+# CosyPose stages 2-3 and ICP: the GT poses' offset (m) and its seeded noise;
+# ICP card vs CPU on one frame within the gpu test's limit; bench_multiview's
+# protocol scale with BA at run_custom_scenario's iterations; relative camera
+# poses to the scene's: rotation entries within tests/test_multiview.py's
+# 0.02, translations within 5 cm (on this scene the JAX package's own BA, on
+# the CPU, lands 40.3 mm and 0.0162 from them: the reprojection residual of
+# 4-12 cm cubes 1 m away holds a camera's depth loosely); card vs CPU: the
+# matches and view pairs equal; BA's objects in the cameras' frames (free of
+# its gauge) within 2e-3 and its final loss within 1e-5 relative, and no
+# limit on the LM iterations: both stop on |Δloss| < 1e-5 at the float32
+# noise of a 180x180 pinv (ROADMAP §3; measured on an NVIDIA H100 80GB HBM3,
+# 700.00 W: 53 iterations on the card, 49 on the CPU, losses 3.6e-6
+# relative apart, world poses 9.0e-4 apart); the noisy GT poses
+# run_cosypose_eval starts from (2 mm, 1 deg), of the objects visible at
+# MV_VISIB_MIN or more, for the view groups in which
+# some pair of views shares at least MV_SHARED_MIN of them (RANSAC's least
+# inlier count, so that the group has a view pair to match)
+ICP_OFFSET, ICP_NOISE = (0.01, 0.0, 0.02), 0.002
+ICP_CPU_ATOL = 1e-3
+BOP_VISIB_MIN = 0.1         # BOP's targets: GT objects at least 10 % visible
+MV_SCALE = dict(n_views=8, n_objects=12, n_labels=6, dup=4, outliers=5)
+MV_RANSAC_ITER, MV_BA_ITER = 2000, 100
+MV_REL_ROT_ATOL, MV_REL_T_ATOL = 0.02, 0.05
+MV_CPU_POSE_ATOL, MV_CPU_LOSS_RTOL, MV_CPU_TC1C2_ATOL = 2e-3, 1e-5, 1e-5
+MV_NOISE_T, MV_NOISE_DEG = 0.002, 1.0
+MV_SHARED_MIN, MV_VISIB_MIN, MV_NVIEWS = 3, BOP_VISIB_MIN, 4
 EVAL_CPU_COUNTS = {"render mask pixels that differ": 0,
                    f"depth pixels beyond {ATOL_KERNEL} m where both draw": 273,
                    "VSD pixels that differ": 5}
@@ -773,6 +816,111 @@ def evaluation_card_vs_cpu(preds, scene_ds, dbs: dict, n_frames: int):
     return errs, counts
 
 
+def icp_frame_inputs(ds, i, rng):
+    """A recorded frame's GT objects as ICP's inputs: predictions at the GT
+    poses moved by ICP_OFFSET plus seeded noise, the GT visible masks, the
+    depth and K; with the GT poses and visible fractions."""
+    import numpy as np
+    import torch
+
+    from cosypose_tpu_torch.utils.tensor_collection import TensorCollection
+
+    _, mask, obs = ds[i]
+    objs = obs["objects"]
+    TCW = np.linalg.inv(obs["camera"]["TWC"])
+    TCO = np.stack([TCW @ o["TWO"] for o in objs]).astype(np.float32)
+    moved = TCO.copy()
+    moved[:, :3, 3] += np.asarray(ICP_OFFSET) + rng.normal(0.0, ICP_NOISE, (len(objs), 3))
+    preds = TensorCollection(dict(batch_im_id=np.zeros(len(objs), np.int64),
+                                  label=np.asarray([o["label"] for o in objs]),
+                                  score=np.ones(len(objs))), poses=torch.as_tensor(moved))
+    return dict(preds=preds, masks=np.stack([mask == o["id_in_segm"] for o in objs]),
+                depth=obs["camera"]["depth"][None], K=obs["camera"]["K"][None], TCO=TCO,
+                visib=np.asarray([o["visib_fract"] for o in objs]))
+
+
+def write_cube_ply(path: pathlib.Path, size_mm: float) -> None:
+    """An axis-aligned cube of side size_mm, ASCII PLY, 12 triangles."""
+    s = size_mm / 2
+    verts = [(x, y, z) for x in (-s, s) for y in (-s, s) for z in (-s, s)]
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6), (0, 2, 6, 4), (1, 5, 7, 3)]
+    tris = [t for a, b, c, d in quads for t in ((a, b, c), (a, c, d))]
+    lines = ["ply", "format ascii 1.0", f"element vertex {len(verts)}", "property float x",
+             "property float y", "property float z", f"element face {len(tris)}",
+             "property list uchar int vertex_indices", "end_header"]
+    lines += [f"{x} {y} {z}" for x, y, z in verts] + [f"3 {a} {b} {c}" for a, b, c in tris]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def write_scenario(root: pathlib.Path, candidates, cameras, n_labels: int) -> None:
+    """run_custom_scenario's inputs for a bench_multiview scene:
+    candidates.csv, scene_camera.json (K, world-to-camera poses) and models/
+    (bench_multiview.cube_specs' cubes as BOP models)."""
+    import numpy as np
+
+    from cosypose_tpu_torch.evaluation.bop_export import predictions_to_bop_csv
+
+    (root / "models").mkdir(parents=True)
+    predictions_to_bop_csv(candidates, root / "candidates.csv")
+    cams = {}
+    for v, (K, TWC) in enumerate(zip(cameras.K.numpy(), cameras.TWC.numpy())):
+        TCW = np.linalg.inv(TWC.astype(np.float64))
+        cams[str(v)] = dict(cam_K=K.reshape(-1).tolist(),
+                            cam_R_w2c=TCW[:3, :3].reshape(-1).tolist(),
+                            cam_t_w2c=(TCW[:3, 3] * 1000).tolist())
+    (root / "scene_camera.json").write_text(json.dumps(cams))
+    infos = {}
+    for i in range(n_labels):
+        side = 2 * (20.0 + 8.0 * i)   # bench_multiview.cube_specs: half-size 2 cm + 8 mm a label
+        write_cube_ply(root / "models" / f"obj_{i:06d}.ply", side)
+        infos[str(i)] = dict(diameter=side * 3 ** 0.5)
+    (root / "models" / "models_info.json").write_text(json.dumps(infos))
+
+
+def noisy_gt_csv(ds, path: pathlib.Path, rng) -> list:
+    """A BOP CSV of the GT poses (MV_NOISE_T, MV_NOISE_DEG noise) of the
+    objects visible at MV_VISIB_MIN or more, in the view groups of MV_NVIEWS
+    frames (MultiViewWrapper's) in which some pair of views shares at least
+    MV_SHARED_MIN of them. Returns the kept groups' ids."""
+    import itertools
+
+    import numpy as np
+    import torch
+    from scipy.spatial.transform import Rotation
+
+    from cosypose_tpu_torch.data.wrappers import MultiViewWrapper
+    from cosypose_tpu_torch.evaluation.bop_export import predictions_to_bop_csv
+    from cosypose_tpu_torch.utils.tensor_collection import TensorCollection
+
+    kept, rows, poses = [], [], []
+    for g in MultiViewWrapper(ds, MV_NVIEWS).groups:
+        frames = [ds[int(i)][2] for i in g["ds_ids"]]
+        seen = [[o for o in f["objects"] if o["visib_fract"] >= MV_VISIB_MIN] for f in frames]
+
+        def shared(a, b):  # the same object: its world pose within 5 mm, the same label
+            return sum(any(p["label"] == q["label"] and np.linalg.norm(
+                p["TWO"][:3, 3] - q["TWO"][:3, 3]) < 5e-3 for q in b) for p in a)
+
+        if len(frames) < 2 or max(shared(a, b) for a, b in itertools.combinations(seen, 2)) \
+                < MV_SHARED_MIN:
+            continue
+        kept.append(g["group_id"])
+        for f, objs in zip(frames, seen):
+            TCW = np.linalg.inv(f["camera"]["TWC"])
+            for o in objs:
+                T = TCW @ o["TWO"]
+                T[:3, :3] = T[:3, :3] @ Rotation.from_euler(
+                    "xyz", rng.normal(0, MV_NOISE_DEG, 3), degrees=True).as_matrix()
+                T[:3, 3] += rng.normal(0, MV_NOISE_T, 3)
+                poses.append(T)
+                rows.append((f["frame_info"]["scene_id"], f["frame_info"]["view_id"], o["label"]))
+    infos = dict(scene_id=np.asarray([r[0] for r in rows]),
+                 view_id=np.asarray([r[1] for r in rows]),
+                 label=np.asarray([r[2] for r in rows]), score=np.ones(len(rows)))
+    predictions_to_bop_csv(TensorCollection(infos, poses=torch.as_tensor(np.stack(poses))), path)
+    return kept
+
+
 def main() -> int:
     import torch
 
@@ -821,10 +969,12 @@ def main() -> int:
     cfg = PosePredictorConfig()
     tile, budget = cfg.raster_tile, cfg.raster_max_tris_per_tile
     rows_json = {}
+    checked = {name: [] for name in SOURCES}  # shapes each kernel was held to its plain version at
 
     # kernel A
     args = (first["tri_verts"], first["tri_valid"], TCO, first["K_crop"], RENDER, first["colors"])
     rows, key, key_p, err, abs_err = setup_vs_plain(args)
+    checked["raster_setup"].append(f"main path: {rows.shape[0]} x {rows.shape[1]} rows, {RENDER}")
     both = rows[..., rc.LANE_VALID] != 0
     order = rc.sort_order(key)
     order_differs = int((order != rc.sort_order(key_p)).any(1).sum())
@@ -854,6 +1004,9 @@ def main() -> int:
             raise AssertionError(f"{name}: kernel vs plain max err {e}, or masks differ")
         if with_attr and not torch.equal(out_k[2], out_p[2]):
             raise AssertionError(f"{name}: attribute differs")
+        checked["raster_resolve_attr" if with_attr else "raster_resolve"].append(
+            f"{name}: {rows.shape[0]} x {rows.shape[1]} rows, {RENDER}, tile {tile}, "
+            f"budget {budget}")
         counts = rc.bin_chunks(rows, order, RENDER, tile, budget)[2]
         b_ms, by, visits, n_bytes = resolve_bound(rows, order, RENDER, tile, budget, with_attr)
         listed, kept = cull_counts(rows, order, RENDER, tile, budget)
@@ -1190,6 +1343,7 @@ def main() -> int:
     # scene shape against its plain version on the CPU
     args_s, ids_s = scene_inputs(dev)
     rows_s, key_s, _, err_s, abs_s = setup_vs_plain(args_s, ids_s)
+    checked["raster_setup"].append(f"scene soup: {rows_s.shape[0]} x {rows_s.shape[1]} rows")
     order_s, res_s = rc.sort_order(key_s), args_s[4]
     log(f"{tag} raster_setup at the scene soup ({SCENE_CAMERAS} cameras x {rows_s.shape[1]} rows):"
         f" vs plain: plane rel err {err_s['plane']:.3g}, bbox/key rel err {err_s['bbox_key']:.3g} "
@@ -1207,6 +1361,8 @@ def main() -> int:
     if not same or Fp_s < 8872:
         raise AssertionError(f"raster_resolve_attr at the scene shape ({Fp_s} rows): kernel vs "
                              f"plain max err {e_s}, not equal")
+    checked["raster_resolve_attr"].append(f"scene: {SCENE_CAMERAS} x {Fp_s} rows, {res_s}, tile "
+                                          f"{SCENE_TILE}, budget {budget_s}")
     counts_s = rc.bin_chunks(rows_s, order_s, res_s, SCENE_TILE, 1 << 30)[2]
     b_s, by_s, visits_s, bytes_s = resolve_bound(rows_s, order_s, res_s, SCENE_TILE, budget_s,
                                                  True)
@@ -1235,6 +1391,8 @@ def main() -> int:
     if not all(torch.equal(k, p) for k, p in zip(out_k, out_p)):
         raise AssertionError(f"raster_resolve_attr at a {n_max}-object scene: kernel vs plain "
                              f"not equal")
+    checked["raster_resolve_attr"].append(f"{n_max}-object scene: {rows_7.shape[0]} x "
+                                          f"{rows_7.shape[1]} rows, budget {budget_7}")
     ms_7 = device_ms(lambda: kernel.resolve(rows_7, order_7, res_s, SCENE_TILE, budget_7, True))
     b_7, by_7 = resolve_bound(rows_7, order_7, res_s, SCENE_TILE, budget_7, True)[:2]
     log(f"{tag} raster_resolve_attr at a {n_max}-object scene (the config's largest; "
@@ -1246,12 +1404,15 @@ def main() -> int:
     # the plain resolve at the amodal re-render's shape, as the sampler builds it
     args_a, tile_a, budget_a = amodal_inputs(dev)
     rows_a, key_a, _, err_a, abs_a = setup_vs_plain(args_a)
+    checked["raster_setup"].append(f"amodal: {rows_a.shape[0]} x {rows_a.shape[1]} rows")
     order_a, res_a = rc.sort_order(key_a), args_a[4]
     out_k = kernel.resolve(rows_a, order_a, res_a, tile_a, budget_a, False)
     torch.cuda.synchronize()
     out_p = rc.resolve_plain_binned(rows_a, order_a, res_a, tile_a, budget_a, False)
     if not all(torch.equal(k, p) for k, p in zip(out_k[:2], out_p[:2])):
         raise AssertionError("raster_resolve at the amodal shape: kernel vs plain not equal")
+    checked["raster_resolve"].append(f"amodal: {rows_a.shape[0]} x {rows_a.shape[1]} rows, "
+                                     f"{res_a}, tile {tile_a}, budget {budget_a}")
     ms_a6 = device_ms(lambda: kernel.resolve(rows_a, order_a, res_a, tile_a, budget_a, False))
     b_a6, by_a6 = resolve_bound(rows_a, order_a, res_a, tile_a, budget_a, False)[:2]
     counts_a = rc.bin_chunks(rows_a, order_a, res_a, tile_a, 1 << 30)[2]
@@ -1487,12 +1648,15 @@ def main() -> int:
     big = max(renders, key=lambda r: len(r[0]))
     args_v = vsd_setup_args(db_p, *big[:4])
     rows_v, key_v, _, err_v, abs_v = setup_vs_plain(args_v)
+    checked["raster_setup"].append(f"VSD: {rows_v.shape[0]} x {rows_v.shape[1]} rows")
     order_v, res_v = rc.sort_order(key_v), args_v[4]
     out_k = kernel.resolve(rows_v, order_v, res_v, OBJECT_TILE, OBJECT_BUDGET, False)
     torch.cuda.synchronize()
     out_p = rc.resolve_plain_binned(rows_v, order_v, res_v, OBJECT_TILE, OBJECT_BUDGET, False)
     if not all(torch.equal(k, p) for k, p in zip(out_k[:2], out_p[:2])):
         raise AssertionError("raster_resolve at the VSD shape: kernel vs plain not equal")
+    checked["raster_resolve"].append(f"VSD: {rows_v.shape[0]} x {rows_v.shape[1]} rows, {res_v}, "
+                                     f"tile {OBJECT_TILE}, budget {OBJECT_BUDGET}")
     # after phase 6 torch.profiler records no device activity in this process
     # (PERF.md §7), so this phase times by CUDA events behind a spin kernel
     ms_v = queued_ms(lambda: kernel.resolve(rows_v, order_v, res_v, OBJECT_TILE, OBJECT_BUDGET,
@@ -1775,12 +1939,15 @@ def main() -> int:
     args_m = vsd_setup_args(db_p, db_p.ids_for(chunk.infos["label"]).cpu().numpy(),
                             chunk.poses_input, chunk.K_crop, res_m)
     rows_m, key_m, _, err_m, abs_m = setup_vs_plain(args_m)
+    checked["raster_setup"].append(f"mini refiner: {rows_m.shape[0]} x {rows_m.shape[1]} rows")
     order_m = rc.sort_order(key_m)
     out_k = kernel.resolve(rows_m, order_m, res_m, tile_m, budget_m, False)
     torch.cuda.synchronize()
     out_p = rc.resolve_plain_binned(rows_m, order_m, res_m, tile_m, budget_m, False)
     if not all(torch.equal(k, p) for k, p in zip(out_k[:2], out_p[:2])):
         raise AssertionError("raster_resolve at the mini refiner's shape: kernel vs plain differ")
+    checked["raster_resolve"].append(f"mini refiner: {rows_m.shape[0]} x {rows_m.shape[1]} rows, "
+                                     f"{res_m}, tile {tile_m}, budget {budget_m}")
     ms_m = queued_ms(lambda: kernel.resolve(rows_m, order_m, res_m, tile_m, budget_m, False), 50)
     ms_ma = queued_ms(lambda: rc.setup(*args_m), 50)
     plain_m = time_cuda_ms(lambda: rc.resolve_plain_binned(rows_m, order_m, res_m, tile_m,
@@ -1799,12 +1966,262 @@ def main() -> int:
         f"none")
     log(f"phase 8 done at {time.perf_counter() - t_main:.0f} s")
 
+    # -- 9. CosyPose stages 2-3 and ICP ---------------------------------------------
+    from cosypose_tpu_torch.integrated.icp_refiner import (ICP_BUDGET, ICP_TILE, ICPRefiner,
+                                                           _icp_refine_batch)
+    from cosypose_tpu_torch.scripts import bench_multiview, run_cosypose_eval, run_custom_scenario
+
+    # ICP on the recorded val frames, each frame a group (run_bop_inference's --nviews 1)
+    rng9 = np.random.RandomState(0)
+    icp_in = [icp_frame_inputs(val_depth, i, rng9) for i in range(len(val_depth))]
+    icp = ICPRefiner(db_p)
+    icp.refine_poses(icp_in[0]["preds"], icp_in[0]["masks"], icp_in[0]["depth"],
+                     icp_in[0]["K"])  # warm-up
+    torch.cuda.synchronize()
+    kernel.launches = {k: 0 for k in kernel.launches}
+    t_groups, outs = [], []
+    for x in icp_in:
+        t0 = time.perf_counter()
+        outs.append(icp.refine_poses(x["preds"], x["masks"], x["depth"], x["K"]))
+        torch.cuda.synchronize()
+        t_groups.append(time.perf_counter() - t0)
+    launches_icp = dict(kernel.launches)
+    want = {"raster_setup": len(icp_in), "raster_resolve": len(icp_in), "raster_resolve_attr": 0}
+    t_host, t_render, t_loop = [], [], []
+    for x in icp_in:   # the same groups again, refine_poses' steps timed apart
+        t0 = time.perf_counter()
+        depth_d = torch.as_tensor(x["depth"], dtype=torch.float32, device=dev)
+        im = torch.as_tensor(x["preds"].infos["batch_im_id"], device=dev).long()
+        observed = torch.where(torch.as_tensor(x["masks"], device=dev), depth_d[im], 0.0)
+        TCO_d = x["preds"].poses.to(dev, torch.float32)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rendered, K_dets = icp.render_depth(x["preds"], x["K"], depth_d.shape[-2:])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        _, ok = _icp_refine_batch(TCO_d, rendered, observed, K_dets)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        x["preds"].clone().infos["icp_ok"] = ok.cpu().numpy()
+        t_host.append(t1 - t0 + time.perf_counter() - t3)
+        t_render.append(t2 - t1)
+        t_loop.append(t3 - t2)
+    err_before = np.concatenate([np.linalg.norm(x["preds"].poses[:, :3, 3].numpy()
+                                                - x["TCO"][:, :3, 3], axis=-1) for x in icp_in])
+    err_after = np.concatenate([np.linalg.norm(o.poses[:, :3, 3].cpu().numpy()
+                                               - x["TCO"][:, :3, 3], axis=-1)
+                                for o, x in zip(outs, icp_in)])
+    visib = np.concatenate([x["visib"] for x in icp_in])
+    ok_icp = np.concatenate([o.infos["icp_ok"] for o in outs])
+    target = visib >= BOP_VISIB_MIN
+    med = {k: (float(np.median(err_before[m])), float(np.median(err_after[m])))
+           for k, m in (("all", np.ones_like(target)), ("targets", target),
+                        ("visib>=0.5", visib >= 0.5), ("visib<0.5", visib < 0.5))}
+    ms_g, ms_r, ms_l, ms_h = (1e3 * float(np.mean(t))
+                              for t in (t_groups, t_render, t_loop, t_host))
+    n_det = len(err_before)
+    log(f"{tag} ICPRefiner on {len(icp_in)} recorded val frames ({n_det} GT objects, "
+        f"{n_det / len(icp_in):.1f} a group; GT poses moved by {ICP_OFFSET} m + N(0, "
+        f"{ICP_NOISE}); observed depth masked by the GT visible masks; 240x320, 10 iterations):"
+        f" median translation error before -> after: " + ", ".join(
+            f"{k} {1e3 * a:.2f} -> {1e3 * b:.2f} mm" for k, (a, b) in med.items())
+        + f" (BOP targets: visib_fract >= {BOP_VISIB_MIN}, {int(target.sum())}); "
+        f"{100 * float((err_after < err_before).mean()):.1f} % of objects closer; icp_ok "
+        f"{100 * float(ok_icp.mean()):.1f} %; {ms_g:.2f} ms a group (refine_poses); its steps "
+        f"timed apart: render {ms_r:.2f}, ICP loop {ms_l:.2f}, host {ms_h:.2f}; launches "
+        f"{launches_icp} (want {want})")
+    if launches_icp != want or not med["targets"][1] < med["targets"][0] \
+            or not np.isfinite(err_after).all():
+        raise AssertionError(f"ICP on recorded frames: launches {launches_icp} (want {want}), "
+                             f"median error {med}")
+
+    # both kernels at ICP's render shape: the largest group, as render_depth builds it
+    big = max(icp_in, key=lambda x: len(x["TCO"]))
+    ids_i = db_p.ids_for(big["preds"].infos["label"])
+    K_i = torch.as_tensor(big["K"], device=dev)[[0] * len(ids_i)]
+    args_i = (db_p.tri_verts[ids_i], db_p.tri_valid[ids_i], big["preds"].poses.to(dev), K_i,
+              tuple(big["depth"].shape[-2:]))
+    rows_i, key_i, _, err_i, abs_i = setup_vs_plain(args_i)
+    order_i, res_i = rc.sort_order(key_i), args_i[4]
+    out_k = kernel.resolve(rows_i, order_i, res_i, ICP_TILE, ICP_BUDGET, False)
+    torch.cuda.synchronize()
+    out_p = rc.resolve_plain_binned(rows_i, order_i, res_i, ICP_TILE, ICP_BUDGET, False)
+    if not all(torch.equal(k, p) for k, p in zip(out_k[:2], out_p[:2])):
+        raise AssertionError("raster_resolve at ICP's shape: kernel vs plain not equal")
+    ms_i = queued_ms(lambda: kernel.resolve(rows_i, order_i, res_i, ICP_TILE, ICP_BUDGET, False),
+                     50)
+    ms_ia = queued_ms(lambda: rc.setup(*args_i), 50)
+    plain_i = time_cuda_ms(lambda: rc.resolve_plain_binned(rows_i, order_i, res_i, ICP_TILE,
+                                                           ICP_BUDGET, False), 3, warmup=1)
+    plain_ia = time_cuda_ms(lambda: rc.setup_plain(*args_i), 10)
+    b_i, by_i, visits_i, bytes_i = resolve_bound(rows_i, order_i, res_i, ICP_TILE, ICP_BUDGET,
+                                                 False)
+    b_ia, by_ia = setup_bound(args_i[0], args_i[1], torch.empty(0), None, rows_i, key_i)[:2]
+    log(f"{tag} ICP's render shape (B={rows_i.shape[0]} detections x {rows_i.shape[1]} rows, "
+        f"{res_i[0]}x{res_i[1]}, tile {ICP_TILE}, budget {ICP_BUDGET}; CUDA events behind a spin "
+        f"kernel): raster_setup vs plain plane rel err {err_i['plane']:.3g}, bbox/key "
+        f"{err_i['bbox_key']:.3g} (<= {rc.SETUP_TOL}), max abs err {abs_i:.3g}, {ms_ia:.4f} ms "
+        f"(bound {b_ia:.4f} ms by {by_ia}, {100 * b_ia / ms_ia:.1f} %), plain on the card "
+        f"{plain_ia:.3f} ms; raster_resolve equal to the plain version, {ms_i:.4f} ms (bound "
+        f"{b_i:.4f} ms by {by_i}, {visits_i:.4g} visits, {bytes_i / 1e6:.2f} MB; "
+        f"{100 * b_i / ms_i:.1f} % of bound), plain on the card {plain_i:.2f} ms, library_ms: "
+        f"none")
+    checked["raster_setup"].append(f"ICP: {rows_i.shape[0]} x {rows_i.shape[1]} rows, {res_i}")
+    checked["raster_resolve"].append(f"ICP: {rows_i.shape[0]} x {rows_i.shape[1]} rows, {res_i}, "
+                                     f"tile {ICP_TILE}, budget {ICP_BUDGET}")
+
+    # ICP card vs CPU on the same rendered and observed depths
+    rendered, K_dets = icp.render_depth(big["preds"], big["K"], big["depth"].shape[-2:])
+    observed = torch.where(torch.as_tensor(big["masks"], device=dev),
+                           torch.as_tensor(big["depth"], device=dev)[[0] * len(ids_i)], 0.0)
+    icp_args = (big["preds"].poses.to(dev), rendered, observed, K_dets)
+    got_i, ok_i = _icp_refine_batch(*icp_args)
+    ref_i, ok_ref = _icp_refine_batch(*[a.cpu() for a in icp_args])
+    e_icp = float((got_i.cpu() - ref_i).abs().max())
+    log(f"{tag} ICP card vs CPU on the largest group's depths ({len(ids_i)} detections): poses "
+        f"max |diff| {e_icp:.3g} (<= {ICP_CPU_ATOL}), icp_ok equal: "
+        f"{torch.equal(ok_i.cpu(), ok_ref)}")
+    if e_icp > ICP_CPU_ATOL or not torch.equal(ok_i.cpu(), ok_ref):
+        raise AssertionError(f"ICP card vs CPU: {e_icp}, flags {ok_i.tolist()} {ok_ref.tolist()}")
+    del rows_i, order_i, out_k, out_p, icp_in, outs
+
+    # multiview at the reference's protocol scale, card then CPU
+    cands, cams, _ = bench_multiview.make_scenario(**MV_SCALE, noise_t=0.004, noise_deg=2.0)
+    specs_mv = bench_multiview.cube_specs(MV_SCALE["n_labels"])
+    db_mv = build_mesh_db(specs_mv, aabb=True, keep_geometry=False, device=dev)
+    t0 = time.perf_counter()
+    bench_multiview.run_once(cands, cams, db_mv, MV_RANSAC_ITER, MV_BA_ITER)  # warm-up, g++
+    t_warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    mv = bench_multiview.run_once(cands, cams, db_mv, MV_RANSAC_ITER, MV_BA_ITER)
+    peak_mv = torch.cuda.max_memory_allocated() / 2 ** 30
+    r = mv["row"]
+    TWC_gt = cams.TWC.numpy().astype(np.float64)
+    rel_rot = rel_t = 0.0
+    for ba in mv["bas"]:
+        TWC_est = ba["cameras"].TWC.cpu().numpy().astype(np.float64)
+        v = ba["cameras"].infos["view_id"]
+        for j in range(1, len(v)):
+            d = np.linalg.inv(TWC_est[0]) @ TWC_est[j] - np.linalg.inv(TWC_gt[v[0]]) @ TWC_gt[v[j]]
+            rel_rot = max(rel_rot, float(np.abs(d[:3, :3]).max()))
+            rel_t = max(rel_t, float(np.linalg.norm(d[:3, 3])))
+    log(f"{tag} multiview at protocol scale ({r['n_candidates']} candidates over "
+        f"{MV_SCALE['n_views']} views, {MV_SCALE['n_objects']} objects, {MV_RANSAC_ITER} RANSAC "
+        f"hypotheses a view pair, BA {MV_BA_ITER} iterations; first call {t_warm:.2f} s): RANSAC "
+        f"{1e3 * r['ransac_total_s']:.1f} ms (hypotheses {1e3 * r['ransac_models_s']:.1f}, "
+        f"scoring with top-k and the greedy pass {1e3 * r['ransac_score_s']:.1f}, bookkeeping "
+        f"{1e3 * r['ransac_misc_s']:.1f}), BA {1e3 * r['ba_total_s']:.1f} ms (init "
+        f"{1e3 * r['ba_init_s']:.1f}, LM {1e3 * r['ba_opt_s']:.1f}; iterations "
+        f"{r['n_lm_iterations']}, final loss {r['final_loss']}) over {r['n_groups']} group(s), "
+        f"{r['n_matched']} matched candidates, {r['n_objects_out']} objects out; peak "
+        f"{peak_mv:.2f} GiB; relative camera poses to the scene's: rotation entries max |err| "
+        f"{rel_rot:.4g} (<= {MV_REL_ROT_ATOL}), translations {1e3 * rel_t:.2f} mm (<= "
+        f"{1e3 * MV_REL_T_ATOL:.0f})")
+    if rel_rot > MV_REL_ROT_ATOL or rel_t > MV_REL_T_ATOL or r["n_groups"] < 1:
+        raise AssertionError(f"multiview at protocol scale: relative poses {rel_rot}, {rel_t}, {r}")
+    db_mv_cpu = build_mesh_db(specs_mv, aabb=True, keep_geometry=False, device="cpu")
+    t0 = time.perf_counter()
+    mv_cpu = bench_multiview.run_once(cands, cams, db_mv_cpu, MV_RANSAC_ITER, MV_BA_ITER)
+    t_cpu = time.perf_counter() - t0
+    fc, fg = mv["match"]["filtered_candidates"], mv_cpu["match"]["filtered_candidates"]
+    pc, pg = mv["match"]["pairs_TC1C2"], mv_cpu["match"]["pairs_TC1C2"]
+    same_match = all(np.array_equal(fc.infos[k], fg.infos[k]) for k in ("cand_id", "obj_id")) \
+        and all(np.array_equal(pc.infos[k], pg.infos[k]) for k in ("view1", "view2"))
+    e_tc = float((pc.TC1C2.cpu() - pg.TC1C2).abs().max())
+    def in_cameras(ba):  # every object in every camera: free of BA's gauge
+        TCW = np.linalg.inv(ba["cameras"].TWC.cpu().numpy().astype(np.float64))
+        return TCW[:, None] @ ba["objects"].TWO.cpu().numpy().astype(np.float64)[None]
+
+    e_two = max(float((a["objects"].TWO.cpu() - b["objects"].TWO).abs().max())
+                for a, b in zip(mv["bas"], mv_cpu["bas"]))
+    e_tco = max(float(np.abs(in_cameras(a) - in_cameras(b)).max())
+                for a, b in zip(mv["bas"], mv_cpu["bas"]))
+    e_loss = max(abs(a["final_loss"] - b["final_loss"]) / b["final_loss"]
+                 for a, b in zip(mv["bas"], mv_cpu["bas"]))
+    its = [(a["n_lm_iterations"], b["n_lm_iterations"]) for a, b in zip(mv["bas"], mv_cpu["bas"])]
+    log(f"{tag} multiview card vs CPU ({t_cpu:.1f} s on the CPU): matched cand_id, obj_id and "
+        f"best view pairs equal: {same_match}; TC1C2 max |diff| {e_tc:.3g} (<= "
+        f"{MV_CPU_TC1C2_ATOL}); BA: objects in the cameras' frames {e_tco:.3g} (<= "
+        f"{MV_CPU_POSE_ATOL}; in the world frame {e_two:.3g}), final loss {e_loss:.3g} relative "
+        f"(<= {MV_CPU_LOSS_RTOL}), LM iterations card/CPU {its}")
+    if not same_match or len(mv["bas"]) != len(mv_cpu["bas"]) or e_tc > MV_CPU_TC1C2_ATOL \
+            or e_tco > MV_CPU_POSE_ATOL or e_loss > MV_CPU_LOSS_RTOL:
+        raise AssertionError("multiview card vs CPU beyond its limits")
+
+    # the CLIs: run_bop_inference --icp, run_cosypose_eval --nviews, run_custom_scenario
+    kernel.launches = {k: 0 for k in kernel.launches}
+    t0 = time.perf_counter()
+    bop_i = run_bop_inference.main(bop_args + ["--icp"])
+    torch.cuda.synchronize()
+    wall_bi = time.perf_counter() - t0
+    launches_icp_cli = dict(kernel.launches)
+    preds_i = bop_i["predictions"]
+    frames_i = {(s_, v_) for s_, v_ in zip(preds_i["pose"].infos["scene_id"].tolist(),
+                                           preds_i["pose"].infos["view_id"].tolist())}
+    per_frame_i = {k: 0 for k in frames_i}
+    for k in zip(preds_i["pose"].infos["scene_id"].tolist(),
+                 preds_i["pose"].infos["view_id"].tolist()):
+        per_frame_i[k] += 1
+    chunks_i = sum(math.ceil(n / EVAL_BSZ) for n in per_frame_i.values())
+    want = {"raster_setup": chunks_i * n_ref + len(frames_i) + ar_groups,
+            "raster_resolve": chunks_i * n_ref + len(frames_i) + ar_groups,
+            "raster_resolve_attr": 0}
+    sec_i = bop_i["seconds"]
+    log(f"{tag} run_bop_inference --dataset procedural --icp ({n_frames_b} val frames, "
+        f"{len(preds_i['icp'])} detections): {wall_bi:.2f} s with set-up and metrics, "
+        f"{n_frames_b / wall_bi:.2f} frames/s end to end; detection {sec_i['detection']:.2f} s, "
+        f"pose {sec_i['pose']:.2f} s, ICP {sec_i['icp']:.2f} s ({n_frames_b / sec_i['icp']:.1f} "
+        f"frames/s, {1e3 * sec_i['icp'] / len(frames_i):.2f} ms a group); icp_ok "
+        f"{100 * float(np.mean(preds_i['icp'].infos['icp_ok'])):.1f} %; BOP19 AR of "
+        f"{bop_i['metrics']['bop19_ar']['prediction_key']} "
+        f"{bop_i['metrics']['bop19_ar']['AR']:.4f};"
+        f" launches {launches_icp_cli} (want {want}: refiner chunks x {n_ref} + ICP groups + AR "
+        f"groups)")
+    if launches_icp_cli != want or bop_i["metrics"]["bop19_ar"]["prediction_key"] != "icp" \
+            or not torch.isfinite(preds_i["icp"].poses).all():
+        raise AssertionError(f"run_bop_inference --icp: launches {launches_icp_cli} (want {want})")
+
+    csv_mv = OUT_DIR / "chip_smoke_noisy_gt.csv"
+    kept = noisy_gt_csv(val_b, csv_mv, np.random.RandomState(1))
+    t0 = time.perf_counter()
+    ev = run_cosypose_eval.main(["--dataset", "synthetic.procedural.val", "--detections",
+                                 str(csv_mv), "--refiner", run_m.run_id, "--use-detections-tco",
+                                 "--nviews", str(MV_NVIEWS), "--n-refiner-iterations", "0",
+                                 "--object-ds", "procedural", "--ds-root", str(DATA_ROOT),
+                                 "--exp-dir", str(exp_p), "--out-dir",
+                                 str(OUT_DIR / "chip_smoke_cosypose_eval")])
+    wall_ev = time.perf_counter() - t0
+    mv_keys = sorted(k for k in ev["predictions"] if k.startswith("multiview/"))
+    auc = {k: round(ev["metrics"][k]["ADD(-S)_ntop=1"]["AUC"], 4)
+           for k in ("external_coarse", "multiview/ba_output") if k in ev["metrics"]}
+    log(f"{tag} run_cosypose_eval --use-detections-tco --nviews {MV_NVIEWS} on noisy GT "
+        f"({MV_NOISE_T} m, {MV_NOISE_DEG} deg) of {len(kept)} view groups: {wall_ev:.2f} s; keys "
+        f"{mv_keys}; {len(ev['predictions']['multiview/ba_output'])} BA reprojections; ADD(-S) "
+        f"AUC {auc}")
+    if len(mv_keys) != 7 or not kept:
+        raise AssertionError(f"run_cosypose_eval --nviews: keys {sorted(ev['predictions'])}")
+
+    scen = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_scenario_", dir=OUT_DIR))
+    write_scenario(scen, cands, cams, MV_SCALE["n_labels"])
+    t0 = time.perf_counter()
+    sc = run_custom_scenario.main(["--scenario", str(scen), "--ba_n_iter", str(MV_BA_ITER)])
+    wall_sc = time.perf_counter() - t0
+    n_csv = len((scen / "results" / "scene_reprojected.csv").read_text().splitlines()) - 1
+    log(f"{tag} run_custom_scenario on the protocol-scale scene ({len(cands)} candidates, "
+        f"{MV_SCALE['n_views']} views): {wall_sc:.2f} s with set-up; "
+        f"{len(sc['scene']['objects'])} objects, {len(sc['scene']['cameras'])} cameras, "
+        f"{n_csv} reprojections after nms3d")
+    if not sc["scene"]["objects"] or n_csv <= 0:
+        raise AssertionError("run_custom_scenario wrote no scene")
+    log(f"phase 9 done at {time.perf_counter() - t_main:.0f} s")
+
     # -- results --------------------------------------------------------------
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], launches_training=launches_train[name],
                     launches_recording=launches_rec[name], launches_evaluation=launches_eval[name],
-                    launches_detection_path=launches_det[name], library_ms=None,
-                    **rows_json[name])
+                    launches_detection_path=launches_det[name], launches_icp=launches_icp[name],
+                    launches_icp_cli=launches_icp_cli[name], checked_at=checked[name],
+                    library_ms=None, **rows_json[name])
                for name in ("raster_setup", "raster_resolve", "raster_resolve_attr")]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -11,9 +11,11 @@ with a validity mask), and stored as tensors:
     tri_verts  (n_objects, F_max, 3, 3) float32  triangle-major corner positions
     tri_colors (n_objects, F_max, 3, 3) float32  per-corner albedo
     tri_valid  (n_objects, F_max)    bool
+    (the three tri_* are None when built with keep_geometry=False)
 
 The host-side construction is the JAX package's, call for call, so both
-packages draw the same random padding and the same decimated geometry.
+packages draw the same random padding, the same surface samples and the same
+decimated geometry.
 """
 
 from __future__ import annotations
@@ -57,9 +59,9 @@ class BatchedMeshes:
     valid: torch.Tensor
     symmetries: torch.Tensor
     sym_valid: torch.Tensor
-    tri_verts: torch.Tensor
-    tri_colors: torch.Tensor
-    tri_valid: torch.Tensor
+    tri_verts: torch.Tensor | None = None
+    tri_colors: torch.Tensor | None = None
+    tri_valid: torch.Tensor | None = None
     infos: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
@@ -70,7 +72,8 @@ class BatchedMeshes:
         return self.points.device
 
     def to(self, device) -> "BatchedMeshes":
-        moved = {k: getattr(self, k).to(device) for k in _FIELDS}
+        moved = {k: None if getattr(self, k) is None else getattr(self, k).to(device)
+                 for k in _FIELDS}
         return BatchedMeshes(self.labels, infos=self.infos, **moved)
 
     def ids_for(self, labels: Sequence[str]) -> torch.Tensor:
@@ -113,15 +116,29 @@ def _pad_with(arrs: list[np.ndarray], fill: np.ndarray):
     return np.stack(out), np.stack(valid)
 
 
-def build_mesh_db(specs: Sequence[MeshSpec], n_sym: int = 64,
-                  max_faces: int | None = 8192,
+def aabb_corners(verts: np.ndarray) -> np.ndarray:
+    """The 8 corners of the vertices' axis-aligned box, in the reference's
+    corner order (ops/mesh_ops.get_meshes_bounding_boxes's)."""
+    (x0, y0, z0), (x1, y1, z1) = verts.min(0), verts.max(0)
+    return np.array([(x0, y1, z1), (x1, y1, z1), (x1, y0, z1), (x0, y0, z1),
+                     (x0, y1, z0), (x1, y1, z0), (x1, y0, z0), (x0, y0, z0)])
+
+
+def build_mesh_db(specs: Sequence[MeshSpec], aabb: bool = False,
+                  resample_n_points: int | None = None, n_sym: int = 64,
+                  keep_geometry: bool = True, max_faces: int | None = 8192,
                   render_max_faces: int | None = None,
                   device: str | torch.device = "cuda") -> BatchedMeshes:
     """Load and convert all objects and assemble the padded tensors on `device`.
 
-    Points are the raw vertices. render_max_faces decimates the RENDER geometry
-    only (tri_verts/tri_colors); the point sets keep full fidelity.
+    Points are the 8 AABB corners with aabb=True (RANSAC and bundle
+    adjustment), resample_n_points area-weighted surface samples, else the raw
+    vertices. keep_geometry=False leaves out the triangles. render_max_faces
+    decimates the RENDER geometry only (tri_verts/tri_colors); the point sets
+    keep full fidelity.
     """
+    if aabb and resample_n_points is not None:
+        raise ValueError("aabb and resample_n_points exclude each other")
     device = resolve_device(device)
     rng = np.random.RandomState(0)
     labels, points_l, syms_l, triverts_l, tricols_l = [], [], [], [], []
@@ -138,7 +155,12 @@ def build_mesh_db(specs: Sequence[MeshSpec], n_sym: int = 64,
         verts = verts * scale
         if max_faces is not None and faces.shape[0] > max_faces:
             verts, faces, colors = decimate_mesh(verts, faces, colors, max_faces)
-        pts = verts
+        if aabb:
+            pts = aabb_corners(verts)
+        elif resample_n_points:
+            pts = _sample_surface(verts, faces, resample_n_points, rng)
+        else:
+            pts = verts
 
         syms = make_bop_symmetries(
             {"symmetries_discrete": spec.symmetries_discrete,
@@ -149,15 +171,16 @@ def build_mesh_db(specs: Sequence[MeshSpec], n_sym: int = 64,
         points_l.append(pts.astype(np.float32))
         syms_l.append(syms)
 
-        rverts, rfaces, rcolors = verts, faces, colors
-        if render_max_faces is not None and faces.shape[0] > render_max_faces:
-            rverts, rfaces, rcolors = decimate_mesh(verts, faces, colors, render_max_faces)
-        f = rfaces.astype(np.int64)
-        triverts_l.append(rverts.astype(np.float32)[f])
-        if rcolors is not None:
-            tricols_l.append(rcolors.astype(np.float32)[f])
-        else:
-            tricols_l.append(np.full((f.shape[0], 3, 3), 0.7, np.float32))
+        if keep_geometry:
+            rverts, rfaces, rcolors = verts, faces, colors
+            if render_max_faces is not None and faces.shape[0] > render_max_faces:
+                rverts, rfaces, rcolors = decimate_mesh(verts, faces, colors, render_max_faces)
+            f = rfaces.astype(np.int64)
+            triverts_l.append(rverts.astype(np.float32)[f])
+            if rcolors is not None:
+                tricols_l.append(rcolors.astype(np.float32)[f])
+            else:
+                tricols_l.append(np.full((f.shape[0], 3, 3), 0.7, np.float32))
 
         diameter_m = spec.diameter_m
         if diameter_m is None:
@@ -168,14 +191,30 @@ def build_mesh_db(specs: Sequence[MeshSpec], n_sym: int = 64,
 
     points, valid = _pad_points(points_l, rng)
     symmetries, sym_valid = _pad_with(syms_l, np.eye(4, dtype=np.float32))
-    # degenerate zero-area padding triangles: the rasterizer masks them out
-    tri_verts, tri_valid = _pad_with(triverts_l, np.zeros((3, 3), np.float32))
-    tri_colors, _ = _pad_with(tricols_l, np.zeros((3, 3), np.float32))
 
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
-    return BatchedMeshes(
-        labels, dev(points), dev(valid), dev(symmetries), dev(sym_valid),
-        dev(tri_verts), dev(tri_colors), dev(tri_valid), infos=infos,
-    )
+    geometry = {}
+    if keep_geometry:
+        # degenerate zero-area padding triangles: the rasterizer masks them out
+        tri_verts, tri_valid = _pad_with(triverts_l, np.zeros((3, 3), np.float32))
+        tri_colors, _ = _pad_with(tricols_l, np.zeros((3, 3), np.float32))
+        geometry = dict(tri_verts=dev(tri_verts), tri_colors=dev(tri_colors),
+                        tri_valid=dev(tri_valid))
+    return BatchedMeshes(labels, dev(points), dev(valid), dev(symmetries), dev(sym_valid),
+                         infos=infos, **geometry)
+
+
+def _sample_surface(verts: np.ndarray, faces: np.ndarray, n: int,
+                    rng: np.random.RandomState) -> np.ndarray:
+    """Area-weighted uniform surface sampling, the JAX package's draws."""
+    if faces.shape[0] == 0:
+        return verts[rng.choice(verts.shape[0], size=n)]
+    v0, v1, v2 = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
+    areas = 0.5 * np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1)
+    face_ids = rng.choice(faces.shape[0], size=n, p=areas / max(areas.sum(), 1e-12))
+    r1 = np.sqrt(rng.uniform(size=(n, 1)))
+    r2 = rng.uniform(size=(n, 1))
+    a, b, c = v0[face_ids], v1[face_ids], v2[face_ids]
+    return (1 - r1) * a + r1 * (1 - r2) * b + r1 * r2 * c

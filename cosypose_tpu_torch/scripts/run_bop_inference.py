@@ -2,18 +2,20 @@
 
   python -m cosypose_tpu_torch.scripts.run_bop_inference --dataset ycbv|procedural \\
       [--detector RUN --coarse RUN --refiner RUN] [--inference-ds NAME] [--object-ds NAME] \\
-      [--n-frames N] [--detection-th 0.3] [--n-coarse 1] [--n-refiner 4] [--debug] \\
-      [--ds-root DIR] [--exp-dir DIR] [--out-dir DIR] [--device cpu]
+      [--n-frames N] [--nviews N] [--icp] [--detection-th 0.3] [--n-coarse 1] \\
+      [--n-refiner 4] [--debug] [--ds-root DIR] [--exp-dir DIR] [--out-dir DIR] [--device cpu]
 
-Detector → coarse (1 iteration) → refiner (4) per view group, the
-predictions written as a BOP CSV per stage. With --dataset procedural the
+Detector → coarse (1 iteration) → refiner (4) per view group of --nviews
+frames → with --nviews > 1 the multiview predictor (RANSAC + bundle
+adjustment on the AABB mesh database) → with --icp depth ICP on the frames'
+depth, masked by the detections' masks; the predictions written as a BOP
+CSV per stage (pose, multiview, icp). With --dataset procedural the
 recorded GT is on disk, so the CLI also reports the ADD(-S) meter of every
 stage and the BOP19 Average Recall (VSD on the recorded depth, MSSD, MSPD)
-of the final poses, into metrics-<dataset>.json. main returns the CSV
-paths, the predictions, the metrics and the runner's wall seconds of the
-detection and pose stages. Without --coarse the
-refiner starts from the detections' z-up auto-depth boxes. --icp (ROADMAP
-queue 1 item 16) and --nviews > 1 (item 17) are not ported yet.
+of the final stage (icp, else multiview, else pose), into
+metrics-<dataset>[-icp].json. main returns the CSV paths, the predictions,
+the metrics and the runner's wall seconds of each stage. Without --coarse
+the refiner starts from the detections' z-up auto-depth boxes.
 """
 
 from __future__ import annotations
@@ -32,8 +34,10 @@ from ..bop_config import BOP_CONFIG, PBR_COARSE, PBR_DETECTORS, PBR_REFINER
 from ..data.datasets_cfg import make_object_dataset, make_scene_dataset
 from ..data.wrappers import MultiViewWrapper
 from ..evaluation.bop_export import predictions_to_bop_csv
-from ..evaluation.pred_runners import ICP_NOT_PORTED, MULTIVIEW_NOT_PORTED, BopPredictionRunner
+from ..evaluation.pred_runners import BopPredictionRunner
 from ..integrated.detector import Detector
+from ..integrated.icp_refiner import ICPRefiner
+from ..integrated.multiview_predictor import MultiviewScenePredictor
 from ..integrated.pose_predictor import CoarseRefinePosePredictor, LoadedPoseModel
 from ..models.detector import CenterNetDetector, DetectorConfig
 from ..models.pose_predictor import PosePredictor, PosePredictorConfig
@@ -112,7 +116,8 @@ def load_detector(run_id, label_to_category_id: dict, exp_dir=None, nms_iou=0.5,
 
 
 def procedural_metrics(preds: dict, scene_ds, mesh_db) -> dict:
-    """The ADD(-S) meter of each stage and the BOP19 AR of the final poses."""
+    """The ADD(-S) meter of each stage and the BOP19 AR of the final stage's
+    poses (icp, else multiview, else pose)."""
     from ..evaluation.bop_metrics import compute_bop19_ar
     from ..evaluation.eval_bundle import collect_gt
     from ..evaluation.meters import PoseErrorMeter
@@ -131,13 +136,14 @@ def procedural_metrics(preds: dict, scene_ds, mesh_db) -> dict:
         logger.info(f"{key}: AUC={metrics[key].get('AUC', float('nan')):.4f} "
                     f"0.1d={metrics[key].get('0.1d', float('nan')):.4f} "
                     f"n_gt={metrics[key].get('n_gt', 0):.0f}")
-    if "pose" not in preds:
+    final_key = next((k for k in ("icp", "multiview", "pose") if k in preds), None)
+    if final_key is None:
         logger.warning("no predictions produced; skipping BOP19 AR")
         return metrics
-    ar = compute_bop19_ar(preds["pose"], scene_ds, mesh_db, renderer=BatchRenderer(mesh_db))
+    ar = compute_bop19_ar(preds[final_key], scene_ds, mesh_db, renderer=BatchRenderer(mesh_db))
     metrics["bop19_ar"] = {k: v for k, v in ar.items() if isinstance(v, (int, float))}
-    metrics["bop19_ar"]["prediction_key"] = "pose"
-    logger.info(f"BOP19 AR (pose): AR={ar['AR']:.4f} vsd={ar['AR_vsd']:.4f} "
+    metrics["bop19_ar"]["prediction_key"] = final_key
+    logger.info(f"BOP19 AR ({final_key}): AR={ar['AR']:.4f} vsd={ar['AR_vsd']:.4f} "
                 f"mssd={ar['AR_mssd']:.4f} mspd={ar['AR_mspd']:.4f}")
     return metrics
 
@@ -166,10 +172,6 @@ def main(argv=None):
                         help="results directory (default <results>/bop-<dataset>)")
     parser.add_argument("--device", default="cuda", help="'cuda' (the default) or 'cpu'")
     args = parser.parse_args(argv)
-    if args.icp:
-        raise NotImplementedError(ICP_NOT_PORTED)
-    if args.nviews > 1:
-        raise NotImplementedError(MULTIVIEW_NOT_PORTED)
 
     ds = args.dataset
     if ds == "procedural":
@@ -181,15 +183,18 @@ def main(argv=None):
         inference_ds = args.inference_ds or BOP_CONFIG[ds]["inference_ds_name"][0]
         obj_name = BOP_CONFIG[ds]["obj_ds_name"]
         defaults = (PBR_DETECTORS[ds], PBR_COARSE[ds], PBR_REFINER[ds])
-    # depth feeds the procedural AR's VSD term
+    # depth feeds ICP and the procedural AR's VSD term
     scene_ds = make_scene_dataset(inference_ds, ds_root=args.ds_root,
-                                  load_depth=ds == "procedural")
+                                  load_depth=ds == "procedural" or args.icp)
     n_keep = 4 if args.debug else args.n_frames
     if n_keep:
         scene_ds.frame_index = scene_ds.frame_index.select(np.arange(min(n_keep,
                                                                          len(scene_ds))))
     obj_ds = make_object_dataset(obj_name, ds_root=args.ds_root)
     mesh_db = build_mesh_db(obj_ds.mesh_specs(), device=args.device)
+    mv_predictor = MultiviewScenePredictor(build_mesh_db(
+        obj_ds.mesh_specs(), aabb=True, keep_geometry=False, device=args.device)) \
+        if args.nviews > 1 else None
     labels = label_to_category_id(obj_ds)
 
     detector_run = args.detector or defaults[0]
@@ -203,7 +208,9 @@ def main(argv=None):
     runner = BopPredictionRunner(MultiViewWrapper(scene_ds, n_views=args.nviews),
                                  n_coarse_iterations=args.n_coarse if coarse else 0,
                                  n_refiner_iterations=args.n_refiner)
-    preds = runner.get_predictions(detector, pose_predictor, detection_th=args.detection_th)
+    preds = runner.get_predictions(detector, pose_predictor, mv_predictor=mv_predictor,
+                                   icp_refiner=ICPRefiner(mesh_db) if args.icp else None,
+                                   detection_th=args.detection_th)
 
     out_dir = pathlib.Path(args.out_dir or config.RESULTS_DIR / f"bop-{ds}")
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -217,8 +224,8 @@ def main(argv=None):
         return dict(csv_paths=csv_paths, predictions=preds, seconds=runner.seconds)
 
     metrics = procedural_metrics(preds, scene_ds, mesh_db)
-    suffix = "" if (args.n_coarse, args.n_refiner) == (1, 4) else \
-        f"-c{args.n_coarse}r{args.n_refiner}"
+    suffix = ("-icp" if args.icp else "") + ("" if (args.n_coarse, args.n_refiner) == (1, 4)
+                                             else f"-c{args.n_coarse}r{args.n_refiner}")
     mpath = out_dir / f"metrics-{inference_ds.replace('.', '_')}{suffix}.json"
     mpath.write_text(json.dumps(dict(dataset=inference_ds, detector=detector_run,
                                      coarse=coarse_run, refiner=refiner_run,

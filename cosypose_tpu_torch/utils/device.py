@@ -22,3 +22,11 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         if device.index is None:  # "cuda" → "cuda:N", as tensors report it
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def synchronize(device) -> None:
+    """Waits for a CUDA device's queued work (nothing to wait for elsewhere),
+    so that a host clock read after it holds the card's time."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

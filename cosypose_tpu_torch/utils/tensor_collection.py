@@ -3,7 +3,8 @@ counterpart of cosypose_tpu/utils/tensor_collection.py).
 
 `infos` is a dict of equal-length numpy columns (e.g. 'label', 'batch_im_id',
 'score'); tensors are named fields with the same leading row count. Indexing
-by ids, `len` and `concatenate` are what the inference API needs.
+by ids, `len`, `clone`, `merge_df` and `concatenate` are what the inference
+and multiview APIs need.
 """
 
 from __future__ import annotations
@@ -41,13 +42,51 @@ class TensorCollection:
         tensors = {k: t[torch.as_tensor(idx, device=t.device)] for k, t in self.tensors.items()}
         return TensorCollection(infos, **tensors)
 
+    def clone(self) -> "TensorCollection":
+        """Own copies of the columns; the tensors are shared, as the JAX
+        package's clone shares its arrays."""
+        return TensorCollection({k: v.copy() for k, v in self.infos.items()}, **self.tensors)
+
+    def merge_df(self, right: dict, on) -> "TensorCollection":
+        """Inner join of the columns with the table `right` (a dict of
+        columns) on `on`, in pandas' row order: each row in order, with its
+        matching right rows in theirs. Right columns other than the keys are
+        added; a name both sides hold besides the keys raises."""
+        from ..evaluation import table
+
+        on = [on] if isinstance(on, str) else list(on)
+        clash = (set(self.infos) & set(right)) - set(on)
+        if clash:
+            raise ValueError(f"columns on both sides besides the keys: {sorted(clash)}")
+        li, ri = table.merge(self.infos, right, on)
+        out = self[li]
+        for k, v in right.items():
+            if k not in on:
+                out.infos[k] = np.asarray(v)[ri]
+        return out
+
+
+def _filled(column: np.ndarray, n: int) -> np.ndarray:
+    """n missing values for a column of this dtype, as pandas' concat fills
+    them: NaN, making a numeric column float64 and any other object."""
+    return np.full(n, np.nan) if column.dtype.kind in "iuf" else np.full(n, np.nan, object)
+
 
 def concatenate(collections: Iterable[TensorCollection]) -> TensorCollection:
-    """Row-concatenate collections with the same columns and tensors."""
+    """Row-concatenate collections with the same tensors. Columns are the
+    union, in order of first appearance; a collection without a column gets
+    NaN there, as in pandas' concat."""
     collections = list(collections)
     if not collections:
         raise ValueError("nothing to concatenate")
     first = collections[0]
-    infos = {k: np.concatenate([c.infos[k] for c in collections]) for k in first.infos}
+    names = list(dict.fromkeys(k for c in collections for k in c.infos))
+    infos = {}
+    for k in names:
+        like = next(c.infos[k] for c in collections if k in c.infos)
+        parts = [c.infos[k] if k in c.infos else _filled(like, len(c)) for c in collections]
+        if any(k not in c.infos for c in collections) and like.dtype.kind not in "iuf":
+            parts = [np.asarray(p, object) for p in parts]
+        infos[k] = np.concatenate(parts)
     tensors = {k: torch.cat([c.tensors[k] for c in collections]) for k in first.tensors}
     return TensorCollection(infos, **tensors)

@@ -134,10 +134,6 @@ def test_bop_prediction_runner_matches_jax(cube_root, detectors):
     assert beyond.sum() <= MAX_POSES_BEYOND and np.abs(a - b).max() <= ATOL_EDGE
     t = got.infos["time"]
     assert np.isnan(t).any() and np.isfinite(t).any() and (t[np.isfinite(t)] > 0).all()
-    with pytest.raises(NotImplementedError, match="item 17"):
-        BopPredictionRunner(tds).get_predictions(td, tref, mv_predictor=object())
-    with pytest.raises(NotImplementedError, match="item 16"):
-        BopPredictionRunner(tds).get_predictions(td, tref, icp_refiner=object())
 
 
 class CubeObjects:
@@ -234,10 +230,12 @@ def test_bop_inference_cli_procedural(trained_runs, cube_root, tmp_path):
     assert m["refiner"] == "tiny-refiner" and m["n_frames"] == 3
     assert set(m["metrics"]) == {"pose", "bop19_ar"}
     assert 0.0 <= m["metrics"]["bop19_ar"]["AR"] <= 1.0 and m["metrics"]["pose"]["n_gt"] > 0
-    with pytest.raises(NotImplementedError, match="item 16"):
-        bop_cli.main(common + ["--icp"])
-    with pytest.raises(NotImplementedError, match="item 17"):
-        bop_cli.main(common + ["--nviews", "2"])
+    # --icp (tests/test_torch_port_multiview_cli.py runs it with --nviews 2 against the JAX CLI)
+    res = bop_cli.main(common + ["--n-refiner", "2", "--icp"])
+    assert set(res["predictions"]) == {"pose", "icp"} == set(res["csv_paths"])
+    assert len(res["predictions"]["icp"]) == len(res["predictions"]["pose"])
+    m = json.loads((tmp_path / "metrics-synthetic_cubes_val-icp-c1r2.json").read_text())
+    assert m["metrics"]["bop19_ar"]["prediction_key"] == "icp" and res["seconds"]["icp"] > 0
 
 
 def test_reference_checkpoint_loads_into_the_port(tmp_path):

@@ -196,9 +196,7 @@ def test_multiview_runner_and_evaluation_match_jax(bop, weights):
         for k in ("n_gt", "n_gt_valid", "n_pred", "n_matched"):
             assert port["metrics"][key]["ADD"][k] == r["ADD"][k], (key, k)
     assert port["summary_txt"].count("\n") == ref["summary_txt"].count("\n")
-
-    with pytest.raises(NotImplementedError, match="multiview not ported"):
-        runner.get_predictions(pred, mv_predictor=object(), detections=dets)
+    # the runner with a multiview predictor: tests/test_torch_port_multiview_cli.py
 
 
 def test_detection_evaluation_matches_jax(bop):

@@ -399,3 +399,78 @@ def test_posenet_backbones_card_matches_cpu(cuda, config):
         args = [torch.as_tensor(a, device=dev) for a in (images, K, TCO)]
         outs[dev] = pp.forward(md, *args, n_iterations=2)["TCO_final"].cpu()
     assert (outs["cuda"] - outs["cpu"]).abs().max().item() <= 1e-3
+
+
+def _icp_inputs(device):
+    """Cubes at 120x160: GT depth rendered on the CPU, poses 1 cm / 2 cm
+    off, the depth rendered there; the last detection sees no depth."""
+    db = build_mesh_db(demo.cube_specs(), device="cpu")
+    rng = np.random.RandomState(0)
+    B = 6
+    ids = torch.as_tensor([0, 1] * 3)
+    K = torch.tensor([[300.0, 0, 80], [0, 300, 60], [0, 0, 1]]).repeat(B, 1, 1)
+    TCO = torch.eye(4).repeat(B, 1, 1)
+    TCO[:, :3, 3] = torch.as_tensor(rng.uniform(-0.05, 0.05, (B, 3)) + [0, 0, 0.5]).float()
+    bad = TCO.clone()
+    bad[:, 0, 3] += 0.01
+    bad[:, 2, 3] += 0.02
+    observed = render(db.tri_verts[ids], db.tri_valid[ids], TCO, K, image_size=(120, 160)).depth
+    observed[-1] = 0.0
+    rendered = render(db.tri_verts[ids], db.tri_valid[ids], bad, K, image_size=(120, 160)).depth
+    return [t.to(device) for t in (bad, rendered, observed, K)]
+
+
+def test_icp_card_matches_cpu(cuda):
+    """ICP on the same rendered and observed depth: the card's torch.linalg.svd
+    (cuSOLVER) against LAPACK, including iterations without an inlier. Poses
+    within 1e-3, flags equal, the depth-less detection unchanged."""
+    from cosypose_tpu_torch.integrated.icp_refiner import _icp_refine_batch
+
+    args = _icp_inputs("cpu")
+    ref, ok_ref = _icp_refine_batch(*args, n_iterations=10)
+    got, ok = _icp_refine_batch(*[a.to(cuda) for a in args], n_iterations=10)
+    assert ok.cpu().tolist() == ok_ref.tolist() == [True] * 5 + [False]
+    assert (got.cpu() - ref).abs().max().item() <= 1e-3
+    assert torch.equal(got[-1].cpu(), args[0][-1])
+
+
+def _matched(device):
+    from cosypose_tpu_torch.multiview.ransac import multiview_candidate_matching
+    from cosypose_tpu_torch.scripts import bench_multiview
+
+    db = build_mesh_db(bench_multiview.cube_specs(3), aabb=True, keep_geometry=False,
+                       device=device)
+    cands, cams, _ = bench_multiview.make_scenario(4, 6, 3, 2, 2, noise_t=0.004, noise_deg=2.0)
+    return db, cams, multiview_candidate_matching(cands, db, n_ransac_iter=2000)
+
+
+def test_topk_scoring_card_matches_cpu(cuda):
+    """RANSAC with the top-k scoring on the card and on the CPU: the same
+    matched candidates and objects, the same best view pairs, TC1C2 within
+    1e-5."""
+    _, _, ref = _matched("cpu")
+    _, _, got = _matched(cuda)
+    for k in ("cand_id", "obj_id", "view_id"):
+        assert got["filtered_candidates"].infos[k].tolist() == \
+            ref["filtered_candidates"].infos[k].tolist()
+    for k in ("view1", "view2"):
+        assert got["pairs_TC1C2"].infos[k].tolist() == ref["pairs_TC1C2"].infos[k].tolist()
+    assert (got["pairs_TC1C2"].TC1C2 - ref["pairs_TC1C2"].TC1C2).abs().max().item() <= 1e-5
+
+
+def test_lm_card_matches_cpu(cuda):
+    """Bundle adjustment of the matched scene on the card and on the CPU from
+    the same matches: iterations within one, loss within 2e-5, object poses
+    within 5e-4 (tests/test_torch_port_multiview.py's tolerances)."""
+    from cosypose_tpu_torch.multiview.bundle_adjustment import MultiviewRefinement
+
+    db, cams, match = _matched("cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        db_d = db.to(dev)
+        out[str(dev)] = MultiviewRefinement(match["filtered_candidates"], cams,
+                                            match["pairs_TC1C2"], db_d).solve(n_iterations=100)
+    a, b = out["cpu"], out[str(cuda)]
+    assert abs(a["n_lm_iterations"] - b["n_lm_iterations"]) <= 1
+    assert abs(a["final_loss"] - b["final_loss"]) <= 2e-5
+    assert (a["objects"].TWO - b["objects"].TWO.cpu()).abs().max().item() <= 5e-4

@@ -42,6 +42,12 @@ def test_every_port_module_is_listed():
                  "bop_config", "scripts.run_detector_training", "scripts.run_detection_eval",
                  "scripts.run_bop_inference"):
         assert f"cosypose_tpu_torch.{name}" in MODULES
+    for name in ("ops.mesh_ops", "ops.transform", "utils.timer", "integrated.icp_refiner",
+                 "multiview.matching_cext", "multiview.ransac", "multiview.bundle_adjustment",
+                 "integrated.multiview_predictor", "evaluation.saved_detections",
+                 "visualization.multiview", "scripts.run_cosypose_eval",
+                 "scripts.run_custom_scenario", "scripts.bench_multiview"):
+        assert f"cosypose_tpu_torch.{name}" in MODULES
 
 
 def test_port_imports_no_jax():

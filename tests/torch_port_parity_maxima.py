@@ -22,8 +22,12 @@ poses and metrics of the evaluation pipeline; for the detection path, the
 backbones' features and every pooling's pose outputs, the detector's head
 outputs and decoded scores and boxes, one detector train step (loss terms
 relative, gradients relative to each tensor's max), and the two documented
-rasterizer divergences (ROADMAP §3). The tests hold these to their
-tolerances; this script reports how far inside them the port lies.
+rasterizer divergences (ROADMAP §3); for ICP (tests/test_torch_port_icp.py)
+the refined poses and the sample ids that differ; for multiview
+(tests/test_torch_port_multiview.py) the camera hypotheses, scores and TC1C2,
+the LM's losses, poses and iteration counts (JAX's, the port's) from one
+initialization, and the multiview predictor's poses. The tests hold these to
+their tolerances; this script reports how far inside them the port lies.
 """
 
 import json
@@ -70,6 +74,7 @@ def main():
     res.update(recording_and_data())
     res.update(evaluation())
     res.update(detection())
+    res.update(icp_and_multiview())
     print(json.dumps(res, indent=1))
 
 
@@ -448,6 +453,74 @@ def detection() -> dict:
                 float((g.double() - ref_s["grads"][n].double() * factor).abs().max()
                       / (ref_s["grads"][n].double() * factor).abs().max())
                 for n, g in port_s["grads"].items() if not DT.structurally_zero(n))}
+    return res
+
+
+def icp_and_multiview() -> dict:
+    import pathlib
+    import shutil
+    import tempfile
+
+    import jax.numpy as jnp
+    import torch
+
+    from cosypose_tpu.integrated import icp_refiner as jicp
+    from cosypose_tpu.multiview import bundle_adjustment as jba
+    from cosypose_tpu.multiview import matching_cext as jm
+    from cosypose_tpu.multiview import ransac as jr
+    from cosypose_tpu_torch.integrated import icp_refiner as ticp
+    from cosypose_tpu_torch.multiview import bundle_adjustment as tba
+    from cosypose_tpu_torch.multiview import ransac as tr
+    from tests import test_torch_port_icp as I
+    from tests import test_torch_port_multiview as M
+
+    res = {}
+    for size in ((120, 160), (240, 320), (480, 640)):
+        n = size[0] * size[1]
+        ref = np.asarray(jnp.linspace(0, n - 1, 1024).astype(jnp.int32))
+        res[f"icp/sample_ids_differ/{size[0]}x{size[1]}"] = int(
+            (ticp.sample_ids(n, 1024) != ref).sum())
+    scene = I.make_scene()
+    args = (scene["TCO_bad"], scene["rendered"], scene["observed"], scene["K"])
+    for n_it in (1, 3, 10):
+        ref, _ = jicp._icp_refine_batch(*map(jnp.asarray, args), n_iterations=n_it)
+        got, _ = ticp._icp_refine_batch(*map(torch.as_tensor, args), n_iterations=n_it)
+        res[f"icp/refine_batch/it{n_it}"] = _err(got, ref)
+
+    copy = pathlib.Path(tempfile.mkdtemp()) / jm._LIB.name  # never rebuild the shipped library
+    shutil.copy(jm._LIB, copy)
+    jm._LIB, jm._lib = copy, None
+    for seed in M.SEEDS:
+        c = M.make_scene_rich(seed=seed)
+        jdb, tdb = M.make_db(), M.port_db()
+        codes = np.asarray(jdb.ids_for(c.infos["label"].values), np.int32)
+        seeds, tm = jm.make_ransac_infos(c.infos["view_id"].to_numpy(np.int32), codes, 20, seed)
+        tc = M.port_candidates(c)
+        hyp = jr.estimate_camera_poses_batch(c, seeds, jdb)
+        out_j = jr.multiview_candidate_matching(c.clone(), jdb, n_ransac_iter=20, seed=seed)
+        out_t = tr.multiview_candidate_matching(M.port_candidates(c), tdb, n_ransac_iter=20,
+                                                seed=seed)
+        res[f"multiview/ransac/seed{seed}"] = {
+            "hypotheses": float(np.abs(tr.estimate_camera_poses_batch(tc, seeds, tdb)
+                                       - hyp).max()),
+            "scores": float(np.abs(tr.score_tmatches_batch(tc, tm, hyp, tdb)
+                                   - jr.score_tmatches_batch(c, tm, hyp, jdb)).max()),
+            "TC1C2": _err(out_t["pairs_TC1C2"].TC1C2, out_j["pairs_TC1C2"].TC1C2)}
+    for scene_name in ("make_scene", 0, 1, 2):
+        rj, rt = M._refinements(scene_name)
+        TWO0, TCW0 = rj.robust_initialization(1)
+        views, objs = rt._ids()
+        for n in (2, 100):
+            ref = jba._optimize_lm(TWO0, TCW0, rj.cand_TCO, jnp.asarray(rj.cand_view_ids),
+                                   jnp.asarray(rj.cand_obj_ids), rj.K, rj.obj_points,
+                                   rj.cand_syms, rj.cand_sym_valid, n_iterations=n)
+            got = tba._optimize_lm(torch.as_tensor(np.array(TWO0)), torch.as_tensor(
+                np.array(TCW0)), rt.cand_TCO, views, objs, rt.K, rt.obj_points, rt.cand_syms,
+                rt.cand_sym_valid, n_iterations=n)
+            res[f"multiview/lm/{scene_name}/max{n}"] = {
+                "iterations_jax_port": [int(ref[3]), int(got[3])],
+                "loss": abs(float(got[2]) - float(ref[2])),
+                "poses": max(_err(got[0], ref[0]), _err(got[1], ref[1]))}
     return res
 
 
