@@ -82,10 +82,18 @@ Phases, none of them caught; any failure exits non-zero:
      and best view pairs equal); the CLIs run_bop_inference --icp on phase
      8's models, run_cosypose_eval --use-detections-tco --nviews 4 on a CSV
      of noisy GT poses of the val frames, and run_custom_scenario on the
-     protocol-scale scene written as a scenario directory.
+     protocol-scale scene written as a scenario directory;
+ 10. data parallelism (data_parallel_phase): tless-refiner 8 steps under
+     DDP at world size 1 over NCCL against one process without a group
+     (phase 5's step tolerances, parameters to the Adam updates' spread,
+     ms/step both ways), then two gloo ranks sharing the card (16 rows
+     each) against one process at 32 (2 compared steps, 6 timed ones), both
+     kernels against their plain versions on each rank, FSDP2 against DDP
+     on those ranks, and the gathers (reduce_dict, TensorCollection, the
+     meters) against one process.
 The last lines are the card's name and power limit, one JSON line of kernel
 numbers (launches while serving, training, recording, evaluating, on the
-detection path and in ICP; the shapes each kernel was held to its plain
+detection path, in ICP and data parallel; the shapes each kernel was held to its plain
 version at; the attribute kernel's times at the scene shape), and the contract line
 {"ok": true, "device": {...}}. Without a card, or outside the repo, it exits
 non-zero and prints no result. The profiler tables go to
@@ -222,6 +230,14 @@ MV_REL_ROT_ATOL, MV_REL_T_ATOL = 0.02, 0.05
 MV_CPU_POSE_ATOL, MV_CPU_LOSS_RTOL, MV_CPU_TC1C2_ATOL = 2e-3, 1e-5, 1e-5
 MV_NOISE_T, MV_NOISE_DEG = 0.002, 1.0
 MV_SHARED_MIN, MV_VISIB_MIN, MV_NVIEWS = 3, BOP_VISIB_MIN, 4
+# data parallelism: tless-refiner steps under DDP at world size 1 over NCCL
+# (the card's one rank), then two gloo ranks sharing the card at half the
+# batch each, FSDP2 (fsdp) against DDP (replicated) on them; the ranks'
+# compared steps, then steps timed only
+DP_STEPS = 8
+DP_RANK_STEPS = 2
+DP_RANK_TIMED = 6
+DP_WORLD = 2
 EVAL_CPU_COUNTS = {"render mask pixels that differ": 0,
                    f"depth pixels beyond {ATOL_KERNEL} m where both draw": 273,
                    "VSD pixels that differ": 5}
@@ -419,29 +435,89 @@ def train_step_card_vs_cpu(cfg=None) -> dict:
         batch = {k: host[k].to(d) for k in ("images", "K", "TCO", "bboxes")}
         batch["label_ids"] = db.ids_for(host["labels"])
         metrics = tpt.make_train_step(cfg, db)(state, batch, draws)
-        net = state.pp.net
-        snaps[d] = dict(metrics={k: float(v) for k, v in metrics.items()},
-                        params={n: p.detach().double().cpu() for n, p in net.named_parameters()},
-                        grads={n: p.grad.double().cpu() for n, p in net.named_parameters()},
-                        buffers={n: b.double().cpu() for n, b in net.named_buffers()
-                                 if n.endswith(("running_mean", "running_var"))})
-    card, cpu = snaps["cuda"], snaps["cpu"]
+        snaps[d] = step_snapshot(state.pp.net, metrics)
+    return step_errors(snaps["cuda"], snaps["cpu"], cfg)
+
+
+def step_snapshot(net, metrics: dict, optimizer=None) -> dict:
+    """A train step's metrics, parameters, gradients and running statistics
+    and, given the optimizer, its Adam moments, in float64 on the CPU, as
+    step_errors compares them."""
+    out = dict(metrics={k: float(v) for k, v in metrics.items()},
+               params={n: p.detach().double().cpu() for n, p in net.named_parameters()},
+               grads={n: p.grad.double().cpu() for n, p in net.named_parameters()},
+               buffers={n: b.double().cpu() for n, b in net.named_buffers()
+                        if n.endswith(("running_mean", "running_var"))})
+    if optimizer is not None:
+        for k in ("exp_avg", "exp_avg_sq"):
+            out[k] = {n: optimizer.state[p][k].double().cpu() for n, p in net.named_parameters()}
+    return out
+
+
+def rank_snapshot(step: dict) -> dict:
+    """A step of parallel.rank_checks.pose_steps (kept with its gradients,
+    and its moments where kept) as step_snapshot gives it."""
+    sd, grads = step["state_dict"], step["grads"]
+    out = dict(metrics=step["metrics"], params={n: sd[n].double() for n in grads},
+               grads={n: g.double() for n, g in grads.items()},
+               buffers={n: b.double() for n, b in sd.items()
+                        if n.endswith(("running_mean", "running_var"))})
+    for k in ("exp_avg", "exp_avg_sq"):
+        if k in step:
+            out[k] = {n: m.double() for n, m in step[k].items()}
+    return out
+
+
+def update_spread(a: list, b: list, n_steps: int) -> dict:
+    """By parameter name, the sum over the first n_steps of |a's Adam update
+    - b's| (parallel.rank_checks.adam_updates of each step), in float64 on
+    the CPU: the most two runs' parameters can differ after those steps."""
+    return {n: sum((a[k][n].double().cpu() - b[k][n].double().cpu()).abs()
+                   for k in range(n_steps)) for n in a[0]}
+
+
+def step_errors(card: dict, cpu: dict, cfg, n_steps: int = 1, spread: dict | None = None) -> dict:
+    """{quantity: (error, tolerance)} of two snapshots of the same train
+    step(s) (see train_step_card_vs_cpu for the tolerances). After one step
+    a parameter may differ by what the two gradients move Adam's first step
+    plus ATOL_PARAM; after n_steps > 1, element by element, by `spread`
+    (update_spread: the sum of the two runs' Adam updates' differences, as
+    their moments give them) plus ATOL_PARAM. Where both snapshots hold Adam
+    moments, the first is held as the gradients and the second within twice
+    their tolerance, of each tensor's max (as the CPU tests hold them). A
+    block's last BatchNorm bias has a zero gradient only without
+    drop-connect; with it, that gradient is what the dropped samples leave
+    of terms that cancel over the batch (up to ~1 % of the largest gradient,
+    ~1e-9 in a block that dropped none), and is held within REL_GRAD of the
+    largest gradient; its moments are of the largest tensor's max. The
+    parameters' largest difference is given in units of the lr, against the
+    most Adam can move them apart, 2·n_steps."""
+    if n_steps > 1 and spread is None:
+        raise ValueError("parameters after more than one step need the updates' spread")
     floor = max(float(g.abs().max()) for g in cpu["grads"].values())
-    grad_err = zero_err = param_err = stats_err = 0.0
+    grad_err = zero_err = param_err = param_max = stats_err = 0.0
+    structural = cfg.predictor.drop_connect_rate == 0.0
     for n, g in cpu["grads"].items():
-        if n.endswith("_bn2.bias"):
+        if n.endswith("_bn2.bias") and structural:
             zero_err = max(zero_err, float(g.abs().max()) / floor,
                            float(card["grads"][n].abs().max()) / floor)
+        elif n.endswith("_bn2.bias"):
+            grad_err = max(grad_err, float((card["grads"][n] - g).abs().max()) / floor)
         else:
             grad_err = max(grad_err, float((card["grads"][n] - g).abs().max() / g.abs().max()))
 
         def adam(g):
             return cfg.lr * g / (g.abs() + 1e-8)
 
-        spread = (adam(card["grads"][n]) - adam(g)).abs()
         diff = (card["params"][n] - cpu["params"][n]).abs()
-        param_err = max(param_err, float((diff - spread).max()), float(diff.max()) - 2 * cfg.lr)
-    w = 1 - 0.99 ** cfg.n_iterations
+        param_max = max(param_max, float(diff.max()) / cfg.lr)
+        if spread is None:
+            bound = (adam(card["grads"][n]) - adam(g)).abs()
+            param_err = max(param_err, float(diff.max()) - 2 * cfg.lr)
+        else:
+            bound = spread[n]
+        param_err = max(param_err, float((diff - bound).max()))
+    w = 1 - 0.99 ** (cfg.n_iterations * n_steps)
     for n, b in cpu["buffers"].items():
         scale = float(b.abs().max())
         if n.endswith("running_mean"):
@@ -454,7 +530,282 @@ def train_step_card_vs_cpu(cfg=None) -> dict:
     out["zero gradients (of the largest)"] = (zero_err, REL_ZERO)
     out["running statistics (of their scale)"] = (stats_err, REL_STATS)
     out["parameters (beyond the Adam spread)"] = (param_err, ATOL_PARAM)
+    out["parameters' largest difference (in lr)"] = (param_max, 2.0 * n_steps)
+    for k, tol in (("exp_avg", REL_GRAD), ("exp_avg_sq", 2 * REL_GRAD)):
+        if k in card and k in cpu:
+            top = max(float(m.abs().max()) for m in cpu[k].values())
+            err = 0.0
+            for n, m in cpu[k].items():
+                scale = top if n.endswith("_bn2.bias") else float(m.abs().max())
+                err = max(err, float((card[k][n] - m).abs().max()) / max(scale, REL_ZERO * top))
+            out[f"Adam {k} (of each tensor's max)"] = (err, tol)
     return out
+
+
+def check_errors(what: str, errs: dict) -> str:
+    """Raise where an error of step_errors exceeds its tolerance; else the
+    errors as a line."""
+    bad = {k: v for k, v in errs.items() if not v[0] <= v[1]}
+    if bad:
+        raise AssertionError(f"{what} beyond tolerance: {bad}")
+    return ", ".join(f"{k} {e:.3g} (<= {tol})" for k, (e, tol) in errs.items())
+
+
+def meter_frames(seed: int, n_views: int = 6):
+    """(pred columns, pred poses, GT columns, GT poses) over the demo
+    spheres' labels: up to 2 instances a label a view, predictions near most
+    GTs (2 mm to 3 cm off), far-off ones, tied scores."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+
+    def pose():
+        q = rng.normal(size=4)
+        w, x, y, z = q / np.linalg.norm(q)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = [[1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+                     [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+                     [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]]
+        T[:3, 3] = [*rng.uniform(-0.1, 0.1, 2), 0.7]
+        return T
+
+    gt, gt_T, pred, pred_T = [], [], [], []
+    for view in range(n_views):
+        for label in ("obj_000001", "obj_000002"):
+            for _ in range(rng.randint(1, 3)):
+                T = pose()
+                gt.append((1, view, label, float(np.round(rng.rand(), 2))))
+                gt_T.append(T)
+                for k in range(rng.randint(0, 3)):
+                    P = T.copy()
+                    P[:3, 3] += rng.normal(0, [0.002, 0.03][k], 3)
+                    pred.append((1, view, label, float(np.round(rng.rand(), 1))))
+                    pred_T.append(P)
+            pred.append((1, view, label, 0.5))
+            pred_T.append(pose())
+    keys = ["scene_id", "view_id", "label"]
+
+    def cols(rows, names):
+        return {n: np.asarray(v) for n, v in zip(names, zip(*rows))}
+
+    return (cols(pred, keys + ["score"]), np.stack(pred_T), cols(gt, keys + ["visib_fract"]),
+            np.stack(gt_T))
+
+
+def data_parallel_phase(tag: str, checked: dict) -> dict:
+    """Phase 10: tless-refiner (B3 fp32, batch 32, 3 iterations) on the demo
+    spheres. (a) DP_STEPS steps under DDP at world size 1 over NCCL against
+    the same steps in one process without a group; (b) DP_RANK_STEPS steps on
+    two gloo ranks sharing the card, 16 rows each, against the one process at
+    32, and both raster kernels against their plain versions on each rank at
+    its render shape; (c) FSDP2 against DDP on the two gloo ranks; (d) the
+    gathers across the two ranks against one process. Parameters after more
+    than one step are held element by element to the two runs' Adam updates'
+    spread (step_errors), moments beside them. Returns the kernels' launches
+    on the world-1 run and on each rank."""
+    import numpy as np
+    import torch
+
+    from cosypose_tpu_torch import demo
+    from cosypose_tpu_torch.evaluation import meters as tm
+    from cosypose_tpu_torch.models.efficientnet import BatchNorm2d
+    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
+    from cosypose_tpu_torch.ops.mesh_db import build_mesh_db
+    from cosypose_tpu_torch.parallel import rank_checks
+    from cosypose_tpu_torch.parallel.spawn import free_port, spawn
+    from cosypose_tpu_torch.training import pose_training as tpt
+    from cosypose_tpu_torch.training.configs import make_cfg
+    from cosypose_tpu_torch.training.train_pose import collate
+    from cosypose_tpu_torch.utils import distributed as tdist
+    from cosypose_tpu_torch.utils.tensor_collection import TensorCollection
+
+    kernel = rc.RASTER_KERNEL
+    dev = torch.device("cuda", 0)
+    run = make_cfg("tless-refiner")
+    tcfg = run.train
+    B, n_it = tcfg.batch_size, tcfg.n_iterations
+    pred = tcfg.predictor
+    db = build_mesh_db(demo.demo_specs(), render_max_faces=LOD, device=dev)
+    ds = demo.DemoPoseDataset(B, TRAIN_IMAGE, seed=3)
+    host = collate([ds[i] for i in range(B)])
+    batch_np = {k: host[k].numpy() for k in ("images", "K", "TCO", "bboxes")}
+    batch_np["label_ids"] = db.ids_for(host["labels"]).cpu().numpy()
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch_np.items()}
+    batch["label_ids"] = batch["label_ids"].long()
+    state = tpt.create_train_state(tcfg, dev)
+    sd0 = {k: v.detach().cpu().clone() for k, v in state.pp.net.state_dict().items()}
+    n_bn = sum(isinstance(m, BatchNorm2d) for m in state.pp.net.modules())
+    gen = torch.Generator().manual_seed(11)
+    draws = [tpt.draw_step(tcfg, state.pp, B, db.points.shape[1], gen) for _ in range(DP_STEPS)]
+
+    def steps(state, step):
+        snaps, times, updates = [], [], []
+        for i, d in enumerate(draws):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, batch, d)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            updates.append(rank_checks.adam_updates(state.pp.net, state.optimizer))
+            snaps.append(step_snapshot(state.pp.net, metrics, state.optimizer)
+                         if i in (0, 1, DP_STEPS - 1)
+                         else dict(metrics={k: float(v) for k, v in metrics.items()}))
+        return snaps, times, updates
+
+    # (a) world size 1 over NCCL: DDP's gradient all-reduce, the global
+    # BatchNorm's world-1 path, the metrics' mean
+    t_phase = time.perf_counter()
+    single, t_single, u_single = steps(state, tpt.make_train_step(tcfg, db))
+    del state
+    torch.cuda.empty_cache()
+    tdist.init_distributed_mode("nccl", rank=0, world_size=1,
+                                init_method=f"tcp://localhost:{free_port()}", device=dev)
+    try:
+        state = tpt.create_train_state(tcfg, dev, param_mode="replicated")
+        state.dp.load_state_dict(sd0)
+        kernel.launches = {k: 0 for k in kernel.launches}
+        ddp, t_ddp, u_ddp = steps(state, tpt.make_train_step(tcfg, db))
+        launches_world1 = dict(kernel.launches)
+        backend = torch.distributed.get_backend()
+        del state
+    finally:
+        tdist.destroy()
+    torch.cuda.empty_cache()
+    want = {"raster_setup": DP_STEPS * n_it, "raster_resolve": DP_STEPS * n_it,
+            "raster_resolve_attr": 0}
+    if launches_world1 != want:
+        raise AssertionError(f"DDP at world 1 launched {launches_world1}, want {want}")
+    lines = [check_errors(f"DDP world 1 vs one process, step {i + 1}",
+                          step_errors(ddp[i], single[i], tcfg, i + 1,
+                                      update_spread(u_ddp, u_single, i + 1)))
+             for i in (0, DP_STEPS - 1)]
+    del u_ddp
+    u_single = [{n: u.cpu() for n, u in us.items()} for us in u_single[:DP_RANK_STEPS]]
+    torch.cuda.empty_cache()
+    rel = max(abs(a["metrics"][k] / b["metrics"][k] - 1) for a, b in zip(ddp, single)
+              for k in b["metrics"])
+    if rel > RTOL_STEP:
+        raise AssertionError(f"DDP world 1 vs one process: metrics {rel} apart over "
+                             f"{DP_STEPS} steps (> {RTOL_STEP})")
+    ms_single, ms_ddp = 1e3 * np.mean(t_single[1:]), 1e3 * np.mean(t_ddp[1:])
+    log(f"{tag} (a) DDP at world size 1 over {backend}, tless-refiner ({pred.backbone}, "
+        f"{pred.compute_dtype}, batch {B}, {n_it} iterations), {DP_STEPS} steps from the same "
+        f"state and draws as one process without a group: metrics within {rel:.3g} over all "
+        f"steps (<= {RTOL_STEP}); step 1: {lines[0]}; step {DP_STEPS}: {lines[1]}; ms/step "
+        f"(steps 2-{DP_STEPS}, host clock to the device's end) one process {ms_single:.1f}, DDP "
+        f"{ms_ddp:.1f} (DDP overhead {ms_ddp - ms_single:+.1f} ms, "
+        f"{100 * (ms_ddp / ms_single - 1):+.2f} %); first steps {1e3 * t_single[0]:.1f} / "
+        f"{1e3 * t_ddp[0]:.1f} ms; launches {launches_world1} (want {want})")
+
+    # (b)-(d) two gloo ranks sharing the card
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=OUT_DIR))
+    pred_m, pred_T, gt_m, gt_T = meter_frames(5)
+    meter_kw = dict(error_type="ADD(-S)", report_AP=True, report_error_AUC=True,
+                    report_error_stats=True)
+    coll = ({"view_id": pred_m["view_id"], "label": pred_m["label"], "score": pred_m["score"]},
+            pred_T)
+    n_rows = max(int((coll[0]["view_id"] % DP_WORLD == r).sum()) for r in range(DP_WORLD))
+    pose = dict(cfg=tcfg, specs=[dataclasses.asdict(sp) for sp in demo.demo_specs()],
+                render_max_faces=LOD, init=sd0, batch=batch_np, draws=draws[:DP_RANK_STEPS],
+                keep=("grads", "moments", "updates"))
+    cases = dict(
+        kernels=("kernels_vs_plain", dict(batch=B // DP_WORLD, image_size=TRAIN_IMAGE,
+                                          render_size=pred.render_size, tile=pred.raster_tile,
+                                          budget=pred.raster_max_tris_per_tile, lod=LOD)),
+        replicated=("pose_steps", dict(pose, param_mode="replicated", profile=True,
+                                       timed_steps=DP_RANK_TIMED)),
+        fsdp=("pose_steps", dict(pose, param_mode="fsdp")),
+        gathers=("gathers", dict(collection=coll, n_rows=n_rows, dir=tmp,
+                                 meter_frames=(pred_m, pred_T, gt_m, gt_T),
+                                 meter_specs=[dataclasses.asdict(sp) for sp in demo.demo_specs()],
+                                 meter_kw=meter_kw)))
+    t0 = time.perf_counter()
+    ranks = spawn(rank_checks.suite, DP_WORLD, (cases,), backend="gloo", device="cuda:0",
+                  timeout_s=600)
+    t_spawn = time.perf_counter() - t0
+    launches_ranks = [r["replicated"]["launches"] for r in ranks]
+    want = {"raster_setup": DP_RANK_STEPS * n_it, "raster_resolve": DP_RANK_STEPS * n_it,
+            "raster_resolve_attr": 0}
+    for r, got in enumerate(ranks):
+        k = got["kernels"]
+        if k["setup_error"]["valid_differs"] or k["setup_error"]["plane"] > rc.SETUP_TOL \
+                or k["setup_error"]["bbox_key"] > rc.SETUP_TOL or k["resolve_max_abs_err"] != 0:
+            raise AssertionError(f"rank {r}: raster kernels vs plain at {k['rows']}: {k}")
+        if got["replicated"]["launches"] != want:
+            raise AssertionError(f"rank {r} launched {got['replicated']['launches']}, want {want}")
+    k0 = ranks[0]["kernels"]
+    for name in ("raster_setup", "raster_resolve"):
+        checked[name].append(f"data parallel rank: {k0['rows'][0]} x {k0['rows'][1]} rows, "
+                             f"{pred.render_size}")
+    rep = ranks[0]["replicated"]
+    u_rep = [st["updates"] for st in rep["steps"]]
+    lines = [check_errors(f"2 gloo ranks vs one process, step {i + 1}",
+                          step_errors(rank_snapshot(rep["steps"][i]), single[i], tcfg, i + 1,
+                                      update_spread(u_rep, u_single, i + 1)))
+             for i in range(DP_RANK_STEPS)]
+    same = all(ranks[1]["replicated"]["steps"][i]["metrics"] == rep["steps"][i]["metrics"]
+               for i in range(DP_RANK_STEPS))
+    if not same:
+        raise AssertionError("the two ranks' metrics differ")
+    prof = rep["profile"]
+    coll_ms = max(prof["collectives_ms"].values(), default=float("nan"))
+    ms_ranks = [[1e3 * t for t in r["replicated"]["timed_seconds"]] for r in ranks]
+    log(f"{tag} (b) 2 gloo ranks on one card, {B // DP_WORLD} rows each (global {B}), "
+        f"{DP_RANK_STEPS} steps from the same state and draws as one process at {B}: "
+        + "; ".join(f"step {i + 1}: {line}" for i, line in enumerate(lines))
+        + f"; ms/step over {DP_RANK_TIMED} timed steps after them, mean (min-max): "
+        + ", ".join(f"rank {r} {np.mean(ms):.1f} ({min(ms):.1f}-{max(ms):.1f})"
+                    for r, ms in enumerate(ms_ranks))
+        + f" (one process at {B}: {ms_single:.1f}); one profiled step {prof['step_ms']:.1f} ms, "
+        f"host time in collectives {coll_ms:.1f} ms ({100 * coll_ms / prof['step_ms']:.1f} %; "
+        f"{ {k: round(v, 1) for k, v in prof['collectives_ms'].items()} }), "
+        f"{2 * n_bn * n_it} BatchNorm all-reduces a step ({n_bn} layers x {n_it} iterations, "
+        f"forward and backward); raster kernels vs plain on each rank at B={k0['rows'][0]} x "
+        f"{k0['rows'][1]} rows: setup max abs err {max(r['kernels']['setup_max_abs_err'] for r in ranks):.3g}, "
+        f"resolve equal; launches per rank {launches_ranks} (want {want}); spawn + run "
+        f"{t_spawn:.1f} s")
+
+    # (c) fsdp against replicated, on the two gloo ranks
+    fsdp = ranks[0]["fsdp"]["steps"]
+    u_fsdp = [st["updates"] for st in fsdp]
+    lines = [check_errors(f"fsdp vs replicated (2 gloo ranks), step {i + 1}",
+                          step_errors(rank_snapshot(fsdp[i]), rank_snapshot(rep["steps"][i]),
+                                      tcfg, i + 1, update_spread(u_fsdp, u_rep, i + 1)))
+             for i in range(DP_RANK_STEPS)]
+    log(f"{tag} (c) fsdp (FSDP2) vs replicated (DDP) on the 2 gloo ranks sharing the card "
+        f"(CUDA tensors; gloo takes FSDP2's reduce-scatter): "
+        + "; ".join(f"step {i + 1}: {line}" for i, line in enumerate(lines)))
+
+    # (d) the gathers against one process
+    infos, poses = coll
+    order = np.concatenate([np.flatnonzero(infos["view_id"] % DP_WORLD == r)
+                            for r in range(DP_WORLD)])
+    meter = tm.PoseErrorMeter(build_mesh_db(demo.demo_specs(), device=dev), **meter_kw)
+    meter.add(TensorCollection(pred_m, poses=torch.as_tensor(pred_T).to(dev)),
+              TensorCollection(gt_m, poses=torch.as_tensor(gt_T).to(dev)))
+    ref = meter.summary()[0]
+    for r, got in enumerate(ranks):
+        g = got["gathers"]
+        if g["reduce"] != {"a": 1.5, "b": 5.0, "c": 0.5} or g["reduce_sum"] != {"a": 3.0}:
+            raise AssertionError(f"rank {r}: reduce_dict {g['reduce']}, {g['reduce_sum']}")
+        for name in ("gather_distributed", "gather_multihost"):
+            gi, gp = g[name]
+            if not (all(np.array_equal(gi[k], v[order]) for k, v in infos.items())
+                    and torch.equal(gp, torch.as_tensor(poses[order]))):
+                raise AssertionError(f"rank {r}: {name} differs from the rows of one process")
+        m = g["meter"]
+        bad = [k for k, v in ref.items() if not (k in m and (m[k] == v or (
+            isinstance(v, float) and (math.isnan(v) and math.isnan(m[k])
+                                      or abs(m[k] - v) <= 1e-6 * abs(v) + 1e-12))))]
+        if bad or set(m) != set(ref):
+            raise AssertionError(f"rank {r}: the gathered meter differs in {bad}")
+    log(f"{tag} (d) gathers over 2 ranks (CUDA tensors, gloo): reduce_dict, "
+        f"TensorCollection.gather_distributed ({n_rows} rows a rank, padded) and "
+        f"gather_multihost equal to one process; the meters' gather_multihost (default rank "
+        f"and world) summarises {len(pred_m['label'])} predictions as one process does "
+        f"(n_matched {ref.get('n_matched')}, AUC {ref.get('ADD(-S)_ntop=1_AUC', ref.get('AUC'))})")
+    log(f"phase 10 took {time.perf_counter() - t_phase:.0f} s")
+    return dict(nccl_world1=launches_world1, gloo_ranks=launches_ranks)
 
 
 def setup_vs_plain(args, tri_attr=None):
@@ -2215,12 +2566,20 @@ def main() -> int:
         raise AssertionError("run_custom_scenario wrote no scene")
     log(f"phase 9 done at {time.perf_counter() - t_main:.0f} s")
 
+    # -- 10. data parallelism ---------------------------------------------------------
+    launches_dp = data_parallel_phase(tag, checked)
+    log(f"phase 10 done at {time.perf_counter() - t_main:.0f} s")
+
     # -- results --------------------------------------------------------------
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], launches_training=launches_train[name],
                     launches_recording=launches_rec[name], launches_evaluation=launches_eval[name],
                     launches_detection_path=launches_det[name], launches_icp=launches_icp[name],
-                    launches_icp_cli=launches_icp_cli[name], checked_at=checked[name],
+                    launches_icp_cli=launches_icp_cli[name],
+                    launches_data_parallel=dict(
+                        nccl_world1=launches_dp["nccl_world1"][name],
+                        gloo_ranks=[r[name] for r in launches_dp["gloo_ranks"]]),
+                    checked_at=checked[name],
                     library_ms=None, **rows_json[name])
                for name in ("raster_setup", "raster_resolve", "raster_resolve_attr")]
     log(card)

@@ -1,9 +1,10 @@
 """Samplers of the training loop, dataset concatenation and the multiview
-grouping (port of PartialSampler, ListSampler, ConcatSceneDataset and
-MultiViewWrapper in cosypose_tpu/data/wrappers.py, and of the training
-loop's dataset concat). PartialSampler
-draws with numpy's RandomState exactly as the JAX package does, so epoch
-orders are equal."""
+grouping (port of PartialSampler, ListSampler, DistributedSceneSampler,
+ConcatSceneDataset and MultiViewWrapper in cosypose_tpu/data/wrappers.py,
+and of the training loop's dataset concat). PartialSampler and
+DistributedSceneSampler draw with numpy's RandomState exactly as the JAX
+package does, so epoch orders and rank splits are equal. RankBatchSampler
+cuts a data-parallel rank's rows out of each global batch."""
 
 from __future__ import annotations
 
@@ -23,6 +24,44 @@ class PartialSampler:
 
     def __len__(self):
         return self.epoch_size
+
+
+class RankBatchSampler:
+    """Full global batches of `batch_size` in the sampler's order (the rest
+    dropped), of which rank r of `world` yields its contiguous rows
+    [r·b/w, (r+1)·b/w): every rank walks the same order, and the ranks
+    together take each global batch as one process would."""
+
+    def __init__(self, sampler, batch_size: int, rank: int = 0, world: int = 1):
+        if batch_size % world:
+            raise ValueError(f"global batch {batch_size} does not split over {world} ranks")
+        self.sampler, self.batch_size, self.rank, self.world = sampler, batch_size, rank, world
+
+    def __iter__(self):
+        per = self.batch_size // self.world
+        ids = list(self.sampler)
+        for start in range(0, len(ids) - self.batch_size + 1, self.batch_size):
+            yield ids[start + self.rank * per:start + (self.rank + 1) * per]
+
+    def __len__(self):
+        return len(self.sampler) // self.batch_size
+
+
+class DistributedSceneSampler:
+    """A rank's part of a dataset's indices: a RandomState(seed) permutation
+    (when shuffling), split by numpy's array_split (ref: samplers.py:20-34)."""
+
+    def __init__(self, ds, num_replicas: int, rank: int, shuffle: bool = True, seed: int = 0):
+        indices = np.arange(len(ds))
+        if shuffle:
+            indices = np.random.RandomState(seed).permutation(indices)
+        self.indices = np.array_split(indices, num_replicas)[rank].tolist()
+
+    def __iter__(self):
+        return iter(self.indices)
+
+    def __len__(self):
+        return len(self.indices)
 
 
 class ListSampler:

@@ -13,15 +13,13 @@ ADD-S in chunks of candidates under a byte cap.
 
 from __future__ import annotations
 
-import pathlib
-import pickle
-import time
 from collections import OrderedDict
 
 import numpy as np
 import torch
 
 from ..ops.symmetric import transform_pts
+from ..utils.distributed import file_all_gather
 from . import table
 
 GROUP_KEYS = ("scene_id", "view_id", "label")
@@ -159,47 +157,18 @@ def compute_ap(df: dict, n_gt, valid_key="0.1d") -> float:
     return float(average_precision(y_true, df["score"]) * y_true.sum() / n_gt)
 
 
-def _gather_frame_lists(frame_lists: dict, gather_dir, process_id: int = 0,
-                        n_processes: int = 1, timeout_s: float = 600.0):
-    """File-based all-gather of per-process meter frame lists: each process
-    publishes its frames to <gather_dir>/<pid>.pkl and polls for the rest.
-    Returns the merged dict in process order, or None for one process."""
-    if n_processes == 1:
-        return None
-    gather_dir = pathlib.Path(gather_dir)
-    gather_dir.mkdir(parents=True, exist_ok=True)
-    final = gather_dir / f"{process_id}.pkl"
-    if final.exists():
-        raise FileExistsError(f"{final} already exists: gather_dir was already used by a "
-                              f"previous gather; point each run at a fresh directory")
-    tmp = gather_dir / f"{process_id}.pkl.tmp"
-    tmp.write_bytes(pickle.dumps(frame_lists))
-    tmp.rename(final)
-    deadline = time.time() + timeout_s
-    paths = [gather_dir / f"{p}.pkl" for p in range(n_processes)]
-    while not all(p.exists() for p in paths):
-        if time.time() > deadline:
-            raise TimeoutError(f"meter gather timed out: missing "
-                               f"{[str(p) for p in paths if not p.exists()]}")
-        time.sleep(0.05)
-    merged = {k: [] for k in frame_lists}
-    for p in paths:
-        shard = pickle.loads(p.read_bytes())
-        for k in merged:
-            merged[k].extend(shard[k])
-    return merged
-
-
-def gather_multihost(meter, gather_dir, process_id: int = 0, n_processes: int = 1,
-                     timeout_s: float = 600.0):
+def gather_multihost(meter, gather_dir, process_id: int | None = None,
+                     n_processes: int | None = None, timeout_s: float = 600.0):
     """Merge a meter's accumulated frames (its `*_frames` lists) across
-    processes through a shared filesystem; returns the meter."""
+    processes through a shared filesystem (utils.distributed.file_all_gather;
+    process id and count default to the rank and world size); returns the
+    meter."""
     names = [k for k in vars(meter) if k.endswith("_frames")]
-    frames = _gather_frame_lists({k: getattr(meter, k) for k in names}, gather_dir,
-                                 process_id, n_processes, timeout_s)
-    if frames is not None:
+    shards = file_all_gather({k: getattr(meter, k) for k in names}, gather_dir, process_id,
+                             n_processes, timeout_s)
+    if shards is not None:
         for k in names:
-            setattr(meter, k, frames[k])
+            setattr(meter, k, [frame for shard in shards for frame in shard[k]])
     return meter
 
 

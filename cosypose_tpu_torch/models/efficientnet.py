@@ -16,6 +16,11 @@ and scales the kept ones by 1/(1 - rate). The drop-connect masks are drawn
 outside the forward (`draw_drop_masks`) and passed in, so a rematerialised
 forward sees the same masks.
 
+In a data-parallel run (`global_batch_stats`), train mode normalises with
+the statistics of the GLOBAL batch, as the JAX package's sharded step does:
+each channel's count, sum and sum of squares are all-reduced over the ranks,
+the gradient flowing back through the same reduction.
+
 Convolutions pad as TensorFlow's "SAME", as flax does: total padding
 max((ceil(n/s)-1)*s + k - n, 0), split (p//2, p - p//2). On stride-2 convs
 this is asymmetric, which torch's `padding=k//2` is not.
@@ -27,6 +32,7 @@ import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -99,16 +105,21 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     `update_stats` False (see `frozen_stats`) leaves the running statistics
     alone: a replayed forward under activation checkpointing, validation.
+    `process_group` (see `global_batch_stats`), where it spans more than one
+    rank, makes the batch statistics those of the global batch.
     """
 
     def __init__(self, ch: int, eps: float = BN_EPS, flax_momentum: float = FLAX_MOMENTUM):
         super().__init__(ch, eps=eps, momentum=1 - flax_momentum)
         self.flax_momentum = flax_momentum
         self.update_stats = True
+        self.process_group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.process_group is not None and dist.get_world_size(self.process_group) > 1:
+            return self._forward_global(x)
         # torch's fused batch norm hands back the batch mean and the UNBIASED
         # batch variance in buffers given to it at momentum 1. A replayed
         # forward takes the same path, so that it saves the same tensors.
@@ -123,6 +134,58 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_mean.mul_(m).add_(mean, alpha=1 - m)
             self.running_var.mul_(m).add_(var * ((n - 1) / n), alpha=1 - m)
         return y
+
+    def _forward_global(self, x):
+        """Train mode over the global batch: one all_reduce of the float64
+        count, per-channel sums and sums of squares (and one of their
+        gradients in backward); the biased variance E[x²] − E[x]², as flax
+        computes it, accumulated in float64; the normalisation in float32."""
+        xf = x.float()
+        dims = (0, 2, 3)
+        count = torch.full((1,), xf.numel() // xf.shape[1], dtype=torch.float64, device=x.device)
+        local = torch.cat([count, xf.sum(dims, dtype=torch.float64),
+                           (xf * xf).sum(dims, dtype=torch.float64)])
+        total = AllReduceSum.apply(local, self.process_group)
+        C = xf.shape[1]
+        n = total[0]
+        mean = total[1:1 + C] / n
+        var = (total[1 + C:] / n - mean * mean).clamp_min(0.0)
+        scale = torch.rsqrt(var + self.eps).float() * self.weight
+        y = (xf - mean.float()[None, :, None, None]) * scale[None, :, None, None] \
+            + self.bias[None, :, None, None]
+        if self.update_stats:
+            m = self.flax_momentum
+            with torch.no_grad():
+                self.running_mean.mul_(m).add_(mean.float(), alpha=1 - m)
+                self.running_var.mul_(m).add_(var.float(), alpha=1 - m)
+        return y.to(x.dtype)
+
+
+class AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks of a process group, in forward and in backward:
+    each rank's gradient of its own loss w.r.t. the sum reaches every rank's
+    summands."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def global_batch_stats(module: nn.Module, group) -> None:
+    """Every BatchNorm2d in `module` normalises in train mode with the
+    statistics of the global batch over `group` (None: the local batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.process_group = group
 
 
 @contextlib.contextmanager

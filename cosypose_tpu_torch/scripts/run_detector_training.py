@@ -11,6 +11,10 @@ mask prototypes, mask_pos_weight 2) and detector-bop-<ds>-{pbr|synt+real}
 at the dataset's input size. --debug trains 2 epochs of 32 samples in
 batches of 4 with no loader workers, into the run <config>-debug.
 --pretrain-run-id copies the tensors of that run whose name and shape match.
+Under torchrun (python -m torch.distributed.run --nproc_per_node N -m
+cosypose_tpu_torch.scripts.run_detector_training ...) the run is data
+parallel over global batches of batch_size × N, with --dist-backend and
+--param-mode as in run_pose_training.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from ..data.detection_dataset import DetectionDataset
 from ..data.wrappers import ConcatSceneDataset
 from ..models.detector import DetectorConfig
 from ..training.detector_training import DetectorTrainConfig, train_detector
+from ..utils.distributed import distributed_mode
 
 logger = logging.getLogger(__name__)
 
@@ -101,8 +106,17 @@ def main(argv=None):
     parser.add_argument("--ds-root", default=None, help="data root (default config.LOCAL_DATA_DIR)")
     parser.add_argument("--exp-dir", default=None, help="runs directory (default config.EXP_DIR)")
     parser.add_argument("--device", default="cuda", help="'cuda' (the default) or 'cpu'")
+    parser.add_argument("--dist-backend", default=None,
+                        help="process-group backend under torchrun (default: nccl on cuda, "
+                             "gloo on cpu)")
+    parser.add_argument("--param-mode", default="replicated", choices=("replicated", "fsdp"),
+                        help="data-parallel parameters: replicated (DDP) or sharded (FSDP2)")
     args = parser.parse_args(argv)
+    with distributed_mode(args.dist_backend, args.device) as device:
+        return run(args, device)
 
+
+def run(args, device):
     cfg = make_cfg(args.config, args.debug)
     labels = label_to_category_id(make_object_dataset(cfg.object_ds_name, ds_root=args.ds_root))
     train = dataclasses.replace(
@@ -119,7 +133,8 @@ def main(argv=None):
     state = train_detector(train, det_ds, run_dir, n_workers=cfg.n_dataloader_workers,
                            resume=args.resume,
                            pretrain_dir=exp_dir / args.pretrain_run_id
-                           if args.pretrain_run_id else None, device=args.device)
+                           if args.pretrain_run_id else None, device=device,
+                           param_mode=args.param_mode)
     return state, run_dir
 
 

@@ -4,6 +4,16 @@
       [--debug] [--resume] [--pretrain-run-id RUN] [--ds-root DIR] [--n-epochs N] \\
       [--no-eval-bundle] [--device cpu]
 
+Data parallel over N processes, each loading its rows of global batches of
+batch_size × N (training/train_pose.py):
+
+  python -m torch.distributed.run --nproc_per_node N \
+      -m cosypose_tpu_torch.scripts.run_pose_training --config ... \
+      [--dist-backend gloo] [--param-mode fsdp]
+
+NCCL on the cards (cuda:LOCAL_RANK), gloo with --device cpu; --dist-backend
+gloo with --device cuda:0 puts every rank on one card.
+
 A named config (training/configs.py) gives the hyperparameters, its datasets
 come from the registry (data/datasets_cfg.py) and the mesh database from its
 object dataset, on the card unless --device says otherwise. A config with a
@@ -24,6 +34,7 @@ from ..evaluation.eval_bundle import make_eval_bundle
 from ..ops.mesh_db import build_mesh_db
 from ..training.configs import make_cfg
 from ..training.train_pose import train_pose
+from ..utils.distributed import distributed_mode
 
 
 def main(argv=None):
@@ -39,13 +50,22 @@ def main(argv=None):
                         help="override the config's epoch budget")
     parser.add_argument("--exp-dir", default=None, help="runs directory (default config.EXP_DIR)")
     parser.add_argument("--device", default="cuda", help="'cuda' (the default) or 'cpu'")
+    parser.add_argument("--dist-backend", default=None,
+                        help="process-group backend under torchrun (default: nccl on cuda, "
+                             "gloo on cpu)")
+    parser.add_argument("--param-mode", default="replicated", choices=("replicated", "fsdp"),
+                        help="data-parallel parameters: replicated (DDP) or sharded (FSDP2)")
     args = parser.parse_args(argv)
+    with distributed_mode(args.dist_backend, args.device) as device:
+        return run(args, device)
 
+
+def run(args, device):
     cfg = make_cfg(args.config, debug=args.debug)
     if args.n_epochs is not None:
         cfg.train = dataclasses.replace(cfg.train, n_epochs=args.n_epochs)
     obj_ds = make_object_dataset(cfg.object_ds_name, ds_root=args.ds_root)
-    mesh_db = build_mesh_db(obj_ds.mesh_specs(), device=args.device)
+    mesh_db = build_mesh_db(obj_ds.mesh_specs(), device=device)
 
     resize = tuple(cfg.input_resize)
     # with the device jitter (train.rgb_aug_device) the host chain stays off
@@ -59,11 +79,11 @@ def main(argv=None):
                 for ds, repeat in val_scenes]
     eval_callback = None
     if val_scenes and not args.no_eval_bundle:
-        eval_callback = make_eval_bundle(cfg, mesh_db, val_scenes[0][0], device=args.device)
+        eval_callback = make_eval_bundle(cfg, mesh_db, val_scenes[0][0], device=device)
     return train_pose(cfg, scene_datasets={"train": train_sets, "val": val_sets},
                       mesh_db=mesh_db, resume=args.resume,
                       pretrain_run_id=args.pretrain_run_id, exp_dir=args.exp_dir,
-                      eval_callback=eval_callback, device=args.device)
+                      eval_callback=eval_callback, device=device, param_mode=args.param_mode)
 
 
 if __name__ == "__main__":

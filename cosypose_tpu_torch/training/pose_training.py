@@ -1,5 +1,5 @@
 """Pose-model training: the loss, the optimizer and the train step (port of
-cosypose_tpu/training/pose_training.py, single device).
+cosypose_tpu/training/pose_training.py).
 
 One step: input poses from the ground truth (or the boxes) → n
 render-and-compare iterations in train mode (each renders through the raster
@@ -11,6 +11,13 @@ The JAX package draws its random numbers inside the jitted step from a key;
 the port draws them on the CPU from a torch.Generator before the step
 (`draw_step`), so the card and the CPU see the same numbers and a test can
 hand the step the JAX package's draws.
+
+Data parallel (`param_mode` 'replicated' or 'fsdp', under a process group):
+each rank holds its contiguous rows of the global batch and of the global
+batch's draws, the net runs through parallel.DataParallel (gradients
+averaged, BatchNorm over the global batch), the clip reads the whole
+gradient's norm and the metrics are the global batch's: the step the JAX
+package's sharded step computes.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ from ..ops.losses import (compute_ADD_L1_loss, loss_refiner_aux_regression,
                           loss_refiner_CO_disentangled)
 from ..ops.pose_ops import TCO_init_from_boxes, TCO_init_from_boxes_zup_autodepth
 from ..ops.transforms import apply_pose_noise, pose_noise_draws
+from ..parallel.ddp import (DataParallel, global_grad_norm, local_part, loss_through,
+                            mean_over_ranks, rank_rows)
 
 INPUT_GENERATORS = ("fixed", "gt+noise", "fixed+trans_noise")
 
@@ -66,12 +75,14 @@ class PoseTrainConfig:
 
 @dataclasses.dataclass
 class TrainState:
-    """The predictor (net, BatchNorm running statistics), its optimizer and
-    the count of updates made. train_step updates it in place."""
+    """The predictor (net, BatchNorm running statistics), its optimizer, the
+    count of updates made and, in a data-parallel run, the net's wrapper.
+    train_step updates it in place."""
 
     pp: PosePredictor
     optimizer: torch.optim.Optimizer
     step: int = 0
+    dp: DataParallel | None = None
 
     @property
     def net(self) -> torch.nn.Module:
@@ -105,27 +116,49 @@ def make_optimizer(cfg: PoseTrainConfig, params) -> torch.optim.Optimizer:
 
 
 def create_train_state(cfg: PoseTrainConfig, device: str | torch.device = "cuda",
-                       generator: torch.Generator | None = None) -> TrainState:
-    """A freshly initialised predictor (seeded by `generator`) and optimizer."""
+                       generator: torch.Generator | None = None,
+                       param_mode: str | None = None) -> TrainState:
+    """A freshly initialised predictor (seeded by `generator`) and optimizer;
+    with `param_mode` ('replicated' or 'fsdp'), trained data-parallel over
+    the process group (rank 0's initial weights on every rank)."""
     pp = PosePredictor(cfg.predictor, device=device,
                        generator=generator or torch.Generator().manual_seed(0))
-    return TrainState(pp=pp, optimizer=make_optimizer(cfg, pp.net.parameters()))
+    dp = DataParallel(pp.net, param_mode) if param_mode is not None else None
+    params = dp.parameters() if dp is not None else pp.net.parameters()
+    return TrainState(pp=pp, optimizer=make_optimizer(cfg, params), dp=dp)
+
+
+def shard_draws(draws: dict, rank: int, world: int) -> dict:
+    """Rank r's rows of a global batch's draws: its contiguous rows of
+    pose_noise, drop_masks and jitter; point_ids is shared."""
+    def rows(t):
+        return t[rank_rows(len(t), rank, world)]
+
+    return dict(point_ids=draws["point_ids"],
+                pose_noise=tuple(rows(t) for t in draws["pose_noise"]),
+                drop_masks=[None if masks is None else [None if m is None else rows(m)
+                                                        for m in masks]
+                            for masks in draws["drop_masks"]],
+                jitter=None if draws["jitter"] is None else
+                {op: tuple(rows(t) for t in v) for op, v in draws["jitter"].items()})
 
 
 def draw_step(cfg: PoseTrainConfig, pp: PosePredictor, batch_size: int, n_points: int,
-              generator: torch.Generator) -> dict:
-    """The random numbers of one step, on the CPU from `generator`:
-    point_ids (the per-step loss point subset, shared across the batch),
-    pose_noise (input-generator draws), drop_masks (per iteration, per
-    block) and jitter (when cfg.rgb_aug_device)."""
+              generator: torch.Generator, rank: int = 0, world: int = 1) -> dict:
+    """The random numbers of one step of a global batch of `batch_size`, on
+    the CPU from `generator`: point_ids (the per-step loss point subset,
+    shared across the batch), pose_noise (input-generator draws), drop_masks
+    (per iteration, per block) and jitter (when cfg.rgb_aug_device). Every
+    rank draws the global batch's numbers from the same generator and keeps
+    its rows (shard_draws), so the ranks together see one stream."""
     n_pts = min(cfg.n_points_loss, n_points)
-    return dict(
+    return shard_draws(dict(
         point_ids=torch.randperm(n_points, generator=generator)[:n_pts],
         pose_noise=pose_noise_draws(batch_size, generator),
         drop_masks=[pp.net.backbone.draw_drop_masks(batch_size, generator)
                     for _ in range(cfg.n_iterations)],
         jitter=jitter_draws(batch_size, generator) if cfg.rgb_aug_device else None,
-    )
+    ), rank, world)
 
 
 def make_TCO_init(cfg: PoseTrainConfig, batch: dict, points: torch.Tensor,
@@ -200,12 +233,13 @@ def clip_and_step(params, optimizer: torch.optim.Optimizer, clip_grad_norm: floa
                   lr: float) -> torch.Tensor:
     """Clip the gradients by their global norm as optax does (scaled by
     max/norm where the norm is at least max, no epsilon), set the lr, step
-    the optimizer. Returns the global norm of the unclipped gradients."""
+    the optimizer. Returns the global norm of the unclipped gradients (of
+    the whole gradient where FSDP shards it)."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    norm = global_grad_norm(grads)
     factor = torch.where(norm < clip_grad_norm, torch.ones_like(norm), clip_grad_norm / norm)
     for g in grads:
-        g.mul_(factor)
+        local_part(g).mul_(factor)
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.step()
@@ -223,14 +257,18 @@ def apply_gradients(state: TrainState, cfg: PoseTrainConfig) -> torch.Tensor:
 
 def make_train_step(cfg: PoseTrainConfig, mesh_db):
     """train_step(state, batch, draws) → metrics (detached tensors, with
-    grad_norm): one update of `state`, in place."""
+    grad_norm): one update of `state`, in place. On a state made with a
+    param_mode (create_train_state) it is a data-parallel step over the
+    process group, on this rank's rows of the global batch
+    (parallel.shard_batch) and draws (draw_step with rank and world); its
+    metrics are then the global batch's."""
 
     def train_step(state: TrainState, batch: dict, draws: dict) -> dict:
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = pose_loss(state.pp, cfg, mesh_db, batch, draws)
+        loss, metrics = loss_through(state.dp, pose_loss, state.pp, cfg, mesh_db, batch, draws)
         loss.backward()
         metrics["grad_norm"] = apply_gradients(state, cfg)
-        return metrics
+        return metrics if state.dp is None else mean_over_ranks(metrics)
 
     return train_step
 
@@ -238,11 +276,12 @@ def make_train_step(cfg: PoseTrainConfig, mesh_db):
 def make_val_step(cfg: PoseTrainConfig, mesh_db):
     """val_step(state, batch, draws) → metrics: the train forward and loss
     (train-mode net, as in the JAX package) without augmentation, gradient or
-    running-statistics update."""
+    running-statistics update; data parallel as make_train_step."""
 
     def val_step(state: TrainState, batch: dict, draws: dict) -> dict:
         with torch.no_grad(), frozen_stats(state.pp.net):
-            _, metrics = pose_loss(state.pp, cfg, mesh_db, batch, draws, augment=False)
-        return metrics
+            _, metrics = loss_through(state.dp, pose_loss, state.pp, cfg, mesh_db, batch, draws,
+                                      False)
+        return metrics if state.dp is None else mean_over_ranks(metrics)
 
     return val_step

@@ -1,5 +1,4 @@
-"""Pose-model training loop (port of cosypose_tpu/training/train_pose.py,
-single device).
+"""Pose-model training loop (port of cosypose_tpu/training/train_pose.py).
 
 Dataset concat with repeat factors, an epoch loop over a fixed epoch_size
 sampler, validation every val_epoch_interval epochs, checkpoints every
@@ -8,29 +7,38 @@ host data time and step time, resume and pretrain. Batches come from a
 torch.utils.data.DataLoader over the JAX package's sampler and batch order
 (full batches only), in place of its threaded PrefetchLoader. Its worker
 processes each hold a copy of the datasets: `seed_worker` gives each copy its
-own random streams, from the epoch and the worker's id.
+own random streams, from the epoch, the worker's id and the rank.
+
+Under a process group (torchrun, utils.distributed.init_distributed_mode)
+the run is data parallel: the global batch is batch_size × world, every rank
+walks the same sampler order of global batches and loads its contiguous
+slice of each (RankBatchSampler), so the ranks together consume the JAX
+package's batches; rank 0 writes the config, the log and the checkpoints and
+runs the evaluation callback while the others wait.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-import logging
 import pathlib
 import time
 
 import numpy as np
 import torch
-from torch.utils.data import BatchSampler, DataLoader
+from torch.utils.data import DataLoader
 
 from ..config import EXP_DIR
-from ..data.wrappers import ConcatDataset, PartialSampler
+from ..data.wrappers import ConcatDataset, PartialSampler, RankBatchSampler
 from ..utils.device import resolve_device
-from .checkpoint import (latest_checkpoint, load_checkpoint, restore_into_state,
+from ..utils.distributed import barrier, get_rank, get_world_size, reduce_dict
+from ..utils.logging import get_logger
+from .checkpoint import (latest_checkpoint, load_checkpoint, load_net_state, restore_into_state,
                          save_checkpoint, save_config)
 from .logs import MetricsAccumulator, RunLogger
 from .pose_training import create_train_state, draw_step, make_train_step, make_val_step
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 
 def collate(items) -> dict:
@@ -44,57 +52,84 @@ def collate(items) -> dict:
                 labels=[it["label"] for it in items])
 
 
-def seed_worker(epoch: int, worker_id: int) -> None:
-    """DataLoader worker_init_fn: reseed each dataset of the worker's copy
-    that has random streams (`reseed`), from (epoch, worker id, dataset)."""
-    datasets = torch.utils.data.get_worker_info().dataset
-    datasets = getattr(datasets, "datasets", [datasets])
+def reseed_datasets(dataset, entropy: list, rank: int = 0) -> None:
+    """Reseed each dataset (of a ConcatDataset) that has random streams
+    (`reseed`), from (entropy, its index) and, on ranks other than 0, the
+    rank."""
+    datasets = getattr(dataset, "datasets", [dataset])
     for i, ds in enumerate({id(d): d for d in datasets}.values()):
         if hasattr(ds, "reseed"):
-            ds.reseed(int(np.random.SeedSequence([epoch, worker_id, i]).generate_state(1)[0]))
+            seq = np.random.SeedSequence([*entropy, i, *([rank] if rank else [])])
+            ds.reseed(int(seq.generate_state(1)[0]))
+
+
+def seed_worker(epoch: int, worker_id: int, rank: int = 0) -> None:
+    """DataLoader worker_init_fn: reseed the worker's copy of the datasets
+    from (epoch, worker id) and the rank."""
+    reseed_datasets(torch.utils.data.get_worker_info().dataset, [epoch, worker_id], rank)
 
 
 def make_loader(dataset, sampler, batch_size: int, n_workers: int, pin_memory: bool,
-                epoch: int = 0, collate_fn=collate):
-    """Full batches of `batch_size` in the sampler's order; worker processes
-    (spawned, reseeded by seed_worker) when n_workers > 0."""
+                epoch: int = 0, collate_fn=collate, rank: int = 0, world: int = 1):
+    """Full global batches of `batch_size` in the sampler's order, of which
+    this rank loads its contiguous rows; worker processes (spawned, reseeded
+    by seed_worker) when n_workers > 0."""
     if len(sampler) < batch_size:
         raise ValueError(f"epoch_size {len(sampler)} < batch {batch_size}: "
                          "no full batch can be formed")
-    return DataLoader(dataset, batch_sampler=BatchSampler(sampler, batch_size, drop_last=True),
+    return DataLoader(dataset, batch_sampler=RankBatchSampler(sampler, batch_size, rank, world),
                       collate_fn=collate_fn, num_workers=n_workers, pin_memory=pin_memory,
                       multiprocessing_context="spawn" if n_workers > 0 else None,
-                      worker_init_fn=functools.partial(seed_worker, epoch) if n_workers else None)
+                      worker_init_fn=functools.partial(seed_worker, epoch, rank=rank)
+                      if n_workers else None)
+
+
+@contextlib.contextmanager
+def on_rank_zero(state):
+    """Rank 0 runs the block while the others wait (at a barrier after it);
+    under FSDP every rank first gathers the whole parameters. Yields whether
+    this rank runs the block."""
+    with state.dp.full_params() if state.dp is not None else contextlib.nullcontext():
+        try:
+            yield get_rank() == 0
+        finally:
+            barrier()
 
 
 def train_pose(cfg, scene_datasets, mesh_db, resume: bool = False,
                pretrain_run_id: str | None = None, exp_dir=None, eval_callback=None,
-               device: str | torch.device = "cuda"):
+               device: str | torch.device = "cuda", param_mode: str = "replicated"):
     """Run the training loop; returns (train state, run directory).
 
     cfg: training.configs.RunConfig. scene_datasets: {'train': [(ds, repeat)],
     'val': [...]} of PoseDataset-shaped datasets (items: image uint8 CHW, K,
     TCO, bbox, label). mesh_db: BatchedMeshes of the training objects on
     `device`. eval_callback: fn(state, epoch) → metrics dict, run every
-    cfg.test_epoch_interval epochs and at the last one.
+    cfg.test_epoch_interval epochs and at the last one (on rank 0).
+    param_mode: 'replicated' or 'fsdp' under a process group (read only
+    there).
     """
     device = resolve_device(device)
     if mesh_db.device != device:
         raise ValueError(f"mesh_db is on {mesh_db.device}, training on {device}")
+    rank, world = get_rank(), get_world_size()
     exp_dir = pathlib.Path(exp_dir or EXP_DIR)
     run_dir = exp_dir / cfg.run_id
-    run_dir.mkdir(parents=True, exist_ok=True)
-    save_config(run_dir, cfg)
-    run_logger = RunLogger(run_dir)
+    run_logger = None
+    if rank == 0:
+        run_dir.mkdir(parents=True, exist_ok=True)
+        save_config(run_dir, cfg)
+        run_logger = RunLogger(run_dir)
 
     tcfg = cfg.train
-    state = create_train_state(tcfg, device, torch.Generator().manual_seed(0))
+    mode = param_mode if torch.distributed.is_initialized() else None
+    state = create_train_state(tcfg, device, torch.Generator().manual_seed(0), mode)
     start_epoch = 0
     if pretrain_run_id:
         ckpt = latest_checkpoint(exp_dir / pretrain_run_id)
         if ckpt is None:
             raise FileNotFoundError(f"no checkpoint for pretrain run {pretrain_run_id}")
-        state.pp.net.load_state_dict(load_checkpoint(ckpt)["net"])
+        load_net_state(state, load_checkpoint(ckpt)["net"])
         logger.info(f"Loaded pretrain weights from {ckpt}")
     if resume:
         ckpt = latest_checkpoint(run_dir)
@@ -108,6 +143,9 @@ def train_pose(cfg, scene_datasets, mesh_db, resume: bool = False,
     val_fn = make_val_step(tcfg, mesh_db)
     train_ds = ConcatDataset(scene_datasets["train"])
     val_ds = ConcatDataset(scene_datasets["val"]) if scene_datasets.get("val") else None
+    if rank and not cfg.n_dataloader_workers:  # each rank's copy of the datasets its own streams
+        reseed_datasets(train_ds, [], rank)
+    global_batch = tcfg.batch_size * world
     generator = torch.Generator().manual_seed(1)
     n_points = mesh_db.points.shape[1]
     pin = device.type == "cuda"
@@ -121,7 +159,8 @@ def train_pose(cfg, scene_datasets, mesh_db, resume: bool = False,
 
     for epoch in range(start_epoch, tcfg.n_epochs):
         loader = make_loader(train_ds, PartialSampler(train_ds, tcfg.epoch_size, seed=epoch),
-                             tcfg.batch_size, cfg.n_dataloader_workers, pin, epoch)
+                             global_batch, cfg.n_dataloader_workers, pin, epoch, rank=rank,
+                             world=world)
         acc = MetricsAccumulator()
         # per-epoch split: host data wait vs dispatch + device time of the steps
         waits, t_step = [], 0.0
@@ -129,7 +168,7 @@ def train_pose(cfg, scene_datasets, mesh_db, resume: bool = False,
         t_mark = time.perf_counter()
         for batch in loader:
             waits.append(time.perf_counter() - t_mark)  # the first starts the workers
-            draws = draw_step(tcfg, state.pp, tcfg.batch_size, n_points, generator)
+            draws = draw_step(tcfg, state.pp, global_batch, n_points, generator, rank, world)
             metrics = step_fn(state, device_batch(batch), draws)
             acc.add(metrics)  # tensors; converted at epoch end
             n_steps += 1
@@ -151,26 +190,33 @@ def train_pose(cfg, scene_datasets, mesh_db, resume: bool = False,
                      "data_s_first_batch": waits[0],
                      "data_s_second_half": float(np.mean(waits[n_steps // 2:]))})
 
-        record = run_logger.append(epoch, acc.means())
-        logger.info(f"epoch {epoch}: {record}")
+        # the step metrics are the global batch's already; the host timings
+        # are averaged over the ranks
+        record = reduce_dict(acc.means())
+        if rank == 0:
+            record = run_logger.append(epoch, record)
+            logger.info(f"epoch {epoch}: {record}")
         if epoch % cfg.save_epoch_interval == 0:
             save_checkpoint(run_dir, state, epoch)
         if eval_callback is not None and (epoch % cfg.test_epoch_interval == 0
                                           or epoch == tcfg.n_epochs - 1):
-            test_metrics = eval_callback(state, epoch)
-            if test_metrics:
-                run_logger.append(epoch, {},
-                                  extra={f"test/{k}": v for k, v in test_metrics.items()})
+            with on_rank_zero(state) as runs:
+                test_metrics = eval_callback(state, epoch) if runs else None
+                if test_metrics:
+                    run_logger.append(epoch, {},
+                                      extra={f"test/{k}": v for k, v in test_metrics.items()})
         if val_ds is not None and epoch % cfg.val_epoch_interval == 0:
-            val_sampler = PartialSampler(val_ds, max(tcfg.batch_size, tcfg.epoch_size // 10),
+            val_sampler = PartialSampler(val_ds, max(global_batch, tcfg.epoch_size // 10),
                                          seed=0)
             val_acc = MetricsAccumulator()
-            for batch in make_loader(val_ds, val_sampler, tcfg.batch_size,
-                                     cfg.n_dataloader_workers, pin, epoch):
-                draws = draw_step(tcfg, state.pp, tcfg.batch_size, n_points, generator)
+            for batch in make_loader(val_ds, val_sampler, global_batch,
+                                     cfg.n_dataloader_workers, pin, epoch, rank=rank,
+                                     world=world):
+                draws = draw_step(tcfg, state.pp, global_batch, n_points, generator, rank, world)
                 val_acc.add(val_fn(state, device_batch(batch), draws))
-            run_logger.append(epoch, {},
-                              extra={f"val/{k}": v for k, v in val_acc.means().items()})
+            if rank == 0:
+                run_logger.append(epoch, {},
+                                  extra={f"val/{k}": v for k, v in val_acc.means().items()})
 
     save_checkpoint(run_dir, state, tcfg.n_epochs - 1)
     return state, run_dir

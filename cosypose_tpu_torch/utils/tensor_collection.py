@@ -4,7 +4,8 @@ counterpart of cosypose_tpu/utils/tensor_collection.py).
 `infos` is a dict of equal-length numpy columns (e.g. 'label', 'batch_im_id',
 'score'); tensors are named fields with the same leading row count. Indexing
 by ids, `len`, `clone`, `merge_df` and `concatenate` are what the inference
-and multiview APIs need.
+and multiview APIs need; `pad_to`, `trimmed`, `gather_distributed` and
+`gather_multihost` bring the collections of a data-parallel run together.
 """
 
 from __future__ import annotations
@@ -13,6 +14,9 @@ from typing import Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from .distributed import collective_device, file_all_gather, get_world_size
 
 
 class TensorCollection:
@@ -64,6 +68,68 @@ class TensorCollection:
             if k not in on:
                 out.infos[k] = np.asarray(v)[ri]
         return out
+
+    def pad_to(self, n_rows: int, fill=0.0) -> tuple["TensorCollection", int]:
+        """(this collection padded to `n_rows` rows, its row count): the
+        tensors padded with `fill`, the columns with missing values as
+        `concatenate` fills them."""
+        n = len(self)
+        if n > n_rows:
+            raise ValueError(f"{n} rows do not fit in {n_rows}")
+        pad = n_rows - n
+        infos = {k: np.concatenate([v, _filled(v, pad)]) if pad else v
+                 for k, v in self.infos.items()}
+        tensors = {k: torch.cat([t, t.new_full((pad, *t.shape[1:]), fill)]) if pad else t
+                   for k, t in self.tensors.items()}
+        return TensorCollection(infos, **tensors), n
+
+    def trimmed(self, n_valid: int) -> "TensorCollection":
+        """The first n_valid rows: a padded collection's real ones."""
+        return self[np.arange(n_valid)]
+
+    def gather_distributed(self, n_valid: int | None = None) -> "TensorCollection":
+        """Every rank's real rows, in rank order, on every rank. Each rank
+        passes its collection padded to one row count (pad_to) and its number
+        of real rows (default: all); each tensor travels in one fixed-shape
+        all_gather_into_tensor of the padded rows, the columns by
+        all_gather_object. One process gets its real
+        rows."""
+        n_valid = len(self) if n_valid is None else n_valid
+        world = get_world_size()
+        if world == 1:
+            return self.trimmed(n_valid)
+        device = collective_device()
+        counts = torch.empty(world, dtype=torch.int64, device=device)
+        dist.all_gather_into_tensor(counts, torch.tensor([n_valid], device=device))
+        n_rows = len(self)
+        keep = np.concatenate([r * n_rows + np.arange(int(c)) for r, c in enumerate(counts)])
+        tensors = {}
+        for k, t in self.tensors.items():
+            out = t.new_empty((world * n_rows, *t.shape[1:]))
+            dist.all_gather_into_tensor(out, t.detach().contiguous())
+            tensors[k] = out[torch.as_tensor(keep, device=t.device)]
+        infos = [None] * world
+        dist.all_gather_object(infos, self.infos)
+        infos = {k: np.concatenate([np.asarray(i[k])[:int(c)] for i, c in zip(infos, counts)])
+                 for k in self.infos}
+        return TensorCollection(infos, **tensors)
+
+    def gather_multihost(self, gather_dir, process_id: int | None = None,
+                         n_processes: int | None = None,
+                         timeout_s: float = 600.0) -> "TensorCollection":
+        """Every process's rows (of any count), in process order, through a
+        shared directory (utils.distributed.file_all_gather: no process group
+        needed; id and count default to the rank and world size). The
+        tensors come back on this collection's devices."""
+        devices = {k: t.device for k, t in self.tensors.items()}
+        shards = file_all_gather(
+            dict(infos=self.infos, tensors={k: t.detach().cpu() for k, t in self.tensors.items()}),
+            gather_dir, process_id, n_processes, timeout_s)
+        if shards is None:
+            return self
+        merged = concatenate(TensorCollection(s["infos"], **s["tensors"]) for s in shards)
+        return TensorCollection(merged.infos,
+                                **{k: t.to(devices[k]) for k, t in merged.tensors.items()})
 
 
 def _filled(column: np.ndarray, n: int) -> np.ndarray:

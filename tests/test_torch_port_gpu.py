@@ -474,3 +474,68 @@ def test_lm_card_matches_cpu(cuda):
     assert abs(a["n_lm_iterations"] - b["n_lm_iterations"]) <= 1
     assert abs(a["final_loss"] - b["final_loss"]) <= 2e-5
     assert (a["objects"].TWO - b["objects"].TWO.cpu()).abs().max().item() <= 5e-4
+
+
+def test_two_gloo_ranks_on_the_card_match_one_process(cuda):
+    """chip_smoke phase 10(b) at a small size: the B0 48x64 step at a global
+    batch of 8 on two gloo ranks sharing the card (4 rows each) against one
+    process at 8 on the card, from the same weights, batch and draws, within
+    the card-vs-CPU tolerances of one step (chip_smoke.step_errors); each
+    rank launches both raster kernels once an iteration."""
+    import chip_smoke
+    from cosypose_tpu_torch.parallel import rank_checks
+    from cosypose_tpu_torch.parallel.spawn import spawn
+
+    tpt, cfg, db, state, batch, draws = _train_setup(cuda, remat=False, drop_connect_rate=0.2)
+    sd0 = {k: v.detach().cpu().clone() for k, v in state.pp.net.state_dict().items()}
+    ref = chip_smoke.step_snapshot(state.pp.net, tpt.make_train_step(cfg, db)(state, batch, draws))
+    case = dict(cfg=cfg, specs=[dataclasses.asdict(s) for s in demo.demo_specs()],
+                render_max_faces=512, param_mode="replicated", init=sd0,
+                batch={k: v.cpu().numpy() for k, v in batch.items()}, draws=[draws],
+                keep=("grads",))
+    ranks = spawn(rank_checks.pose_steps, 2, (case,), backend="gloo", device="cuda:0",
+                  timeout_s=300)
+    errs = chip_smoke.step_errors(chip_smoke.rank_snapshot(ranks[0]["steps"][0]), ref, cfg)
+    assert not {k: v for k, v in errs.items() if not v[0] <= v[1]}, errs
+    want = {"raster_setup": cfg.n_iterations, "raster_resolve": cfg.n_iterations,
+            "raster_resolve_attr": 0}
+    assert [r["launches"] for r in ranks] == [want, want]
+
+
+def test_global_batchnorm_two_ranks_on_the_card(cuda):
+    """BatchNorm over the global batch on two gloo ranks sharing the card:
+    output, input gradient, weight and bias gradients within 1e-5 and the
+    flax running update within 1e-6 of the full-batch layer on the card."""
+    from cosypose_tpu_torch.models.efficientnet import BatchNorm2d
+    from cosypose_tpu_torch.parallel import rank_checks
+    from cosypose_tpu_torch.parallel.spawn import spawn
+
+    rng = np.random.RandomState(11)
+    C = 6
+    case = dict(x=(3.0 + 2.0 * rng.normal(size=(8, C, 12, 10))).astype(np.float32),
+                dy=rng.normal(size=(8, C, 12, 10)).astype(np.float32),
+                weight=rng.uniform(0.5, 1.5, C).astype(np.float32),
+                bias=rng.normal(size=C).astype(np.float32),
+                running_mean=rng.normal(size=C).astype(np.float32),
+                running_var=rng.uniform(0.5, 1.5, C).astype(np.float32), eps=1e-3, momentum=0.9)
+    got = spawn(rank_checks.batchnorm, 2, (case,), backend="gloo", device="cuda:0",
+                timeout_s=300)
+    layer = BatchNorm2d(C, eps=1e-3, flax_momentum=0.9).to(cuda)
+    with torch.no_grad():
+        for k in ("weight", "bias", "running_mean", "running_var"):
+            getattr(layer, k).copy_(torch.as_tensor(case[k]))
+    x = torch.as_tensor(case["x"], device=cuda).requires_grad_(True)
+    y = layer(x)
+    (y * torch.as_tensor(case["dy"], device=cuda)).sum().backward()
+    torch.testing.assert_close(torch.cat([g["y"] for g in got]), y.detach().cpu(), atol=1e-5,
+                               rtol=0)
+    torch.testing.assert_close(torch.cat([g["dx"] for g in got]), x.grad.cpu(), atol=1e-5, rtol=0)
+    torch.testing.assert_close(sum(g["dweight"] for g in got), layer.weight.grad.cpu(),
+                               atol=1e-5, rtol=1e-6)
+    torch.testing.assert_close(sum(g["dbias"] for g in got), layer.bias.grad.cpu(), atol=1e-5,
+                               rtol=1e-6)
+    for g in got:
+        torch.testing.assert_close(g["running_mean"], layer.running_mean.cpu(), atol=1e-6,
+                                   rtol=1e-6)
+        torch.testing.assert_close(g["running_var"], layer.running_var.cpu(), atol=1e-6,
+                                   rtol=1e-6)

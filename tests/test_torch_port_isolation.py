@@ -50,6 +50,13 @@ def test_every_port_module_is_listed():
         assert f"cosypose_tpu_torch.{name}" in MODULES
 
 
+def test_data_parallel_modules_are_listed():
+    for name in ("utils.distributed", "utils.logging", "parallel.ddp", "parallel.spawn",
+                 "parallel.dryrun", "parallel.rank_checks", "scripts.example_multichip",
+                 "scripts.bench_scaling"):
+        assert f"cosypose_tpu_torch.{name}" in MODULES
+
+
 def test_port_imports_no_jax():
     assert _loaded_after("; ".join(f"import {m}" for m in MODULES)) == []
 
