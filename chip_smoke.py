@@ -90,11 +90,24 @@ Phases, none of them caught; any failure exits non-zero:
      each) against one process at 32 (2 compared steps, 6 timed ones), both
      kernels against their plain versions on each rank, FSDP2 against DDP
      on those ranks, and the gathers (reduce_dict, TensorCollection, the
-     meters) against one process.
-The last lines are the card's name and power limit, one JSON line of kernel
-numbers (launches while serving, training, recording, evaluating, on the
-detection path, in ICP and data parallel; the shapes each kernel was held to its plain
-version at; the attribute kernel's times at the scene shape), and the contract line
+     meters) against one process;
+ 11. serving export and inspection (serving_export_phase): phase 4's B3
+     bf16 refiner exported with torch.export at B=128, 4 iterations, saved
+     under build/ and loaded back, held to the eager forward with 4
+     launches of each kernel a call and both timed; the artifact in a fresh
+     process with torch and the operators' module only, equal; bench_stages
+     at B=128 with the raster bounds and its launches; a torch.profiler trace
+     of one call in a fresh process (both kernels' events and the annotation)
+     and in this process; run_procedural_accuracy --save-overlays,
+     make_scene_renderings and test_render_objects on the card, both kernels
+     held to their plain versions at their shapes.
+Phases 5-6 also log what torch.profiler still records in this process
+(profiler_device_events). The last lines are the card's name and power
+limit, one JSON line of kernel numbers (launches while serving, training,
+recording, evaluating, on the detection path, in ICP, data parallel, a call
+of the exported program, bench_stages and the inspection surfaces; the
+shapes each kernel was held to its plain version at; the attribute kernel's
+times at the scene shape), and the contract line
 {"ok": true, "device": {...}}. Without a card, or outside the repo, it exits
 non-zero and prints no result. The profiler tables go to
 build/chip_smoke_profile.txt and build/chip_smoke_train_profile.txt.
@@ -120,18 +133,6 @@ BATCH = 128
 N_COARSE, N_REFINER = 1, 4
 N_IMAGES, N_DETECTIONS = 4, 160
 TILES = [(8, 32), (16, 16), (16, 32), (32, 32), (8, 64), (16, 64)]  # (32, 32): ragged rows
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32 outside the
-# tensor cores, and HBM3 bandwidth
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
-# fp32 operations of one (pixel, row) visit of kernel B: 4 planes of 2 mul +
-# 2 add, 3 inside tests and the depth test. A winner's 3 colour planes come on
-# top; they are not counted, so the bound is a lower bound.
-FLOPS_PER_VISIT = 20
-# fp32 operations of kernel A per triangle, counted in csrc/raster_setup.cu:
-# corners 54, projection 21, shading 24, area and inverse 8, the 9 barycentric
-# coefficients 24, 1/z plane 15, colour/z 18 + 45, bbox and key 10
-FLOPS_PER_TRIANGLE = 219
 ATOL_KERNEL = 1e-4   # depth and rgb, kernel B vs plain (same arithmetic: expect 0)
 ATOL_SLICE = 1e-3    # TCO_final, card vs CPU (cuDNN vs oneDNN summation order)
 SOURCES = {"raster_setup": "cosypose_tpu_torch/csrc/raster_setup.cu",
@@ -238,6 +239,10 @@ DP_STEPS = 8
 DP_RANK_STEPS = 2
 DP_RANK_TIMED = 6
 DP_WORLD = 2
+# serving export: the exported program against the eager forward (the same
+# ATen ops and kernels on the same inputs: expect equal); overlay panels
+EXPORT_ATOL = 1e-5
+N_OVERLAYS = 4
 EVAL_CPU_COUNTS = {"render mask pixels that differ": 0,
                    f"depth pixels beyond {ATOL_KERNEL} m where both draw": 273,
                    "VSD pixels that differ": 5}
@@ -311,49 +316,6 @@ def queued_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_ops: float, n_bytes: float):
-    """(bound_ms, 'operations' or 'bytes')."""
-    t_ops, t_bytes = n_ops / PEAK_FP32, n_bytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def resolve_bound(rows, order, image, tile, budget, with_attr):
-    """(bound_ms, by, visits, bytes) of one resolve on these inputs, read
-    through the plain binning, so the same whatever implements the kernel:
-    20 operations per visit of a pixel centre inside a listed row's own bbox
-    within its tile; the rows and the order read once, the outputs written
-    once."""
-    import torch
-
-    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
-
-    (H, W), (th, tw) = image, tile
-    nty, ntx = rc.tile_grid(image, tile)
-    srt, idx, counts = rc.bin_chunks(rows, order, image, tile, budget)
-    B, T, Kc = idx.shape
-    dev = rows.device
-    row_ids = (idx.long()[..., None] * rc.CHUNK + torch.arange(rc.CHUNK, device=dev)).flatten(1)
-    lanes = srt[..., [rc.LANE_BBOX, rc.LANE_BBOX + 1, rc.LANE_BBOX + 2, rc.LANE_BBOX + 3,
-                      rc.LANE_VALID]]
-    box = torch.gather(lanes, 1, row_ids[..., None].expand(-1, -1, 5))
-    box = box.reshape(B, T, Kc * rc.CHUNK, 5).double()
-    listed = (torch.arange(Kc, device=dev) < counts[..., None]).repeat_interleave(rc.CHUNK, -1)
-    listed &= box[..., 4] != 0
-    t = torch.arange(T, device=dev)
-    x_lo, y_lo = ((t % ntx) * tw).double(), ((t // ntx) * th).double()
-    x_hi, y_hi = torch.clamp(x_lo + tw, max=W) - 1, torch.clamp(y_lo + th, max=H) - 1
-
-    def span(lo_edge, hi_edge, lo, hi):  # pixels p in [lo, hi] with p + 0.5 in [lo_edge, hi_edge]
-        first = torch.maximum(torch.ceil(lo_edge - 0.5), lo[None, :, None])
-        last = torch.minimum(torch.floor(hi_edge - 0.5), hi[None, :, None])
-        return (last - first + 1).clamp_min(0)
-
-    visits = float((span(box[..., 0], box[..., 2], x_lo, x_hi)
-                    * span(box[..., 1], box[..., 3], y_lo, y_hi) * listed).sum())
-    n_bytes = 4 * rows.numel() + 8 * order.numel() + 4 * B * H * W * (4 + int(with_attr))
-    return (*bound(visits * FLOPS_PER_VISIT, n_bytes), visits, n_bytes)
-
-
 def cull_counts(rows, order, image, tile, budget):
     """(listed, kept): (row, warp) pairs of listed rows, and those that the
     resolve kernel's cull (rasterizer_cuda.row_may_cover on each warp's pixel
@@ -372,16 +334,6 @@ def cull_counts(rows, order, image, tile, budget):
         rc.CHUNK, -1)[..., None]
     kept = rc.row_may_cover(listed_rows, *[r[None, :, None, :] for r in rect]) & live
     return int(live.sum()) * rect[0].shape[1], int(kept.sum())
-
-
-def setup_bound(tri_verts, tri_valid, colors, tri_attr, rows, ykey):
-    """(bound_ms, by, bytes) of one setup: corners, colours, validity, poses,
-    intrinsics (and attributes) read once, rows and keys written once."""
-    B, F = tri_valid.shape
-    n_bytes = (4 * tri_verts.numel() + tri_valid.numel() + 4 * colors.numel() + 4 * B * (16 + 9)
-               + (4 * tri_attr.numel() if tri_attr is not None else 0)
-               + 4 * (rows.numel() + ykey.numel()))
-    return (*bound(B * F * FLOPS_PER_TRIANGLE, n_bytes), n_bytes)
 
 
 def small_train_cfg():
@@ -806,6 +758,341 @@ def data_parallel_phase(tag: str, checked: dict) -> dict:
         f"(n_matched {ref.get('n_matched')}, AUC {ref.get('ADD(-S)_ntop=1_AUC', ref.get('AUC'))})")
     log(f"phase 10 took {time.perf_counter() - t_phase:.0f} s")
     return dict(nccl_world1=launches_world1, gloo_ranks=launches_ranks)
+
+
+def profiler_device_events() -> dict:
+    """What torch.profiler records in this process over one small matmul, by
+    the activities asked for (CUDA alone, as device_ms asks; CPU and CUDA, as
+    utils.profiling.trace asks): the device events in key_averages(), and the
+    kernel events of the Chrome trace; 0 where it has stopped seeing the card
+    (PERF.md §7). Then the device events of a CUDA-only session of 2,000
+    small kernels: all of them, or all but a few."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones(256, 256, device="cuda")
+    out = {}
+    for name, acts in (("cuda", [ProfilerActivity.CUDA]),
+                       ("cpu+cuda", [ProfilerActivity.CPU, ProfilerActivity.CUDA])):
+        with profile(activities=acts) as prof:
+            float((x @ x).sum())
+            torch.cuda.synchronize()
+        path = OUT_DIR / "profiler_probe.json"
+        prof.export_chrome_trace(str(path))
+        out[name] = (sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     sum(1 for e in json.loads(path.read_text())["traceEvents"]
+                         if e.get("cat") == "kernel"))
+    y = torch.zeros(64, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2000):
+            y += 1
+        torch.cuda.synchronize()
+    out["cuda, 2000 kernels"] = sum(e.count for e in prof.key_averages()
+                                    if e.device_type == DeviceType.CUDA)
+    return out
+
+
+def captured_renders(fn):
+    """(fn(), [(render args, kwargs), ...]): the ops.render calls that the
+    scene and batch renderers make inside fn, as amodal_inputs takes them."""
+    from cosypose_tpu_torch.rendering import scene_renderer
+
+    calls, render = [], scene_renderer.render
+
+    def keep(*args, **kwargs):
+        calls.append((args, kwargs))
+        return render(*args, **kwargs)
+
+    scene_renderer.render = keep
+    try:
+        return fn(), calls
+    finally:
+        scene_renderer.render = render
+
+
+def kernels_vs_plain_at(what: str, call, checked: dict) -> str:
+    """Both kernels against their plain versions on the card at one captured
+    render call's shape: setup within SETUP_TOL (setup_vs_plain), resolve (and
+    its attribute) exactly equal on the same sorted rows."""
+    import torch
+
+    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
+
+    args, kw = call
+    setup_args = (*args, kw["image_size"], kw["colors"])
+    rows, key, _, err, abs_err = setup_vs_plain(setup_args, kw.get("tri_attr"))
+    order, with_attr = rc.sort_order(key), kw.get("tri_attr") is not None
+    size, tile, budget = kw["image_size"], kw["tile"], kw["max_tris_per_tile"]
+    out_k = rc.RASTER_KERNEL.resolve(rows, order, size, tile, budget, with_attr)
+    torch.cuda.synchronize()
+    out_p = rc.resolve_plain_binned(rows, order, size, tile, budget, with_attr)
+    n = 3 if with_attr else 2
+    if not all(torch.equal(k, p) for k, p in zip(out_k[:n], out_p[:n])):
+        raise AssertionError(f"{what}: the resolve kernel differs from its plain version")
+    shape = f"{what}: {rows.shape[0]} x {rows.shape[1]} rows"
+    checked["raster_setup"].append(shape)
+    checked["raster_resolve_attr" if with_attr else "raster_resolve"].append(
+        f"{shape}, {tuple(size)}, tile {tuple(tile)}, budget {budget}")
+    return (f"{shape} at {size[0]}x{size[1]}, tile {tuple(tile)}, budget {budget}: setup plane "
+            f"rel err {err['plane']:.3g}, max abs err {abs_err:.3g}; resolve"
+            f"{' (attribute)' if with_attr else ''} equal")
+
+
+# the subprocess of phase 11 (b) and (d): torch and the operators' module
+# only, the exported artifact and its inputs from build/
+FRESH_LOAD = """
+import sys, json, numpy as np, torch
+import cosypose_tpu_torch.ops.rasterizer_cuda as rc
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+art, inputs, out, trace_dir = sys.argv[1:5]
+program = torch.export.load(art)
+x = np.load(inputs)
+dev = torch.device("cuda", 0)
+args = [torch.as_tensor(x[k], device=dev) for k in ("images", "K", "TCO")]
+args.append(torch.as_tensor(x["labels"], device=dev).long())
+fn = program.module()
+with torch.no_grad():
+    rc.RASTER_KERNEL.launches = {k: 0 for k in rc.RASTER_KERNEL.launches}
+    y = fn(*args)
+    torch.cuda.synchronize()
+    launches = dict(rc.RASTER_KERNEL.launches)
+    np.save(out, y.cpu().numpy())
+    report = dict(launches=launches,
+                  modules=sorted(m for m in sys.modules if m.startswith("cosypose_tpu")))
+    if trace_dir != "-":
+        from cosypose_tpu_torch.utils.profiling import annotate, trace
+        with trace(trace_dir) as prof:
+            with annotate("served_request"):
+                fn(*args)
+                torch.cuda.synchronize()
+        report["trace"] = str(prof.trace_path)
+print(json.dumps(report))
+"""
+
+
+def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, val_ds,
+                         mesh_db_p) -> dict:
+    """Phase 11: the serving export and the inspection surfaces. (a) the
+    serving refiner (phase 4's B3 bf16) exported at B=128, 480x640 frames,
+    240x320 renders, LOD 512, N_REFINER iterations, saved under build/,
+    loaded back and held to the eager forward (within EXPORT_ATOL), 4
+    launches of each kernel a call, ms a call both ways; (b) the artifact in
+    a fresh process that imports torch and the operators' module only, equal
+    to (a); (c) bench_stages at B=128 with the raster stages' bounds and
+    launches; (d) a torch.profiler trace of one call in a fresh process
+    (both kernels' events and the annotation), then the same in this
+    process; (e) run_procedural_accuracy --save-overlays on phase 7's
+    checkpoint, make_scene_renderings of a recorded val frame and
+    test_render_objects on the procedural set, each through the kernels with
+    both kernels held to their plain versions at its shapes. Returns the
+    kernels' launches per part."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cosypose_tpu_torch import demo
+    from cosypose_tpu_torch.models.pose_predictor import gather_mesh_data
+    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
+    from cosypose_tpu_torch.scripts import bench_stages, run_procedural_accuracy
+    from cosypose_tpu_torch.scripts import test_render_objects
+    from cosypose_tpu_torch.serving import export_pose_model, load_exported
+    from cosypose_tpu_torch.utils import png
+    from cosypose_tpu_torch.utils.profiling import annotate, trace
+    from cosypose_tpu_torch.utils.tensor_collection import TensorCollection
+    from cosypose_tpu_torch.visualization.multiview import make_scene_renderings
+
+    kernel = rc.RASTER_KERNEL
+    dev = torch.device("cuda", 0)
+    out = {}
+    t_phase = time.perf_counter()
+
+    def reset():
+        kernel.launches = {k: 0 for k in kernel.launches}
+
+    # (a) export at full width, load back, hold to eager
+    images, K, TCO, labels = demo.make_inputs(BATCH, *IMAGE)
+    art = OUT_DIR / f"refiner_b{BATCH}_it{N_REFINER}.pt2"
+    t0 = time.perf_counter()
+    export_pose_model(refiner, BATCH, IMAGE, n_iterations=N_REFINER, out_path=art)
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn = load_exported(art, device=dev)
+    t_load = time.perf_counter() - t0
+    args = [torch.as_tensor(a, device=dev) for a in (images, K, TCO)]
+    md = gather_mesh_data(db, torch.as_tensor(labels, device=dev).long(),
+                          refiner.predictor.cfg.n_points_crop)
+    with torch.no_grad():
+        got = fn(images, K, TCO, labels)          # warm: cuDNN plans
+        reset()
+        got = fn(images, K, TCO, labels)
+        torch.cuda.synchronize()
+        out["export"] = dict(kernel.launches)
+    want = refiner.predictor.forward(md, *args, n_iterations=N_REFINER)["TCO_final"]
+    err = float((got - want).abs().max())
+    moved = float((want - args[2]).abs().max())
+    want_l = {"raster_setup": N_REFINER, "raster_resolve": N_REFINER, "raster_resolve_attr": 0}
+    if out["export"] != want_l or not err <= EXPORT_ATOL or moved <= 1e-4 \
+            or not torch.isfinite(got).all():
+        raise AssertionError(f"export: launches {out['export']} (want {want_l}), max |exported "
+                             f"- eager| {err} (<= {EXPORT_ATOL}), poses moved {moved}")
+    with torch.no_grad():
+        ms_eager = time_cuda_ms(lambda: refiner.predictor.forward(md, *args,
+                                                                  n_iterations=N_REFINER), 10)
+        ms_export = time_cuda_ms(lambda: fn(*args, torch.as_tensor(labels, device=dev)), 10)
+    # what the registered operator adds to a launch: back-to-back calls of
+    # the setup kernel at the main path's shape, through the operator and
+    # straight through the ctypes binding (both host-bound at this size)
+    first = demo.first_render_inputs(BATCH, IMAGE, RENDER, LOD, dev)
+    s_args = (first["tri_verts"], first["tri_valid"], first["TCO"], first["K_crop"], RENDER,
+              first["colors"])
+    ms_op = time_cuda_ms(lambda: rc.setup(*s_args), 500, warmup=20)
+    ms_raw = time_cuda_ms(lambda: kernel.setup(*s_args), 500, warmup=20)
+    ms_op2 = time_cuda_ms(lambda: rc.setup(*s_args), 500, warmup=20)
+    log(f"{tag} dispatch: raster_setup back to back, {BATCH} x {first['tri_valid'].shape[1]} "
+        f"triangles: {ms_op:.4f} / {ms_op2:.4f} ms a call through cosypose::raster_setup, "
+        f"{ms_raw:.4f} ms through the ctypes binding alone (CUDA events over 500 calls)")
+    log(f"{tag} export: B3 bf16 refiner, B={BATCH}, {IMAGE[0]}x{IMAGE[1]} frames, {RENDER[0]}x"
+        f"{RENDER[1]} renders, LOD {LOD}, {N_REFINER} iterations: exported in {t_export:.1f} s "
+        f"({art.stat().st_size / 1e6:.1f} MB in {art.relative_to(REPO)}), loaded in "
+        f"{t_load:.1f} s; max |exported - eager| {err:.3g} (<= {EXPORT_ATOL}; bit-equal "
+        f"{torch.equal(got, want)}), poses moved up to {moved:.3g}; launches a call "
+        f"{out['export']}; ms a call by CUDA events over 10 warmed calls: eager {ms_eager:.2f}, "
+        f"exported {ms_export:.2f} ({100 * (ms_export / ms_eager - 1):+.1f} %)")
+
+    # (b) a fresh process with torch and the operators' module only
+    inputs = OUT_DIR / "export_inputs.npz"
+    np.savez(inputs, images=images, K=K, TCO=TCO, labels=labels)
+    y_path = OUT_DIR / "export_fresh_out.npy"
+    trace_dir = OUT_DIR / "chip_smoke_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", FRESH_LOAD, str(art), str(inputs), str(y_path),
+                          str(trace_dir)], cwd=REPO, capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"fresh-process load failed ({run.returncode}):\n"
+                             f"{run.stderr[-3000:]}")
+    report = json.loads(run.stdout.strip().splitlines()[-1])
+    fresh = torch.as_tensor(np.load(y_path))
+    same = torch.equal(fresh, got.cpu())
+    allowed = {"cosypose_tpu_torch", "cosypose_tpu_torch.ops", "cosypose_tpu_torch.ops.rasterizer",
+               "cosypose_tpu_torch.ops.rasterizer_cuda", "cosypose_tpu_torch.utils",
+               "cosypose_tpu_torch.utils.logging", "cosypose_tpu_torch.utils.profiling"}
+    if not same or report["launches"] != want_l or not set(report["modules"]) <= allowed:
+        raise AssertionError(f"fresh-process load: equal to (a) {same} (max diff "
+                             f"{float((fresh - got.cpu()).abs().max())}), launches "
+                             f"{report['launches']}, modules {report['modules']}")
+    log(f"{tag} fresh process ({time.perf_counter() - t0:.1f} s, torch and "
+        f"cosypose_tpu_torch.ops.rasterizer_cuda only; no checkpoint, no mesh files): output "
+        f"equal to (a) bit for bit, launches {report['launches']}")
+
+    # (d) the trace that process wrote around one served call
+    events = json.loads(pathlib.Path(report["trace"]).read_text())["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    counts = {k: sum(1 for e in kern if f"{k}_kernel" in e["name"]) for k in
+              ("raster_setup", "raster_resolve")}
+    annot = [e for e in events if e.get("name") == "served_request"]
+    dev_ms = sum(e.get("dur", 0) for e in kern) / 1e3
+    span = (max(e["ts"] + e.get("dur", 0) for e in kern) - min(e["ts"] for e in kern)) / 1e3 \
+        if kern else 0.0
+    if counts != {"raster_setup": N_REFINER, "raster_resolve": N_REFINER} or not annot:
+        raise AssertionError(f"trace in a fresh process: raster kernel events {counts} (want "
+                             f"{N_REFINER} each), annotation events {len(annot)}")
+    log(f"{tag} utils.profiling.trace in a fresh process around one exported call: "
+        f"{len(kern)} kernel events ({dev_ms:.2f} ms of kernels over a {span:.2f} ms span), "
+        f"raster kernels {counts}, the 'served_request' range present; trace "
+        f"{pathlib.Path(report['trace']).relative_to(REPO)}")
+    with trace(OUT_DIR / "chip_smoke_trace_main") as prof:
+        with annotate("served_request"), torch.no_grad():
+            fn(*args, torch.as_tensor(labels, device=dev))
+            torch.cuda.synchronize()
+    main_events = json.loads(prof.trace_path.read_text())["traceEvents"]
+    main_kern = [e for e in main_events if e.get("cat") == "kernel"]
+    log(f"{tag} the same trace in this process (after phases 1-10): {len(main_kern)} kernel "
+        f"events, {sum(1 for e in main_events if e.get('name') == 'served_request')} annotation "
+        f"events, {len(main_events)} events in all; profiler_device_events() "
+        f"{profiler_device_events()}")
+
+    # (c) bench_stages at B=128
+    reset()
+    t0 = time.perf_counter()
+    stage_rows = bench_stages.main(["--batch", str(BATCH), "--render-lod", str(LOD), "--json",
+                                    str(OUT_DIR / "bench_stages.json")])
+    out["bench_stages"] = dict(kernel.launches)
+    # each stage's timed calls and its FLOP-counting call, and the one render
+    # that makes the rows the raster stages take
+    want_b = {k: 1 + sum((r["calls"] + 1) * r["launches_per_call"][k] for r in stage_rows)
+              for k in ("raster_setup", "raster_resolve")}
+    got_b = {k: out["bench_stages"][k] for k in want_b}
+    by_stage = {r["stage"]: r for r in stage_rows}
+    if got_b != want_b or len(stage_rows) != 8 or not all(r["ms"] > 0 for r in stage_rows) \
+            or not all(by_stage[s].get("pct_of_bound") for s in ("raster setup kernel",
+                                                                  "raster resolve kernel")):
+        raise AssertionError(f"bench_stages: launches {got_b} (want {want_b}), rows {stage_rows}")
+    log(f"{tag} bench_stages --batch {BATCH} --render-lod {LOD} ({time.perf_counter() - t0:.1f} "
+        f"s): launches {got_b} (= calls x launches a call)")
+    for r in stage_rows:
+        extra = (f", bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['pct_of_bound']:.1f} % "
+                 f"of it)" if "bound_ms" in r else "")
+        extra += f", {r['gflop']:.2f} GFLOP, {r['tflops']:.2f} TFLOP/s" if r["gflop"] else ""
+        extra += f", {r['mfu_pct']:.2f} % of peak" if r["mfu_pct"] else ""
+        log(f"    {r['stage']:34s} {r['ms']:9.4f} ms on the device, {r['ms_per_call']:9.4f} ms "
+            f"a call on the host{extra}")
+
+    # (e) overlays, scene renderings, test_render_objects
+    overlay_dir = OUT_DIR / "chip_smoke_overlays"
+    reset()
+    acc = run_procedural_accuracy.main(acc_args + ["--n-frames", "4", "--n-iterations", "1",
+                                                   "--save-overlays", str(overlay_dir),
+                                                   "--n-overlays", str(N_OVERLAYS), "--out",
+                                                   str(OUT_DIR / "chip_smoke_overlays.json")])
+    out["overlays"] = dict(kernel.launches)
+    n_obj = len(acc["TCO_init"])
+    want_o = math.ceil(n_obj / EVAL_BSZ) + 2 * N_OVERLAYS
+    panels = [png.imread(p) for p in acc["overlays"]]
+    if out["overlays"] != {"raster_setup": want_o, "raster_resolve": want_o,
+                           "raster_resolve_attr": 0} or len(panels) != N_OVERLAYS \
+            or not all(p.ndim == 3 and p.std() > 0 for p in panels):
+        raise AssertionError(f"overlays: launches {out['overlays']} (want {want_o} each), "
+                             f"{len(panels)} panels")
+    log(f"{tag} run_procedural_accuracy --save-overlays ({n_obj} objects of 4 frames, 1 "
+        f"iteration): {len(panels)} PNG panels of {panels[0].shape[1]}x{panels[0].shape[0]} in "
+        f"{overlay_dir.relative_to(REPO)}; launches {out['overlays']} (= 1 chunk + 2 renders "
+        f"a panel)")
+
+    _, _, obs = val_ds[0]
+    objs = obs["objects"]
+    objects = TensorCollection(dict(label=np.array([o["label"] for o in objs])),
+                               TWO=torch.as_tensor(np.stack([o["TWO"] for o in objs]),
+                                                   dtype=torch.float32))
+    reset()
+    t0 = time.perf_counter()
+    frames, calls = captured_renders(lambda: make_scene_renderings(objects, None, mesh_db_p))
+    t_scene = time.perf_counter() - t0
+    out["scene_renderings"] = dict(kernel.launches)
+    if out["scene_renderings"] != {"raster_setup": 1, "raster_resolve": 0,
+                                   "raster_resolve_attr": 1} or len(frames) != 16 \
+            or not all(f.any() for f in frames):
+        raise AssertionError(f"make_scene_renderings: launches {out['scene_renderings']}, "
+                             f"{len(frames)} frames")
+    msg = kernels_vs_plain_at("scene renderings", calls[0], checked)
+    log(f"{tag} make_scene_renderings of a recorded val frame ({len(objs)} objects, 16 orbit "
+        f"views in one call, {t_scene:.2f} s): launches {out['scene_renderings']}; {msg}")
+
+    reset()
+    renders, calls = captured_renders(lambda: test_render_objects.main(
+        ["--object-ds", "procedural"]))
+    out["test_render_objects"] = dict(kernel.launches)
+    if out["test_render_objects"] != {"raster_setup": 1, "raster_resolve": 1,
+                                      "raster_resolve_attr": 0}:
+        raise AssertionError(f"test_render_objects: launches {out['test_render_objects']}")
+    msg = kernels_vs_plain_at("test_render_objects", calls[0], checked)
+    log(f"{tag} test_render_objects --object-ds procedural ({renders.shape[0]} objects): every "
+        f"render non-empty, launches {out['test_render_objects']}; {msg}")
+    log(f"phase 11 took {time.perf_counter() - t_phase:.0f} s")
+    return out
 
 
 def setup_vs_plain(args, tri_attr=None):
@@ -1287,6 +1574,7 @@ def main() -> int:
     from cosypose_tpu_torch.ops import rasterizer_cuda as rc
     from cosypose_tpu_torch.ops.camera import boxes_from_uv, project_points
     from cosypose_tpu_torch.ops.mesh_db import build_mesh_db
+    from cosypose_tpu_torch.ops.raster_bounds import resolve_bound, setup_bound
     from cosypose_tpu_torch.ops.rasterizer import camera_corners
     from cosypose_tpu_torch.ops.render import render
     from cosypose_tpu_torch.utils.tensor_collection import TensorCollection
@@ -1677,6 +1965,7 @@ def main() -> int:
 
     del state, kept
     torch.cuda.empty_cache()
+    log(f"profiler_device_events() after phase 5: {profiler_device_events()}")
     log(f"phases 1-5 done at {time.perf_counter() - t_main:.0f} s")
 
     # -- 6. recording and data ----------------------------------------------------
@@ -1782,6 +2071,7 @@ def main() -> int:
         f"{rc.chunk_budget(budget_a, rows_a.shape[1])}; kernel {ms_a6:.4f} ms on the device, "
         f"bound {b_a6:.4f} ms by {by_a6} ({100 * b_a6 / ms_a6:.1f} % of bound)")
     del rows_a, order_a, out_k, out_p
+    log(f"profiler_device_events() after phase 6's kernel checks: {profiler_device_events()}")
 
     # recording: CONFIGS["procedural"], then "procedural-canon"
     shutil.rmtree(DATA_ROOT, ignore_errors=True)
@@ -1831,6 +2121,8 @@ def main() -> int:
             f"render calls")
         if name == "procedural":
             launches_rec = got
+
+    log(f"profiler_device_events() after recording: {profiler_device_events()}")
 
     # reading back: the registry's synthetic splits, frame by frame against the sampler
     n_rec = RECORD["procedural"][0] * RECORD["procedural"][1]
@@ -1918,6 +2210,8 @@ def main() -> int:
             f"{rec['train/loss_total']:.4f}; launches {got} (3 a step of raster_setup and "
             f"raster_resolve)")
         del trained_p
+        log(f"profiler_device_events() after the trainer with {workers} loader workers: "
+            f"{profiler_device_events()}")
 
     # a small scene recorded on the card and on the CPU
     errs, differ = record_card_vs_cpu(DATA_ROOT / "card_vs_cpu")
@@ -1928,6 +2222,7 @@ def main() -> int:
     bad = {k: v for k, v in errs.items() if not v[0] <= v[1]}
     if bad:
         raise AssertionError(f"recording card vs CPU beyond tolerance: {bad}")
+    log(f"profiler_device_events() after phase 6: {profiler_device_events()}")
     log(f"phase 6 done at {time.perf_counter() - t_main:.0f} s")
 
     # -- 7. evaluation ------------------------------------------------------------
@@ -2570,6 +2865,10 @@ def main() -> int:
     launches_dp = data_parallel_phase(tag, checked)
     log(f"phase 10 done at {time.perf_counter() - t_main:.0f} s")
 
+    # -- 11. serving export and inspection ---------------------------------------
+    launches_sx = serving_export_phase(tag, checked, models[1], db, acc_args, val_depth, db_p)
+    log(f"phase 11 done at {time.perf_counter() - t_main:.0f} s")
+
     # -- results --------------------------------------------------------------
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], launches_training=launches_train[name],
@@ -2579,6 +2878,10 @@ def main() -> int:
                     launches_data_parallel=dict(
                         nccl_world1=launches_dp["nccl_world1"][name],
                         gloo_ranks=[r[name] for r in launches_dp["gloo_ranks"]]),
+                    launches_export_call=launches_sx["export"][name],
+                    launches_bench_stages=launches_sx["bench_stages"][name],
+                    launches_inspection={k: launches_sx[k][name] for k in (
+                        "overlays", "scene_renderings", "test_render_objects")},
                     checked_at=checked[name],
                     library_ms=None, **rows_json[name])
                for name in ("raster_setup", "raster_resolve", "raster_resolve_attr")]

@@ -247,15 +247,22 @@ class PosePredictor:
         init_weights(self.net, generator or torch.Generator().manual_seed(0))
         self.net.to(self.device).eval()
 
-    def network_input(self, mesh_data: dict, images, K, TCO_input):
-        """Crop and render for one iteration: (x (B,6|9,h,w) observed ⊕
-        rendered (⊕ their difference), K_crop, boxes_rend, boxes_crop)."""
+    def crop(self, mesh_data: dict, images, K, TCO_input):
+        """The DeepIM crop of one iteration: (images_crop (B,3,h,w), K_crop,
+        boxes_rend, boxes_crop)."""
         cfg = self.cfg
         crop_points = mesh_data["crop_points"]
         boxes_rend = boxes_from_uv(project_points_robust(crop_points, K, TCO_input))
         boxes_crop, images_crop = deepim_crops(images, boxes_rend, K, TCO_input, crop_points,
                                                output_size=cfg.render_size, lamb=cfg.lamb)
         K_crop = get_K_crop_resize(K, boxes_crop, images.shape[-2:], cfg.render_size)
+        return images_crop, K_crop, boxes_rend, boxes_crop
+
+    def network_input(self, mesh_data: dict, images, K, TCO_input):
+        """Crop and render for one iteration: (x (B,6|9,h,w) observed ⊕
+        rendered (⊕ their difference), K_crop, boxes_rend, boxes_crop)."""
+        cfg = self.cfg
+        images_crop, K_crop, boxes_rend, boxes_crop = self.crop(mesh_data, images, K, TCO_input)
         rendered = render(mesh_data["tri_verts"], mesh_data["tri_valid"], TCO_input, K_crop,
                           image_size=cfg.render_size, colors=mesh_data.get("tri_colors"),
                           tile=cfg.raster_tile,
@@ -283,18 +290,21 @@ class PosePredictor:
 
         return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
+    def update_pose(self, TCO_input, K_crop, pose_outputs):
+        """The image-space pose update of one iteration's head outputs."""
+        if self.cfg.pose_dim == 9:
+            dR, v = rot6d_to_matrix(pose_outputs[:, 0:6]), pose_outputs[:, 6:9]
+        else:
+            dR, v = quat_to_matrix(pose_outputs[:, 0:4]), pose_outputs[:, 4:7]
+        return apply_imagespace_predictions(TCO_input, K_crop, v, dR)
+
     def _iteration(self, mesh_data: dict, images, K, TCO_input, train: bool = False,
                    drop_masks: list | None = None):
-        cfg = self.cfg
         with torch.no_grad():  # crop and render: no gradient (K_crop detached)
             x, K_crop, boxes_rend, boxes_crop = self.network_input(mesh_data, images, K,
                                                                    TCO_input)
         pose_outputs = self._net_train(x, drop_masks) if train else self.net(x)
-        if cfg.pose_dim == 9:
-            dR, v = rot6d_to_matrix(pose_outputs[:, 0:6]), pose_outputs[:, 6:9]
-        else:
-            dR, v = quat_to_matrix(pose_outputs[:, 0:4]), pose_outputs[:, 4:7]
-        TCO_output = apply_imagespace_predictions(TCO_input, K_crop, v, dR)
+        TCO_output = self.update_pose(TCO_input, K_crop, pose_outputs)
         return TCO_output, dict(TCO_input=TCO_input, TCO_output=TCO_output, K_crop=K_crop,
                                 pose_outputs=pose_outputs, boxes_rend=boxes_rend,
                                 boxes_crop=boxes_crop)

@@ -12,8 +12,11 @@ headlight shading baked into the colour planes). A call is
            the sorted chunks itself, culls rows per warp and resolves depth,
            reading the rows through the sort's permutation.
 
-`setup` and `resolve` launch the kernels on CUDA tensors and run the plain
-versions on CPU tensors; nothing else. The plain versions:
+`setup` and `resolve` call the kernels as registered PyTorch operators,
+`cosypose::raster_setup` and `cosypose::raster_resolve` (torch.library), so
+that torch.export can trace a render as two opaque calls. Each operator's
+CUDA implementation launches the kernel, its CPU implementation runs the
+plain version, and no other device has one. The plain versions:
 
   setup_plain     camera_corners + triangle_planes + packing, in PyTorch ops;
   bin_chunks      the chunk binning of the JAX package (chunk AABBs, overlap,
@@ -69,7 +72,7 @@ def chunk_budget(max_tris_per_tile: int, Fp: int) -> int:
 
 
 def padded_rows(F: int) -> int:
-    return math.ceil(F / CHUNK) * CHUNK
+    return -(-F // CHUNK) * CHUNK  # integer arithmetic: F may be symbolic under tracing
 
 
 # ---------------------------------------------------------------------------
@@ -507,23 +510,89 @@ class RasterKernels:
 RASTER_KERNEL = RasterKernels()
 
 
-def setup(tri_verts, tri_valid, TCO, K, image_size, colors=None, z_near=0.05, tri_attr=None):
-    """Kernel A on CUDA tensors, setup_plain on CPU tensors: (rows, ykey)."""
-    if tri_verts.is_cuda:
-        def f32(x):
-            return None if x is None else x.float().contiguous()
+# ---------------------------------------------------------------------------
+# the registered operators
+# ---------------------------------------------------------------------------
+#
+# Both kernels are PyTorch operators, so that torch.export (and anything else
+# that traces with fake tensors, which have no data pointer) can take a call
+# in as one opaque node: `cosypose::raster_setup` and
+# `cosypose::raster_resolve`. Each has a CUDA implementation (the kernel,
+# never its plain version), a CPU implementation (the plain version) and a
+# fake one that gives the output shapes. No other device has one. A schema
+# cannot return None, so raster_resolve returns an empty tensor for the
+# attribute when with_attr is false; `resolve` hands back None for it.
 
-        return RASTER_KERNEL.setup(f32(tri_verts), tri_valid.bool().contiguous(), f32(TCO),
-                                   f32(K), image_size, f32(colors), z_near, f32(tri_attr))
-    if tri_verts.device.type == "cpu":
-        return setup_plain(tri_verts, tri_valid, TCO, K, image_size, colors, z_near, tri_attr)
-    raise ValueError(f"no rasterizer for device {tri_verts.device}")
+@torch.library.custom_op(
+    "cosypose::raster_setup", mutates_args=(), device_types="cpu",
+    schema="(Tensor tri_verts, Tensor tri_valid, Tensor TCO, Tensor K, int[] image_size, "
+           "Tensor? colors, float z_near, Tensor? tri_attr) -> (Tensor, Tensor)")
+def raster_setup_op(tri_verts, tri_valid, TCO, K, image_size, colors, z_near, tri_attr):
+    """CPU: setup_plain."""
+    return setup_plain(tri_verts, tri_valid, TCO, K, tuple(image_size), colors, z_near, tri_attr)
+
+
+@raster_setup_op.register_kernel("cuda")
+def _setup_cuda(tri_verts, tri_valid, TCO, K, image_size, colors, z_near, tri_attr):
+    return RASTER_KERNEL.setup(tri_verts, tri_valid, TCO, K, tuple(image_size), colors, z_near,
+                               tri_attr)
+
+
+@raster_setup_op.register_fake
+def _setup_fake(tri_verts, tri_valid, TCO, K, image_size, colors, z_near, tri_attr):
+    B, Fn = tri_verts.shape[:2]
+    Fp = padded_rows(Fn)
+    return tri_verts.new_empty(B, Fp, ROW), tri_verts.new_empty(B, Fp)
+
+
+@torch.library.custom_op(
+    "cosypose::raster_resolve", mutates_args=(), device_types="cpu",
+    schema="(Tensor rows, Tensor order, int[] image_size, int[] tile, int max_tris_per_tile, "
+           "bool with_attr) -> (Tensor, Tensor, Tensor)")
+def raster_resolve_op(rows, order, image_size, tile, max_tris_per_tile, with_attr):
+    """CPU: resolve_plain_binned."""
+    rgb, depth, attr = resolve_plain_binned(rows, order, tuple(image_size), tuple(tile),
+                                            max_tris_per_tile, with_attr)
+    return rgb, depth, rows.new_empty(0) if attr is None else attr
+
+
+@raster_resolve_op.register_kernel("cuda")
+def _resolve_cuda(rows, order, image_size, tile, max_tris_per_tile, with_attr):
+    rgb, depth, attr = RASTER_KERNEL.resolve(rows, order, tuple(image_size), tuple(tile),
+                                             max_tris_per_tile, with_attr)
+    return rgb, depth, rows.new_empty(0) if attr is None else attr
+
+
+@raster_resolve_op.register_fake
+def _resolve_fake(rows, order, image_size, tile, max_tris_per_tile, with_attr):
+    B, (H, W) = rows.shape[0], image_size
+    return (rows.new_empty(B, 3, H, W), rows.new_empty(B, H, W),
+            rows.new_empty(B, H, W) if with_attr else rows.new_empty(0))
+
+
+def _on_raster_device(x: torch.Tensor) -> None:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no rasterizer for device {x.device}")
+
+
+def setup(tri_verts, tri_valid, TCO, K, image_size, colors=None, z_near=0.05, tri_attr=None):
+    """cosypose::raster_setup: kernel A on CUDA tensors, setup_plain on CPU
+    tensors, on float32 copies of the inputs: (rows, ykey)."""
+    _on_raster_device(tri_verts)
+
+    def f32(x):
+        return None if x is None else x.float().contiguous()
+
+    return raster_setup_op(f32(tri_verts), tri_valid.bool().contiguous(), f32(TCO), f32(K),
+                           [int(s) for s in image_size], f32(colors), float(z_near),
+                           f32(tri_attr))
 
 
 def resolve(rows, order, image_size, tile, max_tris_per_tile=1024, with_attr=False):
-    """Kernel B on CUDA tensors, resolve_plain_binned on CPU tensors."""
-    if rows.is_cuda:
-        return RASTER_KERNEL.resolve(rows, order, image_size, tile, max_tris_per_tile, with_attr)
-    if rows.device.type == "cpu":
-        return resolve_plain_binned(rows, order, image_size, tile, max_tris_per_tile, with_attr)
-    raise ValueError(f"no rasterizer for device {rows.device}")
+    """cosypose::raster_resolve: kernel B on CUDA tensors, resolve_plain_binned
+    on CPU tensors: (rgb, depth, attr or None)."""
+    _on_raster_device(rows)
+    rgb, depth, attr = raster_resolve_op(rows, order, [int(s) for s in image_size],
+                                         [int(s) for s in tile], int(max_tris_per_tile),
+                                         bool(with_attr))
+    return rgb, depth, attr if with_attr else None

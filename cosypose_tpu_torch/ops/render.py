@@ -3,7 +3,9 @@
 Three steps (ops/rasterizer_cuda.py): the triangle setup, a stable sort of the
 rows by projected y-centre, and the binned depth resolve. CUDA tensors go
 through the two hand-written kernels (csrc/raster_setup.cu,
-csrc/raster_resolve.cu) and CPU tensors through their plain PyTorch versions.
+csrc/raster_resolve.cu) and CPU tensors through their plain PyTorch versions,
+both behind the registered operators cosypose::raster_setup and
+cosypose::raster_resolve, so that torch.export takes a render in as two calls.
 There is no fallback: a CUDA input that a kernel refuses raises. The render
 has no gradient (the kernels are outside autograd, and the JAX package's
 train forward stops the gradient at the pose and intrinsics it renders from):

@@ -33,6 +33,7 @@ from ..data.wrappers import ConcatDataset, PartialSampler, RankBatchSampler
 from ..utils.device import resolve_device
 from ..utils.distributed import barrier, get_rank, get_world_size, reduce_dict
 from ..utils.logging import get_logger
+from ..utils.profiling import maybe_start_trace, stop_trace
 from .checkpoint import (latest_checkpoint, load_checkpoint, load_net_state, restore_into_state,
                          save_checkpoint, save_config)
 from .logs import MetricsAccumulator, RunLogger
@@ -157,66 +158,71 @@ def train_pose(cfg, scene_datasets, mesh_db, resume: bool = False,
                     bboxes=batch["bboxes"].to(device, non_blocking=True),
                     label_ids=mesh_db.ids_for(batch["labels"]))
 
-    for epoch in range(start_epoch, tcfg.n_epochs):
-        loader = make_loader(train_ds, PartialSampler(train_ds, tcfg.epoch_size, seed=epoch),
-                             global_batch, cfg.n_dataloader_workers, pin, epoch, rank=rank,
-                             world=world)
-        acc = MetricsAccumulator()
-        # per-epoch split: host data wait vs dispatch + device time of the steps
-        waits, t_step = [], 0.0
-        t_last, n_steps = time.time(), 0
-        t_mark = time.perf_counter()
-        for batch in loader:
-            waits.append(time.perf_counter() - t_mark)  # the first starts the workers
-            draws = draw_step(tcfg, state.pp, global_batch, n_points, generator, rank, world)
-            metrics = step_fn(state, device_batch(batch), draws)
-            acc.add(metrics)  # tensors; converted at epoch end
-            n_steps += 1
-            if time.time() - t_last > 60.0:
-                logger.info(f"epoch {epoch}: step {n_steps}, "
-                            f"loss {float(metrics['loss_total']):.4f}")
-                t_last = time.time()
-            t_step += time.perf_counter() - t_mark
+    maybe_start_trace()  # honours COSYPOSE_TPU_TRACE_DIR
+    try:
+        for epoch in range(start_epoch, tcfg.n_epochs):
+            loader = make_loader(train_ds, PartialSampler(train_ds, tcfg.epoch_size, seed=epoch),
+                                 global_batch, cfg.n_dataloader_workers, pin, epoch, rank=rank,
+                                 world=world)
+            acc = MetricsAccumulator()
+            # per-epoch split: host data wait vs dispatch + device time of the steps
+            waits, t_step = [], 0.0
+            t_last, n_steps = time.time(), 0
             t_mark = time.perf_counter()
-        if n_steps:
-            # the steps run ahead of the card: wait for the last one, and
-            # charge the tail to the step time
-            float(metrics["loss_total"])
-            t_step += time.perf_counter() - t_mark
-            # the later half's wait: batches asked for after training began,
-            # past what the loader's workers queue before the first step when
-            # the epoch is longer than twice that queue
-            acc.add({"data_s_per_step": sum(waits) / n_steps, "step_s_per_step": t_step / n_steps,
-                     "data_s_first_batch": waits[0],
-                     "data_s_second_half": float(np.mean(waits[n_steps // 2:]))})
-
-        # the step metrics are the global batch's already; the host timings
-        # are averaged over the ranks
-        record = reduce_dict(acc.means())
-        if rank == 0:
-            record = run_logger.append(epoch, record)
-            logger.info(f"epoch {epoch}: {record}")
-        if epoch % cfg.save_epoch_interval == 0:
-            save_checkpoint(run_dir, state, epoch)
-        if eval_callback is not None and (epoch % cfg.test_epoch_interval == 0
-                                          or epoch == tcfg.n_epochs - 1):
-            with on_rank_zero(state) as runs:
-                test_metrics = eval_callback(state, epoch) if runs else None
-                if test_metrics:
-                    run_logger.append(epoch, {},
-                                      extra={f"test/{k}": v for k, v in test_metrics.items()})
-        if val_ds is not None and epoch % cfg.val_epoch_interval == 0:
-            val_sampler = PartialSampler(val_ds, max(global_batch, tcfg.epoch_size // 10),
-                                         seed=0)
-            val_acc = MetricsAccumulator()
-            for batch in make_loader(val_ds, val_sampler, global_batch,
-                                     cfg.n_dataloader_workers, pin, epoch, rank=rank,
-                                     world=world):
+            for batch in loader:
+                waits.append(time.perf_counter() - t_mark)  # the first starts the workers
                 draws = draw_step(tcfg, state.pp, global_batch, n_points, generator, rank, world)
-                val_acc.add(val_fn(state, device_batch(batch), draws))
-            if rank == 0:
-                run_logger.append(epoch, {},
-                                  extra={f"val/{k}": v for k, v in val_acc.means().items()})
+                metrics = step_fn(state, device_batch(batch), draws)
+                acc.add(metrics)  # tensors; converted at epoch end
+                n_steps += 1
+                if time.time() - t_last > 60.0:
+                    logger.info(f"epoch {epoch}: step {n_steps}, "
+                                f"loss {float(metrics['loss_total']):.4f}")
+                    t_last = time.time()
+                t_step += time.perf_counter() - t_mark
+                t_mark = time.perf_counter()
+            if n_steps:
+                # the steps run ahead of the card: wait for the last one, and
+                # charge the tail to the step time
+                float(metrics["loss_total"])
+                t_step += time.perf_counter() - t_mark
+                # the later half's wait: batches asked for after training began,
+                # past what the loader's workers queue before the first step when
+                # the epoch is longer than twice that queue
+                acc.add({"data_s_per_step": sum(waits) / n_steps,
+                         "step_s_per_step": t_step / n_steps,
+                         "data_s_first_batch": waits[0],
+                         "data_s_second_half": float(np.mean(waits[n_steps // 2:]))})
 
+            # the step metrics are the global batch's already; the host timings
+            # are averaged over the ranks
+            record = reduce_dict(acc.means())
+            if rank == 0:
+                record = run_logger.append(epoch, record)
+                logger.info(f"epoch {epoch}: {record}")
+            if epoch % cfg.save_epoch_interval == 0:
+                save_checkpoint(run_dir, state, epoch)
+            if eval_callback is not None and (epoch % cfg.test_epoch_interval == 0
+                                              or epoch == tcfg.n_epochs - 1):
+                with on_rank_zero(state) as runs:
+                    test_metrics = eval_callback(state, epoch) if runs else None
+                    if test_metrics:
+                        run_logger.append(epoch, {},
+                                          extra={f"test/{k}": v for k, v in test_metrics.items()})
+            if val_ds is not None and epoch % cfg.val_epoch_interval == 0:
+                val_sampler = PartialSampler(val_ds, max(global_batch, tcfg.epoch_size // 10),
+                                             seed=0)
+                val_acc = MetricsAccumulator()
+                for batch in make_loader(val_ds, val_sampler, global_batch,
+                                         cfg.n_dataloader_workers, pin, epoch, rank=rank,
+                                         world=world):
+                    draws = draw_step(tcfg, state.pp, global_batch, n_points, generator, rank,
+                                      world)
+                    val_acc.add(val_fn(state, device_batch(batch), draws))
+                if rank == 0:
+                    run_logger.append(epoch, {},
+                                      extra={f"val/{k}": v for k, v in val_acc.means().items()})
+    finally:
+        stop_trace()
     save_checkpoint(run_dir, state, tcfg.n_epochs - 1)
     return state, run_dir

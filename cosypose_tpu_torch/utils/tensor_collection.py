@@ -2,10 +2,13 @@
 counterpart of cosypose_tpu/utils/tensor_collection.py).
 
 `infos` is a dict of equal-length numpy columns (e.g. 'label', 'batch_im_id',
-'score'); tensors are named fields with the same leading row count. Indexing
-by ids, `len`, `clone`, `merge_df` and `concatenate` are what the inference
-and multiview APIs need; `pad_to`, `trimmed`, `gather_distributed` and
-`gather_multihost` bring the collections of a data-parallel run together.
+'score'); tensors are named fields with the same leading row count, read and
+written as attributes (`preds.poses = ...` replaces the tensor), added with
+`register_tensor` and dropped with `delete_tensor`. Indexing by ids, `len`,
+`clone`, `merge_df` and `concatenate` are what the inference and multiview
+APIs need; `pad_to`, `trimmed`, `gather_distributed` and `gather_multihost`
+bring the collections of a data-parallel run together; `to_numpy` hands the
+tensors to the host as numpy arrays.
 """
 
 from __future__ import annotations
@@ -34,6 +37,40 @@ class TensorCollection:
             return tensors[name]
         raise AttributeError(name)
 
+    def __setattr__(self, name, value):
+        """A tensor's name writes through to the tensor; other names set
+        plain attributes."""
+        if name in self.__dict__.get("tensors", {}):
+            self.tensors[name] = value
+        else:
+            object.__setattr__(self, name, value)
+
+    def register_tensor(self, name: str, tensor) -> None:
+        """Add (or replace) the tensor `name`; its rows must match."""
+        if (self.infos or self.tensors) and len(tensor) != len(self):
+            raise ValueError(f"{name} has {len(tensor)} rows, the collection {len(self)}")
+        self.tensors[name] = tensor
+
+    def delete_tensor(self, name: str) -> None:
+        self.tensors.pop(name)
+
+    def to_numpy(self) -> "TensorCollection":
+        """The same rows with each tensor as a numpy array on the host (the
+        columns are numpy already)."""
+        return TensorCollection(self.infos, **{k: t.detach().cpu().numpy()
+                                               for k, t in self.tensors.items()})
+
+    def __repr__(self) -> str:
+        lines = [f"{type(self).__name__}("]
+        for k, v in self.tensors.items():
+            lines.append(f"    {k}: {tuple(v.shape)} {str(v.dtype).removeprefix('torch.')},")
+        lines.append(")")
+        if self.infos:
+            lines.append("-" * 40)
+            lines += [f"{k}: {v.dtype} {v[:3].tolist()}{' ...' if len(v) > 3 else ''}"
+                      for k, v in self.infos.items()]
+        return "\n".join(lines)
+
     def __len__(self) -> int:
         for v in (*self.infos.values(), *self.tensors.values()):
             return len(v)
@@ -43,7 +80,8 @@ class TensorCollection:
         """Rows by an id array/list or a slice."""
         idx = np.arange(len(self))[ids] if isinstance(ids, slice) else np.asarray(ids)
         infos = {k: v[idx] for k, v in self.infos.items()}
-        tensors = {k: t[torch.as_tensor(idx, device=t.device)] for k, t in self.tensors.items()}
+        tensors = {k: t[idx] if isinstance(t, np.ndarray)
+                   else t[torch.as_tensor(idx, device=t.device)] for k, t in self.tensors.items()}
         return TensorCollection(infos, **tensors)
 
     def clone(self) -> "TensorCollection":

@@ -63,6 +63,7 @@ from cosypose_tpu_torch.scripts import run_pose_training as train_cli
 from cosypose_tpu_torch.scripts import run_procedural_accuracy as acc_cli
 from cosypose_tpu_torch.training import pose_training as tpt
 from cosypose_tpu_torch.training.configs import RunConfig
+from cosypose_tpu_torch.utils import png
 from cosypose_tpu_torch.utils.tensor_collection import TensorCollection
 from cosypose_tpu_torch.utils.weights import load_jax_train_state
 from tests.test_data import build_bop_fixture
@@ -311,5 +312,11 @@ def test_training_and_accuracy_clis_on_recorded_cubes(cube_root, tmp_path, monke
         assert all(np.isfinite(e["ADD_median"]) for e in saved["per_pair"].values())
         assert set(saved["matched_auc"]) == {"init", "refined"}
         assert saved["matched_auc"]["init"]["n_gt"] == saved["n_objects"]
-    with pytest.raises(NotImplementedError, match="item 19"):
-        acc_cli.main(common + ["--save-overlays", str(tmp_path / "overlays")])
+    # the overlays: input | init | refined panels of the first pairs, as PNGs
+    res = acc_cli.main(common + ["--save-overlays", str(tmp_path / "overlays"),
+                                 "--n-overlays", "2", "--out", str(tmp_path / "overlays.json")])
+    assert [p.name for p in res["overlays"]] == ["refinement_00.png", "refinement_01.png"]
+    for path in res["overlays"]:
+        panel = png.imread(path)
+        assert panel.dtype == np.uint8 and panel.ndim == 3 and panel.shape[2] == 3
+        assert panel.shape[1] == 3 * (panel.shape[1] // 3) and panel.std() > 0

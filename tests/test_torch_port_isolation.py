@@ -1,6 +1,6 @@
 """The port stands alone: importing any of its modules, or chip_smoke.py,
-loads neither jax nor the JAX package, nor PIL, pandas or scikit-learn (which
-the card's machine does not have)."""
+loads neither jax nor the JAX package, nor PIL, pandas, scikit-learn,
+matplotlib or yaml (which the card's machine does not have)."""
 
 import ast
 import pathlib
@@ -17,7 +17,8 @@ MODULES = sorted(
 def _loaded_after(statement: str) -> list[str]:
     code = (f"import sys; {statement}; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'cosypose_tpu', 'PIL', 'pandas', 'sklearn')))")
+            "('jax', 'jaxlib', 'flax', 'cosypose_tpu', 'PIL', 'pandas', 'sklearn', "
+            "'matplotlib', 'yaml')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True)
     return ast.literal_eval(out.stdout.strip().splitlines()[-1])
@@ -54,6 +55,17 @@ def test_data_parallel_modules_are_listed():
     for name in ("utils.distributed", "utils.logging", "parallel.ddp", "parallel.spawn",
                  "parallel.dryrun", "parallel.rank_checks", "scripts.example_multichip",
                  "scripts.bench_scaling"):
+        assert f"cosypose_tpu_torch.{name}" in MODULES
+
+
+def test_serving_and_surface_modules_are_listed():
+    for name in ("serving.export", "ops.raster_bounds", "utils.profiling", "utils.misc",
+                 "utils.colmap_io", "visualization.singleview", "visualization.plotter",
+                 "visualization.dashboard", "scripts.bench_stages", "scripts.convert_models",
+                 "scripts.preprocess_bop_dataset", "scripts.print_results_table",
+                 "scripts.render_readme_tables", "scripts.make_dashboard",
+                 "scripts.run_bop20_eval_multi", "scripts.run_colmap_reconstruction",
+                 "scripts.test_dataset", "scripts.test_render_objects"):
         assert f"cosypose_tpu_torch.{name}" in MODULES
 
 
