@@ -100,13 +100,27 @@ Phases, none of them caught; any failure exits non-zero:
      of one call in a fresh process (both kernels' events and the annotation)
      and in this process; run_procedural_accuracy --save-overlays,
      make_scene_renderings and test_render_objects on the card, both kernels
-     held to their plain versions at their shapes.
+     held to their plain versions at their shapes;
+ 12. the JPEG data path and the depthwise lowerings (jpeg_phase): every
+     committed JPEG fixture (tests/torch_port_data/jpeg) through the C++ and
+     the numpy decoder, both equal to the Pillow arrays stored beside them,
+     with host decode times (a 480x640 frame, the VOC frames, the same frame
+     as PNG); procedural-refiner trained with VOC backgrounds
+     (PoseDataset(voc_root=...)) at 0 and 8 loader workers, an item's
+     background held to the decoded, resized VOC image; one refiner
+     iteration at B=128, B3 bf16, LOD 512 in each depthwise lowering
+     (efficientnet-b3, +dwshift, +dwdense) from the same weights, features
+     held to the grouped conv's, each timed by CUDA events; a BOP split of
+     JPEG frames read through data/bop.py and run through phase 8's detector
+     and refiner; both kernels held to their plain versions at the training
+     step's, the lowerings' and the split's render shapes.
 Phases 5-6 also log what torch.profiler still records in this process
 (profiler_device_events). The last lines are the card's name and power
 limit, one JSON line of kernel numbers (launches while serving, training,
 recording, evaluating, on the detection path, in ICP, data parallel, a call
-of the exported program, bench_stages and the inspection surfaces; the
-shapes each kernel was held to its plain version at; the attribute kernel's
+of the exported program, bench_stages, the inspection surfaces, the JPEG
+phase's training runs, BOP split and lowerings; the shapes each kernel was
+held to its plain version at; the attribute kernel's
 times at the scene shape), and the contract line
 {"ok": true, "device": {...}}. Without a card, or outside the repo, it exits
 non-zero and prints no result. The profiler tables go to
@@ -243,6 +257,21 @@ DP_WORLD = 2
 # ATen ops and kernels on the same inputs: expect equal); overlay panels
 EXPORT_ATOL = 1e-5
 N_OVERLAYS = 4
+# the JPEG data path: the committed fixtures and VOC-layout tree of
+# tests/torch_port_data/jpeg (written with Pillow by
+# tests/torch_port_make_jpeg_fixtures.py, which also reads Pillow's decode of
+# each file stored beside them); host decode timings a file; procedural-refiner's
+# steps with VOC backgrounds at 0 and 8 loader workers; the depthwise
+# lowerings' outputs against the grouped conv's, relative to their largest
+# magnitude (the CPU test's bf16 limit, tests/test_torch_port_backbone.py);
+# the JPEG BOP split's frames (the 480x640 fixtures, each twice)
+JPEG_FRAME = "frame_420_q95.jpg"
+JPEG_DECODES = 20
+VOC_STEPS = {0: 6, 8: 32}
+DW_IMPLS = ("conv", "shift", "dense")
+DW_REPS = 5
+DW_BF16_RTOL_OF_MAX = 0.05
+JPEG_BOP_FRAMES = ("frame_420_q95.jpg", "frame_420_q90_progressive.jpg") * 2
 EVAL_CPU_COUNTS = {"render mask pixels that differ": 0,
                    f"depth pixels beyond {ATOL_KERNEL} m where both draw": 273,
                    "VSD pixels that differ": 5}
@@ -793,22 +822,24 @@ def profiler_device_events() -> dict:
     return out
 
 
-def captured_renders(fn):
-    """(fn(), [(render args, kwargs), ...]): the ops.render calls that the
-    scene and batch renderers make inside fn, as amodal_inputs takes them."""
+def captured_renders(fn, module=None):
+    """(fn(), [(render args, kwargs), ...]): the ops.render calls that `module`
+    (by default rendering.scene_renderer, whose scene and batch renderers
+    amodal_inputs takes; or models.pose_predictor) makes inside fn."""
     from cosypose_tpu_torch.rendering import scene_renderer
 
-    calls, render = [], scene_renderer.render
+    module = module or scene_renderer
+    calls, render = [], module.render
 
     def keep(*args, **kwargs):
         calls.append((args, kwargs))
         return render(*args, **kwargs)
 
-    scene_renderer.render = keep
+    module.render = keep
     try:
         return fn(), calls
     finally:
-        scene_renderer.render = render
+        module.render = render
 
 
 def kernels_vs_plain_at(what: str, call, checked: dict) -> str:
@@ -1093,6 +1124,304 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
         f"render non-empty, launches {out['test_render_objects']}; {msg}")
     log(f"phase 11 took {time.perf_counter() - t_phase:.0f} s")
     return out
+
+
+def time_kernels_at(what: str, call) -> str:
+    """Both kernels' device ms at one captured render call's shape (CUDA
+    events behind a spin kernel), their bounds and their plain versions' ms
+    on the card."""
+    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
+    from cosypose_tpu_torch.ops.raster_bounds import resolve_bound, setup_bound
+
+    args, kw = call
+    sa = (*args, kw["image_size"], kw["colors"])
+    size, tile, budget = kw["image_size"], kw["tile"], kw["max_tris_per_tile"]
+    rows, key = rc.setup(*sa)
+    order = rc.sort_order(key)
+    ms_s = queued_ms(lambda: rc.setup(*sa), 50)
+    ms_r = queued_ms(lambda: rc.RASTER_KERNEL.resolve(rows, order, size, tile, budget, False), 50)
+    plain_s = time_cuda_ms(lambda: rc.setup_plain(*sa), 10)
+    plain_r = time_cuda_ms(lambda: rc.resolve_plain_binned(rows, order, size, tile, budget, False),
+                           3, warmup=1)
+    b_s, by_s = setup_bound(sa[0], sa[1], sa[5], None, rows, key)[:2]
+    b_r, by_r = resolve_bound(rows, order, size, tile, budget, False)[:2]
+    return (f"{what} ({rows.shape[0]} x {rows.shape[1]} rows, {size[0]}x{size[1]}, tile "
+            f"{tuple(tile)}, budget {budget}; CUDA events behind a spin kernel): raster_setup "
+            f"{ms_s:.4f} ms (bound {b_s:.4f} ms by {by_s}, {100 * b_s / ms_s:.1f} %), plain "
+            f"{plain_s:.3f} ms; raster_resolve {ms_r:.4f} ms (bound {b_r:.4f} ms by {by_r}, "
+            f"{100 * b_r / ms_r:.1f} %), plain {plain_r:.2f} ms; library_ms: none")
+
+def jpeg_fixtures():
+    """tests/torch_port_make_jpeg_fixtures.py, loaded from its path: the card's
+    machine may have another top-level `tests` package, which would win over
+    the repo's directory of that name."""
+    import importlib.util
+
+    path = REPO / "tests" / "torch_port_make_jpeg_fixtures.py"
+    spec = importlib.util.spec_from_file_location("torch_port_make_jpeg_fixtures", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+def jpeg_phase(tag: str, checked: dict, ctx: dict) -> dict:
+    """Phase 12, the JPEG data path and the depthwise lowerings, on what
+    phases 6 and 8 leave: (a) every committed fixture through the C++ and the
+    numpy decoder, both equal to the stored Pillow arrays, and host decode
+    times; (b) procedural-refiner trained with VOC backgrounds at 0 and 8
+    loader workers; (c) one refiner iteration at bench.py's setting in each
+    depthwise lowering, from the same weights; (d) a BOP split of JPEG frames
+    through data/bop.py, the detector and the refiner. Returns the kernels'
+    launches in (b) and (c)."""
+    import random
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from cosypose_tpu_torch import demo
+    from cosypose_tpu_torch.data import pillow_ops
+    from cosypose_tpu_torch.data.augmentations import SceneObservation
+    from cosypose_tpu_torch.data.bop import BOPDataset
+    from cosypose_tpu_torch.data.datasets_cfg import make_object_dataset, make_scene_dataset
+    from cosypose_tpu_torch.data.pose_dataset import PoseDataset
+    from cosypose_tpu_torch.data.wrappers import MultiViewWrapper
+    from cosypose_tpu_torch.evaluation.pred_runners import BopPredictionRunner
+    from cosypose_tpu_torch.integrated.pose_predictor import CoarseRefinePosePredictor
+    from cosypose_tpu_torch.models import pose_predictor
+    from cosypose_tpu_torch.models.pose_predictor import (PosePredictor, PosePredictorConfig,
+                                                          gather_mesh_data)
+    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
+    from cosypose_tpu_torch.ops.mesh_db import build_mesh_db
+    from cosypose_tpu_torch.scripts import run_bop_inference, run_detector_training
+    from cosypose_tpu_torch.training.train_pose import train_pose
+    from cosypose_tpu_torch.utils import jpeg, jpeg_cext, png
+
+    dev, kernel = torch.device("cuda"), rc.RASTER_KERNEL
+    t_phase = time.perf_counter()
+    fx = jpeg_fixtures()
+    jpeg_root, voc_root = fx.ROOT, fx.VOC_ROOT
+
+    # (a) the decoders on every fixture; the library is built here, before
+    # any loader worker starts
+    t0 = time.perf_counter()
+    lib = jpeg_cext.build_library()
+    t_build = time.perf_counter() - t0
+    arrays = fx.expected()
+    t_numpy = {}
+    for rel, ref in arrays.items():
+        data = (jpeg_root / rel).read_bytes()
+        got_c = jpeg_cext.decode(data, rel)
+        t0 = time.perf_counter()
+        got_n = jpeg.decode(data, rel)
+        t_numpy[rel] = time.perf_counter() - t0
+        if not (np.array_equal(got_c, ref) and np.array_equal(got_n, ref)):
+            raise AssertionError(f"JPEG fixture {rel}: C++ equal {np.array_equal(got_c, ref)}, "
+                                 f"numpy equal {np.array_equal(got_n, ref)} to Pillow's array")
+
+    def median_ms(fn, data):
+        times = []
+        for _ in range(JPEG_DECODES):
+            t0 = time.perf_counter()
+            fn(data)
+            times.append(time.perf_counter() - t0)
+        return 1e3 * statistics.median(times)
+
+    frame_bytes = (jpeg_root / JPEG_FRAME).read_bytes()
+    ms_frame = median_ms(jpeg_cext.decode, frame_bytes)
+    png_bytes = png.encode(arrays[JPEG_FRAME])
+    ms_png = median_ms(png.decode, png_bytes)
+    voc = sorted(k for k in arrays if k.startswith("VOCdevkit/"))
+    ms_voc = [median_ms(jpeg_cext.decode, (jpeg_root / k).read_bytes()) for k in voc]
+    log(f"{tag} JPEG decoders: {lib.name} built by g++ in {t_build:.2f} s; {len(arrays)} "
+        f"fixtures ({', '.join(sorted(arrays))}): C++ and numpy both equal to the stored Pillow "
+        f"arrays; host decode, median of {JPEG_DECODES}: {JPEG_FRAME} (480x640 4:2:0 q95, "
+        f"{len(frame_bytes)} bytes) {ms_frame:.3f} ms by the C++ library, "
+        f"{1e3 * t_numpy[JPEG_FRAME]:.1f} ms once by numpy; the same frame as PNG "
+        f"({len(png_bytes)} bytes) {ms_png:.3f} ms by utils/png.decode; the VOC frames "
+        f"(500x375 / 375x500 q75 4:2:0) {', '.join(f'{m:.3f}' for m in ms_voc)} ms")
+
+    # (b) procedural-refiner with VOC backgrounds, 0 and 8 loader workers
+    run_p = ctx["make_cfg"]("procedural-refiner")
+    tcfg_p = run_p.train
+    Bp, n_it_p = tcfg_p.batch_size, tcfg_p.n_iterations
+    jitter = run_p.rgb_augmentation and not tcfg_p.rgb_aug_device
+    resize = tuple(run_p.input_resize)
+    train_name = "synthetic.procedural.train"
+
+    def voc_dataset(**kw):
+        return PoseDataset(make_scene_dataset(train_name, ds_root=ctx["data_root"]),
+                           resize=resize, voc_root=voc_root, **kw)
+
+    # an item's background is the decoded, resized VOC image; its foreground the frame's
+    probe = voc_dataset(apply_rgb_augmentation=False)
+    probe.background_aug.p = 1.0
+    checked_items = 0
+    for idx in range(4):
+        r = random.Random()
+        r.setstate(probe.background_aug.rng.getstate())
+        r.random()
+        path = r.choice(probe.background_aug.image_paths)
+        rgb, mask, obs = probe.scene_ds[idx]
+        s = probe.crop_resize(SceneObservation(np.asarray(rgb), np.asarray(mask), obs))
+        item = probe.get_data(idx)
+        if item is None:
+            continue
+        img = np.transpose(item["image"], (1, 2, 0))
+        bg = pillow_ops.resize_bilinear(arrays[str(path.relative_to(jpeg_root))], resize)
+        fg = s.mask > 0
+        if not (np.array_equal(img[~fg], bg[~fg]) and np.array_equal(img[fg], s.rgb[fg])):
+            raise AssertionError(f"VOC paste of {path.name} on frame {idx}: background or "
+                                 f"foreground differs")
+        checked_items += 1
+    if not checked_items:
+        raise AssertionError("no item with a valid object to check the VOC paste on")
+    log(f"{tag} VOC paste: {checked_items} items' backgrounds equal the decoded, resized "
+        f"{resize[0]}x{resize[1]} VOC image and their foregrounds the frame's")
+
+    launches_train = {}
+    for workers, steps in VOC_STEPS.items():
+        pose_ds = voc_dataset(apply_rgb_augmentation=jitter)
+        cfg_w = dataclasses.replace(run_p, run_id=f"procedural-refiner-voc-w{workers}",
+                                    n_dataloader_workers=workers, val_ds_names=())
+        cfg_w.train = dataclasses.replace(tcfg_p, n_epochs=1, epoch_size=Bp * steps)
+        kernel.launches = {k: 0 for k in kernel.launches}
+        t0 = time.perf_counter()
+        if workers == 0:
+            (trained, run_dir), calls = captured_renders(lambda: train_pose(
+                cfg_w, {"train": [(pose_ds, 1)]}, ctx["db_p"], exp_dir=ctx["exp_p"], device=dev),
+                pose_predictor)
+        else:
+            trained, run_dir = train_pose(cfg_w, {"train": [(pose_ds, 1)]}, ctx["db_p"],
+                                          exp_dir=ctx["exp_p"], device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(kernel.launches)
+        launches_train[workers] = got
+        want = {"raster_setup": steps * n_it_p, "raster_resolve": steps * n_it_p,
+                "raster_resolve_attr": 0}
+        rec = [json.loads(line) for line in (run_dir / "log.txt").read_text().splitlines()][-1]
+        if got != want or trained.step != steps or not math.isfinite(rec["train/loss_total"]):
+            raise AssertionError(f"VOC training with {workers} workers: launches {got} (want "
+                                 f"{want}), step {trained.step}, log {rec}")
+        step_s, data_s = rec["train/step_s_per_step"], rec["train/data_s_per_step"]
+        log(f"{tag} procedural-refiner with VOC backgrounds (p 0.3), {workers} loader workers: "
+            f"{steps} steps in {wall:.1f} s with set-up; {1e3 * step_s:.1f} ms/step, "
+            f"{Bp / step_s:.1f} samples/s; data wait {1e3 * data_s:.1f} ms/step "
+            f"({1e3 * rec['train/data_s_first_batch']:.1f} ms before the first batch, "
+            f"{1e3 * rec['train/data_s_second_half']:.1f} ms a step over the last "
+            f"{steps - steps // 2}); loss {rec['train/loss_total']:.4f}; launches {got}")
+        if workers == 0:
+            log(f"{tag} kernels at the VOC training step's render shape: "
+                + kernels_vs_plain_at("VOC training", calls[0], checked))
+            log(f"{tag} " + time_kernels_at("VOC training", calls[0]))
+        del trained
+
+    # (c) one refiner iteration at bench.py's setting in each lowering
+    images, K, TCO, labels = demo.make_inputs(BATCH, *IMAGE)
+    db = build_mesh_db(demo.demo_specs(), render_max_faces=LOD, device=dev)
+    cfg16 = PosePredictorConfig(compute_dtype=torch.bfloat16)
+    md = gather_mesh_data(db, torch.as_tensor(labels, device=dev).long(), cfg16.n_points_crop)
+    a = [torch.as_tensor(x, device=dev) for x in (images, K, TCO)]
+    state, feats, outs, ms_it, ms_bb = None, {}, {}, {}, {}
+    kernel.launches = {k: 0 for k in kernel.launches}
+    nets = {}
+    for impl in DW_IMPLS:
+        name = "efficientnet-b3" + ("" if impl == "conv" else f"+dw{impl}")
+        pp = PosePredictor(dataclasses.replace(cfg16, backbone=name), device=dev)
+        if state is None:
+            demo.demo_weights(pp, md, *a, torch.Generator().manual_seed(1))
+            state = pp.net.state_dict()
+            kernel.launches = {k: 0 for k in kernel.launches}
+        pp.net.load_state_dict(state)
+        seen = {}
+        hook = pp.net.backbone.register_forward_hook(
+            lambda m, inp, out: seen.update(x=inp[0].detach(), y=out.detach()))
+        with torch.no_grad():
+            out, calls = captured_renders(lambda: pp.forward(md, *a, n_iterations=1),
+                                          pose_predictor)
+        hook.remove()
+        feats[impl], outs[impl], nets[impl] = seen, out, pp
+    launches_dw = dict(kernel.launches)
+    if launches_dw != {"raster_setup": 3, "raster_resolve": 3, "raster_resolve_attr": 0}:
+        raise AssertionError(f"lowerings: launches {launches_dw} (want 3, one an iteration)")
+    log(f"{tag} kernels at the lowerings' iteration (B={BATCH}, LOD {LOD}): "
+        + kernels_vs_plain_at("depthwise lowerings", calls[0], checked))
+    x_in = feats["conv"]["x"]
+    errs = {}
+    for impl in DW_IMPLS[1:]:
+        if not torch.equal(feats[impl]["x"], x_in):
+            raise AssertionError(f"+dw{impl}: the backbone's input differs from the grouped conv's")
+        ref, got = feats["conv"]["y"].float(), feats[impl]["y"].float()
+        errs[impl] = float((got - ref).abs().max() / ref.abs().max())
+        t_err = max(float((outs[impl][k] - outs["conv"][k]).abs().max())
+                    for k in outs["conv"] if k.startswith("TCO"))
+        if not errs[impl] <= DW_BF16_RTOL_OF_MAX or not torch.isfinite(got).all():
+            raise AssertionError(f"+dw{impl}: features {errs[impl]} of their max from the "
+                                 f"grouped conv's (> {DW_BF16_RTOL_OF_MAX})")
+        log(f"{tag} +dw{impl} vs the grouped conv (B3 bf16, B={BATCH}): features max |diff| "
+            f"{errs[impl]:.4g} of their max (<= {DW_BF16_RTOL_OF_MAX}); TCO outputs max |diff| "
+            f"{t_err:.3g}")
+    for impl, pp in nets.items():
+        with torch.no_grad():
+            ms_it[impl] = time_cuda_ms(lambda: pp.forward(md, *a, n_iterations=1), DW_REPS, 1)
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                ms_bb[impl] = time_cuda_ms(lambda: pp.net.backbone(x_in), DW_REPS, 1)
+    log(f"{tag} depthwise lowerings, one refiner iteration at B={BATCH}, B3 bf16, 240x320, LOD "
+        f"{LOD} (CUDA events, {DW_REPS} calls): " + ", ".join(
+            f"{impl} {ms_it[impl]:.2f} ms (backbone {ms_bb[impl]:.2f} ms)" for impl in DW_IMPLS))
+    del nets, feats, outs
+
+    # (d) a BOP split of JPEG frames: data/bop.py, the detector, the refiner
+    split = ctx["data_root"] / "jpeg_bop"
+    shutil.rmtree(split, ignore_errors=True)
+    scene = split / "test" / "000000"
+    (scene / "rgb").mkdir(parents=True)
+    cam = {}
+    for view, name in enumerate(JPEG_BOP_FRAMES):
+        shutil.copyfile(jpeg_root / name, scene / "rgb" / f"{view:06d}.jpg")
+        cam[str(view)] = {"cam_K": [600.0, 0.0, 320.0, 0.0, 600.0, 240.0, 0.0, 0.0, 1.0],
+                          "depth_scale": 1.0}
+    (scene / "scene_camera.json").write_text(json.dumps(cam))
+    ds = BOPDataset(split, split="test")
+    for view, name in enumerate(JPEG_BOP_FRAMES):
+        rgb, mask, obs = ds[view]
+        if not np.array_equal(rgb, arrays[name]) or obs["objects"] or mask.any():
+            raise AssertionError(f"JPEG BOP frame {view}: not the fixture {name} as Pillow reads it")
+    labels_d = run_detector_training.label_to_category_id(make_object_dataset("procedural"))
+    detector = run_bop_inference.load_detector(ctx["run_d"].run_id, labels_d,
+                                               exp_dir=ctx["exp_p"], device=dev)
+    refiner = run_bop_inference.load_pose_model(ctx["run_m"].run_id, ctx["db_p"],
+                                                exp_dir=ctx["exp_p"], device=dev)
+    n_ref = 4
+    runner = BopPredictionRunner(MultiViewWrapper(ds, n_views=1), n_coarse_iterations=0,
+                                 n_refiner_iterations=n_ref)
+    server = CoarseRefinePosePredictor(None, refiner, device=dev)
+    kernel.launches = {k: 0 for k in kernel.launches}
+    t0 = time.perf_counter()
+    preds, calls = captured_renders(lambda: runner.get_predictions(
+        detector, server, detection_th=ctx["detection_th"]), pose_predictor)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_bop = dict(kernel.launches)
+    poses = preds["pose"]
+    per_frame = {}
+    for v in poses.infos["view_id"].tolist():
+        per_frame[v] = per_frame.get(v, 0) + 1
+    chunks = sum(math.ceil(n / ctx["eval_bsz"]) for n in per_frame.values())
+    want = {"raster_setup": chunks * n_ref, "raster_resolve": chunks * n_ref,
+            "raster_resolve_attr": 0}
+    if launches_bop != want or not len(poses) or not torch.isfinite(poses.poses).all():
+        raise AssertionError(f"JPEG BOP split: launches {launches_bop} (want {want}), "
+                             f"{len(poses)} poses")
+    log(f"{tag} JPEG BOP split ({len(ds)} frames of 480x640, {ctx['run_d'].run_id} -> "
+        f"{ctx['run_m'].run_id}, {n_ref} iterations, threshold {ctx['detection_th']}): "
+        f"{wall:.2f} s, detection {runner.seconds['detection']:.2f} s, pose "
+        f"{runner.seconds['pose']:.2f} s; {len(poses)} detections ({chunks} refiner chunks); "
+        f"launches {launches_bop} (want {want}); "
+        + kernels_vs_plain_at("JPEG BOP split", calls[0], checked))
+    log(f"phase 12 took {time.perf_counter() - t_phase:.0f} s")
+    return {"training": launches_train, "dw": launches_dw, "bop": launches_bop}
 
 
 def setup_vs_plain(args, tri_attr=None):
@@ -2869,6 +3198,12 @@ def main() -> int:
     launches_sx = serving_export_phase(tag, checked, models[1], db, acc_args, val_depth, db_p)
     log(f"phase 11 done at {time.perf_counter() - t_main:.0f} s")
 
+    # -- 12. the JPEG data path and the depthwise lowerings ---------------------
+    launches_jp = jpeg_phase(tag, checked, dict(
+        make_cfg=make_cfg, data_root=DATA_ROOT, db_p=db_p, exp_p=exp_p, run_d=run_d,
+        run_m=run_m, detection_th=BOP_DETECTION_TH, eval_bsz=EVAL_BSZ))
+    log(f"phase 12 done at {time.perf_counter() - t_main:.0f} s")
+
     # -- results --------------------------------------------------------------
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], launches_training=launches_train[name],
@@ -2882,6 +3217,10 @@ def main() -> int:
                     launches_bench_stages=launches_sx["bench_stages"][name],
                     launches_inspection={k: launches_sx[k][name] for k in (
                         "overlays", "scene_renderings", "test_render_objects")},
+                    launches_jpeg_training={f"workers_{w}": n[name] for w, n in
+                                            launches_jp["training"].items()},
+                    launches_jpeg_bop=launches_jp["bop"][name],
+                    launches_dw_lowerings=launches_jp["dw"][name],
                     checked_at=checked[name],
                     library_ms=None, **rows_json[name])
                for name in ("raster_setup", "raster_resolve", "raster_resolve_attr")]

@@ -42,13 +42,12 @@
 // 3.35 TB/s, so the launch itself dominates. The design makes it one launch
 // in place of ~150: each thread writes its row as eight 16-byte stores.
 //
-// Exactness: the arithmetic follows the association of the PyTorch ops
-// (einsum rows as ((r0 v0 + r1 v1) + r2 v2) + t, sums of three in order)
-// with __fmul_rn / __fadd_rn / __fdiv_rn / __fsqrt_rn, and the build passes
-// -fmad=false. PyTorch leaves the order of its einsum (a batched GEMM on the
-// card, with FMA) and of its small reductions unspecified, so the rows agree
-// with the plain version to a few ulps, not to the bit: ops/rasterizer_cuda.py
-// states the tolerance.
+// Exactness: the arithmetic follows the association of the plain version's
+// ops (corners as ((r0 v0 + r1 v1) + r2 v2) + t, sums of three in order) with
+// __fmul_rn / __fadd_rn / __fdiv_rn / __fsqrt_rn, and the build passes
+// -fmad=false, so validity and the 1/z plane equal the plain version's bit
+// for bit; torch.linalg.norm may round the normal's length otherwise, and
+// with it the colour planes: ops/rasterizer_cuda.py states the tolerance.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>

@@ -2,7 +2,8 @@
 cosypose_tpu/data/augmentations.py).
 
 Crop-resize to the target aspect ratio with the intrinsics update and bboxes
-regenerated from the segmentation, random-background pasting, and the
+regenerated from the segmentation, random-background pasting (any image
+list, or a VOC devkit's JPEGImages), and the
 photometric jitter chain (blur / sharpness / contrast / brightness / colour),
 grayscale and centre crop. The Pillow operations are data/pillow_ops.py's
 numpy versions, equal to Pillow's bit for bit; the `random.Random` streams
@@ -12,6 +13,7 @@ are drawn in the JAX package's order.
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 import random
 
 import numpy as np
@@ -78,8 +80,8 @@ class CropResizeToAspect:
 
 
 class BackgroundAugmentation:
-    """Paste the foreground (mask > 0) over a random background image (PNG:
-    the port has no JPEG decoder)."""
+    """Paste the foreground (mask > 0) over a random background image, PNG or
+    JPEG, converted to RGB and resized bilinearly to the frame as Pillow does."""
 
     def __init__(self, image_paths, p=0.3, rng=None):
         self.image_paths = list(image_paths)
@@ -95,6 +97,17 @@ class BackgroundAugmentation:
         fg = s.mask > 0
         rgb = np.where(fg[..., None], s.rgb, bg)
         return SceneObservation(rgb, s.mask, s.obs)
+
+
+class VOCBackgroundAugmentation(BackgroundAugmentation):
+    """Background paste from a VOC devkit tree (voc_root is e.g.
+    VOCdevkit/VOC2012): the sorted JPEGImages/*.jpg, none where the
+    directory is absent, as in the JAX package."""
+
+    def __init__(self, voc_root, p=0.3, rng=None):
+        jpeg_dir = pathlib.Path(voc_root) / "JPEGImages"
+        paths = sorted(jpeg_dir.glob("*.jpg")) if jpeg_dir.exists() else []
+        super().__init__(paths, p=p, rng=rng)
 
 
 class _PillowJitter:

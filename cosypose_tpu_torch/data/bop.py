@@ -12,7 +12,9 @@ mm→m on all translations and depths, as in the JAX package. The frame index
 is a FrameIndex (int columns) in place of the JAX package's pandas frame, and
 is cached in the same `cosypose_tpu_index.json` ({column: [values]}), so a
 cache written by either package is read by both. Images decode through
-utils/png.py; a JPEG frame raises NotImplementedError.
+utils/png.imread: PNG, and JPEG (BOP's PBR splits) through the host decoder
+csrc/jpeg_decode.cpp, equal to Pillow's; a grayscale frame is repeated to
+three channels, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -15,7 +15,7 @@ import pathlib
 import numpy as np
 
 from ..config import LOCAL_DATA_DIR
-from ..utils.png import PNGError, image_size
+from ..utils.png import image_size
 from .bop import BOPDataset, BOPObjectDataset
 
 # BOP dataset splits used by the reference
@@ -33,14 +33,18 @@ CACHE_BUDGET_BYTES = 8 * 1024 ** 3   # decoded frames a recorded set may keep in
 
 
 def _frame_size(ds: BOPDataset) -> tuple[int, int]:
-    """(h, w) of the first frame from its PNG header; 480x640 where there is
-    no PNG to read (a JPEG frame, or none)."""
+    """(h, w) of the first frame from its PNG or JPEG header, as the JAX
+    package reads it from Pillow; 480x640 where neither file reads."""
     row = ds.frame_index.row(0)
-    p = ds._scene_dir(row["scene_id"]) / "rgb" / f"{row['view_id']:06d}.png"
+    scene_dir = ds._scene_dir(row["scene_id"])
     try:
-        return image_size(p)
-    except (OSError, PNGError):
-        return 480, 640
+        for ext in ("png", "jpg"):
+            p = scene_dir / "rgb" / f"{row['view_id']:06d}.{ext}"
+            if p.exists():
+                return image_size(p)
+    except (OSError, ValueError):   # PNGError and JPEGError are ValueErrors
+        pass
+    return 480, 640
 
 
 def _keep_frames(ds: BOPDataset, keep: set) -> None:

@@ -4,9 +4,10 @@ of cosypose_tpu/data/pose_dataset.py).
 Crop/resize to the aspect ratio → background paste → photometric jitter →
 pick ONE random visible object a frame → (image uint8 CHW, K, TCO, bbox,
 label), with a retry loop over random indices when a frame has no valid
-object. Items are what training/train_pose.collate takes. Background
-images are PNG files; the JAX package's VOC backgrounds (JPEG) are not
-ported.
+object. Items are what training/train_pose.collate takes. Backgrounds
+come from a VOC devkit (`voc_root`, e.g. VOCdevkit/VOC2012: its
+JPEGImages/*.jpg), which takes precedence, or from a list of image files;
+either is pasted with probability 0.3.
 
 Random streams: the dataset and its augmentations hold `random.Random`
 objects seeded as in the JAX package, so with the data loaded in the main
@@ -25,16 +26,18 @@ import numpy as np
 
 from ..training.train_pose import collate
 from .augmentations import (BackgroundAugmentation, ColorJitterAugmentation,
-                            CropResizeToAspect, SceneObservation)
+                            CropResizeToAspect, SceneObservation, VOCBackgroundAugmentation)
 
 
 class PoseDataset:
     def __init__(self, scene_ds, resize=(480, 640), apply_rgb_augmentation=True,
-                 background_image_paths=(), min_area: float = 0.0,
+                 background_image_paths=(), voc_root=None, min_area: float = 0.0,
                  visib_fract_th: float = 0.1, seed: int = 0):
         self.scene_ds = scene_ds
         self.crop_resize = CropResizeToAspect(resize)
-        if background_image_paths:
+        if voc_root is not None:
+            self.background_aug = VOCBackgroundAugmentation(voc_root, p=0.3)
+        elif background_image_paths:
             self.background_aug = BackgroundAugmentation(background_image_paths, p=0.3)
         else:
             self.background_aug = None

@@ -3,8 +3,8 @@ cosypose_tpu/data/texture_dataset.py).
 
 An indexable collection of the {png,jpg,jpeg} images below a directory, each
 returned as float32 HxWx3 in [0, 1] for the corner-baking projector
-(recording/textures.py). Images decode through utils/png.py: a JPEG texture
-raises NotImplementedError, since the port has no JPEG decoder.
+(recording/textures.py). Images decode through utils/png.imread, PNG or JPEG
+(ShapeNet's textures are JPEG), and `as_rgb` gives Pillow's convert("RGB").
 """
 
 from __future__ import annotations

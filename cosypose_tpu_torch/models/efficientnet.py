@@ -24,6 +24,13 @@ the gradient flowing back through the same reduction.
 Convolutions pad as TensorFlow's "SAME", as flax does: total padding
 max((ceil(n/s)-1)*s + k - n, 0), split (p//2, p - p//2). On stride-2 convs
 this is asymmetric, which torch's `padding=k//2` is not.
+
+The depthwise convs take one of the JAX package's three lowerings
+(`dw_impl`, selected by a `+dwshift` / `+dwdense` suffix on the backbone
+name): "conv", the grouped conv (cuDNN); "shift", k² shifted multiply-adds
+over the padded input; "dense", a dense conv whose weight is eye(C) times the
+depthwise kernel (9·C² work in place of 9·C). All three keep the grouped
+conv's parameter, so a state dict loads into any of them.
 """
 
 from __future__ import annotations
@@ -95,6 +102,50 @@ class Conv2dSame(nn.Conv2d):
         if top or bottom or left or right:
             x = F.pad(x, (left, right, top, bottom))
         return F.conv2d(x, self.weight, self.bias, self.stride, 0, self.dilation, self.groups)
+
+
+DW_IMPLS = ("conv", "shift", "dense")
+
+
+def split_dw_impl(backbone: str) -> tuple[str, str]:
+    """'efficientnet-b3+dwshift' -> ('efficientnet-b3', 'shift'); no suffix: 'conv'."""
+    variant, _, dw = backbone.partition("+dw")
+    return variant, dw or "conv"
+
+
+class DepthwiseConv2dSame(Conv2dSame):
+    """The depthwise conv in the lowering `impl` names (DW_IMPLS), weight
+    (C, 1, k, k) in each."""
+
+    def __init__(self, channels: int, kernel: int, stride: int, impl: str = "conv"):
+        if impl not in DW_IMPLS:
+            raise ValueError(f"unknown depthwise lowering {impl!r}")
+        super().__init__(channels, channels, kernel, stride=stride, groups=channels, bias=False)
+        self.impl = impl
+
+    def forward(self, x):
+        if self.impl == "conv":
+            return super().forward(x)
+        (kh, kw), (s, _) = self.kernel_size, self.stride
+        oh, ow = math.ceil(x.shape[-2] / s), math.ceil(x.shape[-1] / s)
+        ph = max((oh - 1) * s + kh - x.shape[-2], 0)
+        pw = max((ow - 1) * s + kw - x.shape[-1], 0)
+        xp = F.pad(x, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+        if self.impl == "dense":
+            C = self.weight.shape[0]
+            eye = torch.eye(C, dtype=self.weight.dtype, device=self.weight.device)
+            return F.conv2d(xp, eye[:, :, None, None] * self.weight, None, self.stride)
+        # shift: in the autocast dtype where autocast is on, as the JAX
+        # module computes in its compute dtype, accumulator included
+        dev = x.device.type
+        dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
+        xp, w = xp.to(dtype), self.weight.to(dtype)
+        acc = torch.zeros(x.shape[0], x.shape[1], oh, ow, dtype=dtype, device=x.device)
+        for a in range(kh):
+            for b in range(kw):
+                sl = xp[:, :, a:a + (oh - 1) * s + 1:s, b:b + (ow - 1) * s + 1:s]
+                acc = acc + sl * w[:, 0, a, b][None, :, None, None]
+        return acc
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -204,14 +255,15 @@ def frozen_stats(module: nn.Module):
 
 class MBConvBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int,
-                 expand_ratio: int, se_ratio: float, drop_rate: float = 0.0):
+                 expand_ratio: int, se_ratio: float, drop_rate: float = 0.0,
+                 dw_impl: str = "conv"):
         super().__init__()
         mid = in_ch * expand_ratio
         self.has_expand = expand_ratio != 1
         if self.has_expand:
             self._expand_conv = Conv2dSame(in_ch, mid, 1, bias=False)
             self._bn0 = BatchNorm2d(mid)
-        self._depthwise_conv = Conv2dSame(mid, mid, kernel, stride=stride, groups=mid, bias=False)
+        self._depthwise_conv = DepthwiseConv2dSame(mid, kernel, stride, dw_impl)
         self._bn1 = BatchNorm2d(mid)
         se_ch = max(1, int(in_ch * se_ratio))
         self._se_reduce = Conv2dSame(mid, se_ch, 1)
@@ -248,10 +300,11 @@ class EfficientNet(nn.Module):
     n_halvings = 5  # stride-2 "SAME" convs, each giving ⌈n/2⌉
 
     def __init__(self, variant: str = "efficientnet-b3", in_channels: int = 6,
-                 drop_connect_rate: float = 0.2):
+                 drop_connect_rate: float = 0.2, dw_impl: str = "conv"):
         super().__init__()
         w_mult, d_mult, _, _ = EFFICIENTNET_PARAMS[variant]
         self.variant = variant
+        self.dw_impl = dw_impl
         stem_ch = round_filters(32, w_mult)
         self._conv_stem = Conv2dSame(in_channels, stem_ch, 3, stride=2, bias=False)
         self._bn0 = BatchNorm2d(stem_ch)
@@ -262,7 +315,8 @@ class EfficientNet(nn.Module):
             for i in range(round_repeats(repeat, d_mult)):
                 rate = drop_connect_rate * len(blocks) / n_blocks
                 blocks.append(MBConvBlock(cin_r if i == 0 else cout_r, cout_r, kernel,
-                                          stride if i == 0 else 1, expand, se, rate))
+                                          stride if i == 0 else 1, expand, se, rate,
+                                          dw_impl))
         self._blocks = nn.ModuleList(blocks)
         self.n_features = round_filters(1280, w_mult)
         self._conv_head = Conv2dSame(round_filters(320, w_mult), self.n_features, 1, bias=False)

@@ -34,7 +34,7 @@ from ..ops.render import render
 from ..ops.transforms import quat_to_matrix, rot6d_to_matrix
 from ..utils.device import resolve_device
 from .corrnet import CorrNet
-from .efficientnet import EfficientNet, frozen_stats
+from .efficientnet import DW_IMPLS, EfficientNet, frozen_stats, split_dw_impl
 from .wide_resnet import FlowNetSEncoder, WideResNet18, WideResNet34
 
 POOLINGS = ("gap", "moments", "scale", "flatten", "lk")
@@ -69,11 +69,15 @@ class PosePredictorConfig:
     remat: bool = False
 
     def __post_init__(self):
-        if "+dw" in self.backbone:
-            # the JAX package's depthwise lowerings are TPU roofline selectors
-            raise ValueError(f"backbone {self.backbone!r}: the +dw lowerings are not ported "
-                             "(ROADMAP queue 1, leftovers)")
-        if self.backbone not in EFFICIENTNETS and not any(
+        if self.backbone.startswith("efficientnet"):
+            variant, dw_impl = split_dw_impl(self.backbone)
+            # a mistyped suffix (e.g. '+dwdens') would otherwise run the default
+            # grouped conv and time the wrong lowering
+            if dw_impl not in DW_IMPLS:
+                raise ValueError(f"unknown depthwise lowering {dw_impl!r} in {self.backbone!r}")
+            if variant not in EFFICIENTNETS:
+                raise ValueError(f"Unknown backbone {self.backbone}")
+        elif self.backbone not in EFFICIENTNETS and not any(
                 k in self.backbone for k in ("resnet18", "resnet34")) \
                 and self.backbone not in ("flownet", "corrnet"):
             raise ValueError(f"Unknown backbone {self.backbone}")
@@ -95,7 +99,8 @@ def make_backbone(cfg: PosePredictorConfig) -> nn.Module:
     rounding up, that many times)."""
     n_ch = cfg.in_channels
     if cfg.backbone.startswith("efficientnet"):
-        return EfficientNet(cfg.backbone, in_channels=n_ch,
+        variant, dw_impl = split_dw_impl(cfg.backbone)
+        return EfficientNet(variant, in_channels=n_ch, dw_impl=dw_impl,
                             drop_connect_rate=cfg.drop_connect_rate)
     if "resnet34" in cfg.backbone:
         return WideResNet34(in_channels=n_ch)

@@ -24,14 +24,25 @@ class RenderOutput(NamedTuple):
 
 
 def camera_corners(tri_verts: torch.Tensor, TCO: torch.Tensor) -> torch.Tensor:
-    """Object-frame corners (B,F,3,3) posed by TCO (B,4,4) into the camera frame."""
-    return (torch.einsum("bij,bfvj->bfvi", TCO[:, :3, :3], tri_verts)
-            + TCO[:, None, None, :3, 3])
+    """Object-frame corners (B,F,3,3) posed by TCO (B,4,4) into the camera frame.
+
+    Each coordinate is ((R_i0 v_0 + R_i1 v_1) + R_i2 v_2) + t_i, one rounding
+    an op in that order, as kernel A (csrc/raster_setup.cu) computes it: a
+    batched GEMM (einsum) leaves its order and FMA use unspecified, and the
+    corners of a triangle that is degenerate up to rounding (the pole
+    triangles of a UV-sphere mesh) then project to equal or to different
+    floats in the two versions, which flips its validity.
+    """
+    R, t = TCO[:, None, None, :3, :3], TCO[:, None, None, :3, 3]
+    return ((R[..., 0] * tri_verts[..., 0:1] + R[..., 1] * tri_verts[..., 1:2])
+            + R[..., 2] * tri_verts[..., 2:3]) + t
 
 
 def triangle_planes(tv: torch.Tensor, tri_valid: torch.Tensor, K: torch.Tensor,
                     tri_colors: torch.Tensor, z_near: float) -> dict:
-    """Per-triangle affine plane coefficients in screen space.
+    """Per-triangle affine plane coefficients in screen space; the projection,
+    the barycentric planes and the sums over corners round each op in kernel
+    A's order (csrc/raster_setup.cu), the normal's length is torch's own.
 
     tv (B,F,3,3) camera-frame corners, tri_valid (B,F), K (B,3,3),
     tri_colors (B,F,3,3) per-corner albedo. Returns (B,F,...) tensors:
@@ -65,14 +76,21 @@ def triangle_planes(tv: torch.Tensor, tri_valid: torch.Tensor, K: torch.Tensor,
     c = torch.stack([x1 * y2 - x2 * y1, x2 * y0 - x0 * y2, x0 * y1 - x1 * y0],
                     dim=-1) * inv_area2[..., None]
 
-    # 1/z and colour/z are affine: coeff = sum_i lambda_coeff_i * attr_i
+    # 1/z and colour/z are affine: coeff = sum_i lambda_coeff_i * attr_i, summed
+    # over the corners in order (a plane of a sliver cancels terms ~1e6 apart,
+    # so the order decides its last bits)
+    def corner_sum(t, dim):
+        t0, t1, t2 = t.unbind(dim)
+        return (t0 + t1) + t2
+
     ctiz = tcol * tiz[..., None]  # (B, F, 3 corners, 3 channels)
     return dict(
         lam_a=a, lam_b=b, lam_c=c,
-        iz_abc=torch.stack([(a * tiz).sum(-1), (b * tiz).sum(-1), (c * tiz).sum(-1)], dim=-1),
-        col_a=(a[..., None] * ctiz).sum(-2),
-        col_b=(b[..., None] * ctiz).sum(-2),
-        col_c=(c[..., None] * ctiz).sum(-2),
+        iz_abc=torch.stack([corner_sum(a * tiz, -1), corner_sum(b * tiz, -1),
+                            corner_sum(c * tiz, -1)], dim=-1),
+        col_a=corner_sum(a[..., None] * ctiz, -2),
+        col_b=corner_sum(b[..., None] * ctiz, -2),
+        col_c=corner_sum(c[..., None] * ctiz, -2),
         bbox=torch.stack([u.amin(-1), v.amin(-1), u.amax(-1), v.amax(-1)], dim=-1),
         valid=tri_valid & ~tbehind & ~degenerate,
     )

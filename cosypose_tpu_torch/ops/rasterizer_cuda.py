@@ -146,10 +146,11 @@ def setup_plain(tri_verts: torch.Tensor, tri_valid: torch.Tensor, TCO: torch.Ten
 
 
 # Tolerance of kernel A against setup_plain, in units u = 2^-24 of float32
-# rounding. The kernel rounds each op as the PyTorch ops do, but PyTorch leaves
-# the order of its einsum (a batched GEMM with FMA on the card), of its 3-term
-# sums and of its norm unspecified, so the two differ in the last bits of the
-# sums. The 1/z and colour planes are such sums: the barycentric planes,
+# rounding. Both versions round the corners, the projection, the barycentric
+# planes and the sums over corners op for op in the same order
+# (ops/rasterizer.py), so validity and the 1/z plane agree bit for bit; the
+# normal's length (torch.linalg.norm against a rounded sum of squares) may
+# differ in its last bit, and with it the colour planes. Those are sums: the barycentric planes,
 # weighted by the corners' values t_k. The barycentric planes nearly cancel in
 # the image (they sum to 1), so a last-bit difference in a term moves a plane's
 # value by up to u * t_k * sum_k mag(lambda_k), which grows as the triangle

@@ -7,9 +7,8 @@ cosypose_tpu/scripts/run_bop_eval.py).
 With --bop-toolkit-dir the official bop_toolkit scores the CSV in a
 subprocess. Without it the native metrics run: the ADD(-S) meter's AUC, AP
 and 0.1d recall over '<dataset>.test.bop19', then the BOP19 Average Recall
-(VSD from depth renders through BatchRenderer, MSSD, MSPD). BOP's real test
-splits are JPEG, which the port cannot decode yet (ROADMAP queue 1 item 12):
-until then the native path reads PNG splits only.
+(VSD from depth renders through BatchRenderer, MSSD, MSPD). Frames may be
+PNG or JPEG (BOP's PBR splits are JPEG); both decode as Pillow's do.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""PNG encode and decode with numpy and the standard library (zlib, struct).
+"""PNG encode and decode with numpy and the standard library (zlib, struct);
+the image readers of the port.
 
 The port reads and writes its images without PIL. `decode` reads what Pillow
 writes: 8-bit L, LA, RGB and RGBA, 16-bit of the same (big-endian in the file,
@@ -7,7 +8,9 @@ native uint16 out), all five row filters, non-interlaced; it returns what
 or 16-bit L, LA, RGB or RGBA with the Up filter on every row: its rows decode
 as one cumulative sum down the image, where the Average and Paeth rows that
 Pillow's adaptive filtering picks need a loop over the bytes of each row.
-JPEG files raise NotImplementedError: the port has no JPEG decoder.
+`imread` and `image_size` take JPEG files too (they start with FFD8): the
+pixels come from the host decoder csrc/jpeg_decode.cpp (utils/jpeg_cext.py),
+equal to Pillow's, and the size from the frame header (utils/jpeg.py).
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from . import jpeg, jpeg_cext
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SOI = b"\xff\xd8"
@@ -49,11 +54,12 @@ def _chunks(data: bytes):
 
 
 def image_size(path) -> tuple[int, int]:
-    """(height, width) of a PNG file, from its IHDR chunk alone."""
+    """(height, width) of a PNG file from its IHDR chunk, of a JPEG file from
+    its frame header."""
     with open(path, "rb") as f:
         head = f.read(24)
-    if head[:2] == JPEG_SOI:
-        raise NotImplementedError(f"{path}: JPEG decoding is not ported (PNG only)")
+        if head[:2] == JPEG_SOI:
+            return jpeg.image_size(head + f.read(), str(path))
     if head[:8] != SIGNATURE or head[12:16] != b"IHDR":
         raise PNGError(f"{path}: not a PNG file")
     w, h = struct.unpack(">II", head[16:24])
@@ -170,10 +176,11 @@ def encode(image: np.ndarray, compress_level: int = 6) -> bytes:
 
 
 def imread(path) -> np.ndarray:
-    """Decode an image file: PNG, or NotImplementedError for a JPEG."""
+    """Decode an image file: PNG (`decode`) or JPEG (utils/jpeg_cext.decode,
+    which raises jpeg.JPEGError for a mode it does not decode)."""
     data = pathlib.Path(path).read_bytes()
     if data[:2] == JPEG_SOI:
-        raise NotImplementedError(f"{path}: JPEG decoding is not ported (PNG only)")
+        return jpeg_cext.decode(data, str(path))
     return decode(data)
 
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.efficientnet import block_names
+from ..models.efficientnet import block_names, split_dw_impl
 
 
 def _t(x) -> torch.Tensor:
@@ -94,7 +94,9 @@ BACKBONE_TREES = ("WideResNet_0", "FlowNetSEncoder_0", "CorrNet_0")
 def jax_pose_variables_to_state_dict(variables: dict,
                                      variant: str = "efficientnet-b3") -> dict:
     """A JAX PoseNet's variables (any backbone and pooling) → the port's
-    PoseNet state_dict. `variant` names the EfficientNet, when it is one."""
+    PoseNet state_dict. `variant` names the EfficientNet, when it is one
+    (a depthwise lowering's suffix changes no parameter)."""
+    variant = split_dw_impl(variant)[0]
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd = {}
     for name, p in params.items():

@@ -102,3 +102,70 @@ def test_variant_widths_and_parameter_count(variant):
     n_port = sum(p.numel() for p in net.parameters())
     assert n_port == n_jax
     assert net.n_features == JEfficientNet(variant=variant).n_features
+
+
+@pytest.fixture(scope="module")
+def lowered(b0_pair):
+    """The port's PosePredictor in each depthwise lowering, loaded from the
+    same JAX variables."""
+    _, v, pp, _ = b0_pair
+    out = {"conv": pp}
+    for impl in ("shift", "dense"):
+        name = f"efficientnet-b0+dw{impl}"
+        p = PosePredictor(PosePredictorConfig(backbone=name, render_size=(64, 64)), device="cpu")
+        p.net.load_state_dict(jax_pose_variables_to_state_dict(v, name))
+        out[impl] = p
+    return out
+
+
+@pytest.mark.parametrize("impl", ["shift", "dense"])
+def test_depthwise_lowerings_match_jax(b0_pair, lowered, impl):
+    """Features and pose outputs of `+dw<impl>` against the JAX package's same
+    lowering and against the port's grouped conv, from the same weights."""
+    _, v, _, x = b0_pair
+    bb = JEfficientNet(variant="efficientnet-b0", in_channels=6, dw_impl=impl)
+    ref = np.asarray(bb.apply({"params": v["params"]["EfficientNet_0"],
+                               "batch_stats": v["batch_stats"]["EfficientNet_0"]},
+                              jnp.asarray(x), train=False)).transpose(0, 3, 1, 2)
+    jpp = JPosePredictor(JConfig(backbone=f"efficientnet-b0+dw{impl}", render_size=(64, 64)))
+    ref_head = np.asarray(jpp.net.apply(v, jnp.asarray(x), train=False))
+    xt = torch.as_tensor(x).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        feats = lowered[impl].net.backbone(xt)
+        head = lowered[impl].net(xt)
+        feats_conv = lowered["conv"].net.backbone(xt)
+    assert lowered[impl].net.backbone._blocks[3]._depthwise_conv.impl == impl
+    np.testing.assert_allclose(feats.numpy(), ref, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(head.numpy(), ref_head, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(feats.numpy(), feats_conv.numpy(), atol=ATOL, rtol=0)
+
+
+# bf16 under autocast: the lowerings round differently (the shift lowering
+# accumulates its k² products in bf16, as the JAX module does in its compute
+# dtype; cuDNN and oneDNN accumulate in fp32), so features are compared to
+# the grouped conv's relative to their largest magnitude
+BF16_RTOL_OF_MAX = 0.05
+
+
+@pytest.mark.parametrize("impl", ["shift", "dense"])
+def test_depthwise_lowerings_in_bf16_agree_with_the_grouped_conv(b0_pair, lowered, impl):
+    x = torch.as_tensor(b0_pair[3]).permute(0, 3, 1, 2)
+    with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16):
+        ref = lowered["conv"].net.backbone(x).float()
+        got = lowered[impl].net.backbone(x).float()
+    assert got.dtype == ref.dtype and torch.isfinite(got).all()
+    err = float((got - ref).abs().max() / ref.abs().max())
+    assert err <= BF16_RTOL_OF_MAX, err
+
+
+def test_config_takes_the_lowerings_and_refuses_a_mistyped_one():
+    from cosypose_tpu.models.pose_predictor import make_backbone as j_make_backbone
+
+    for name in ("efficientnet-b3+dwshift", "efficientnet-b3+dwdense", "efficientnet-b3"):
+        PosePredictorConfig(backbone=name)
+    for bad in ("efficientnet-b3+dwdens", "efficientnet-b3+dwconvx"):
+        with pytest.raises(AssertionError) as j:
+            j_make_backbone(JConfig(backbone=bad))
+        with pytest.raises(ValueError) as t:
+            PosePredictorConfig(backbone=bad)
+        assert str(t.value) == str(j.value)

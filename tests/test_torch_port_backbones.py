@@ -206,7 +206,7 @@ def test_lk_statistics_match_jax():
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("bad", ["efficientnet-b3+dwdense", "resnet50x", "efficientnet-b9"])
+@pytest.mark.parametrize("bad", ["efficientnet-b3+dwdens", "resnet50x", "efficientnet-b9"])
 def test_config_refuses_unported_backbones(bad):
     with pytest.raises(ValueError):
         PosePredictorConfig(backbone=bad)

@@ -43,6 +43,7 @@ from cosypose_tpu_torch.training import pose_training as tpt
 from cosypose_tpu_torch.training.configs import RunConfig
 from cosypose_tpu_torch.training.train_pose import ConcatDataset, make_loader, seed_worker
 from cosypose_tpu_torch.utils import png
+from cosypose_tpu_torch.utils.jpeg import JPEGError
 from tests.test_pose_predictor import cube_specs
 
 
@@ -150,11 +151,15 @@ def test_png_header_errors_and_jpeg(tmp_path):
     interlaced = interlaced[:12] + body + struct.pack(">I", zlib.crc32(body)) + interlaced[33:]
     with pytest.raises(png.PNGError, match="interlaced"):
         png.decode(interlaced)
-    (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(30))
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        png.imread(tmp_path / "x.jpg")
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        png.image_size(tmp_path / "x.jpg")
+    # a JPEG reads as Pillow reads it; a truncated one raises a named error
+    Image.fromarray(_image(21, 34, 3)).save(tmp_path / "x.jpg", quality=90)
+    assert np.array_equal(png.imread(tmp_path / "x.jpg"), np.asarray(Image.open(tmp_path / "x.jpg")))
+    assert png.image_size(tmp_path / "x.jpg") == (21, 34)
+    (tmp_path / "y.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(30))
+    with pytest.raises(JPEGError, match="y.jpg: truncated JPEG data"):
+        png.imread(tmp_path / "y.jpg")
+    with pytest.raises(JPEGError, match="y.jpg: truncated JPEG data"):
+        png.image_size(tmp_path / "y.jpg")
 
 
 RESIZES = [((96, 128), (48, 64)), ((540, 720), (240, 320)), ((37, 53), (18, 17)),
@@ -271,9 +276,12 @@ def test_bop_aggregate_mask_and_jpeg_frames(data_root, tmp_path):
     tds, jds = BOPDataset(tmp_path / "ds", split="test"), JBOPDataset(tmp_path / "ds", split="test")
     assert_items_equal(jds[1], tds[1])
     assert tds[1][1].max() == 40 * mask.max()
+    # a JPEG frame (the .png fallback) reads as the JAX package reads it
+    Image.open(scene / "rgb" / "000002.png").save(scene / "rgb" / "000002.jpg", quality=85)
     (scene / "rgb" / "000002.png").unlink()
+    assert_items_equal(jds[2], tds[2])
     (scene / "rgb" / "000002.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(30))
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    with pytest.raises(JPEGError, match="000002.jpg: truncated JPEG data"):
         tds[2]
 
 

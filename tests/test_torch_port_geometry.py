@@ -173,3 +173,20 @@ def test_roi_align_both_jax_forms(oracle, sampling_ratio):
     ref = fn(_j(img), _j(boxes), output_size=(12, 16), sampling_ratio=sampling_ratio)
     out = troi.roi_align(_t(img), _t(boxes), (12, 16), sampling_ratio)
     _close(out, ref, ATOL_GEOM)
+
+
+@pytest.mark.parametrize("sampling_ratio", [1, 2, 4])
+def test_roi_align_gather_matches_jax_and_the_matmul_form(sampling_ratio):
+    """The port's gather form against the JAX package's and against the
+    port's roi_align, on boxes inside, across and beyond the border."""
+    rng = np.random.RandomState(10)
+    img = rng.uniform(size=(4, 3, 30, 40)).astype(np.float32)
+    boxes = np.array([[5.0, 4.0, 25.5, 20.0], [-8.0, -5.0, 20.0, 12.0],
+                      [30.0, 20.0, 55.0, 41.0], [-3.0, 2.5, 43.0, 33.0]], np.float32)
+    out = troi.roi_align_gather(_t(img), _t(boxes), (12, 16), sampling_ratio)
+    ref = roi_align_gather(_j(img), _j(boxes), output_size=(12, 16),
+                           sampling_ratio=sampling_ratio)
+    assert out.shape == (4, 3, 12, 16)
+    _close(out, ref, ATOL_PIX)
+    _close(out, troi.roi_align(_t(img), _t(boxes), (12, 16), sampling_ratio), ATOL_PIX)
+    assert float(out[2].abs().max()) < 1.0 and float(out[0].abs().min()) > 0.0

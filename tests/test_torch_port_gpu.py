@@ -590,3 +590,84 @@ def test_exported_refiner_matches_eager_on_the_card(cuda):
     want = pp.forward(md, *args, n_iterations=n_it)["TCO_final"]
     assert (got - want).abs().max().item() <= 1e-5
     assert (want - args[2]).abs().max().item() > 1e-4
+
+
+def test_jpeg_decoders_on_the_cards_host(cuda):
+    """The committed fixtures through the library (built with g++ there) and
+    the numpy decoder, both equal to the Pillow arrays stored beside them,
+    and a decoded frame on the card equal to the one on the host."""
+    import importlib.util
+    import pathlib
+
+    from cosypose_tpu_torch.utils import jpeg, jpeg_cext
+
+    # loaded from its path: the card's machine may have another `tests` package
+    path = pathlib.Path(__file__).with_name("torch_port_make_jpeg_fixtures.py")
+    spec = importlib.util.spec_from_file_location("torch_port_make_jpeg_fixtures", path)
+    fx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fx)
+    ROOT = fx.ROOT
+    for rel, ref in fx.expected().items():
+        data = (ROOT / rel).read_bytes()
+        assert np.array_equal(jpeg_cext.decode(data, rel), ref), rel
+        assert np.array_equal(jpeg.decode(data, rel), ref), rel
+    frame = jpeg_cext.decode((ROOT / "frame_420_q95.jpg").read_bytes())
+    assert torch.equal(torch.as_tensor(frame).to(cuda).cpu(), torch.as_tensor(frame))
+
+
+@pytest.mark.parametrize("impl", ["shift", "dense"])
+def test_depthwise_lowerings_on_the_card(cuda, impl):
+    """`+dw<impl>` against the grouped conv on the card from the same weights:
+    fp32 within the CPU backbone tests' 1e-4, bf16 under autocast within the
+    CPU test's 0.05 of the features' largest magnitude."""
+    torch.manual_seed(0)
+    nets = {}
+    for name in ("efficientnet-b0", f"efficientnet-b0+dw{impl}"):
+        pp = PosePredictor(PosePredictorConfig(backbone=name, render_size=(64, 96)), device=cuda)
+        nets[name] = pp.net.eval()
+    base, alt = nets.values()
+    alt.load_state_dict(base.state_dict())
+    x = torch.rand(4, 6, 64, 96, device=cuda)
+    with torch.no_grad():
+        ref, got = base.backbone(x), alt.backbone(x)
+        assert float((got - ref).abs().max()) <= ATOL
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            ref16, got16 = base.backbone(x).float(), alt.backbone(x).float()
+    assert float((got16 - ref16).abs().max() / ref16.abs().max()) <= 0.05
+
+
+def sliver_inputs(B=16, F=64, seed=3):
+    """(tri_verts, tri_valid, TCO, K) numpy: F // 2 pole triangles whose first
+    two corners lie a few nm apart, then ordinary triangles, at crop-like
+    poses and intrinsics."""
+    rng = np.random.RandomState(seed)
+    pole = np.array([0.0, 0.0, -0.0537], np.float32)
+    ring = rng.uniform(-0.03, 0.03, (F, 3)).astype(np.float32)
+    tv = np.stack([pole + rng.uniform(-5e-9, 5e-9, (F, 3)),
+                   pole + rng.uniform(-5e-9, 5e-9, (F, 3)), ring], 1).astype(np.float32)
+    tv = np.broadcast_to(tv, (B, F, 3, 3)).copy()
+    tv[:, F // 2:] = rng.uniform(-0.05, 0.05, (B, F // 2, 3, 3))
+    TCO = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
+    for b in range(B):
+        TCO[b, :3, :3] = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    TCO[:, :3, 3] = np.stack([rng.uniform(-0.1, 0.1, B), rng.uniform(-0.1, 0.1, B),
+                              rng.uniform(0.4, 1.0, B)], 1)
+    K = np.tile(np.array([[2000.0, 0, 150], [0, 2000.0, 110], [0, 0, 1]], np.float32), (B, 1, 1))
+    return tv, np.ones((B, F), bool), TCO, K
+
+
+def test_setup_kernel_equals_plain_bit_for_bit_on_slivers(cuda):
+    """Kernel A against setup_plain on the card at pole slivers (corners a few
+    nm apart, degenerate up to rounding) and ordinary triangles: both round
+    the corners, the projection and the sums over corners op for op in the
+    same order, so validity, the barycentric and 1/z planes, the boxes and
+    the keys are equal, and the colour planes within SETUP_TOL."""
+    args = [torch.as_tensor(a, device=cuda) for a in sliver_inputs()]
+    rows_k, key_k = rasterizer_cuda.setup(*args, (240, 320))
+    rows_p, key_p = rasterizer_cuda.setup_plain(*args, (240, 320))
+    colour = slice(12, 21)
+    exact = [i for i in range(rows_k.shape[-1]) if not colour.start <= i < colour.stop]
+    assert torch.equal(rows_k[..., exact], rows_p[..., exact]) and torch.equal(key_k, key_p)
+    err = rasterizer_cuda.setup_error(rows_k.cpu(), key_k.cpu(), rows_p.cpu(), key_p.cpu(),
+                                      (240, 320), K=args[3].cpu())
+    assert err["valid_differs"] == 0 and err["plane"] <= rasterizer_cuda.SETUP_TOL, err

@@ -69,6 +69,12 @@ def test_serving_and_surface_modules_are_listed():
         assert f"cosypose_tpu_torch.{name}" in MODULES
 
 
+def test_jpeg_modules_are_listed():
+    for name in ("utils.jpeg", "utils.jpeg_cext", "data.augmentations", "data.pose_dataset",
+                 "data.texture_dataset", "data.datasets_cfg", "ops.roi_align"):
+        assert f"cosypose_tpu_torch.{name}" in MODULES
+
+
 def test_port_imports_no_jax():
     assert _loaded_after("; ".join(f"import {m}" for m in MODULES)) == []
 

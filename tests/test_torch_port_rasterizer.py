@@ -23,6 +23,7 @@ from cosypose_tpu_torch.ops.rasterizer import first_k_true
 from cosypose_tpu_torch.ops.rasterizer import rasterize as t_rasterize
 from cosypose_tpu_torch.ops.render import render
 from tests.test_rasterizer import cube_mesh, make_K
+from tests.test_torch_port_gpu import sliver_inputs
 
 ATOL = 1e-4
 IMAGE = (48, 80)
@@ -452,3 +453,38 @@ def test_pixel_centre_edges_divergence_is_documented():
     differ = int((port.mask.numpy() != np.asarray(ref.mask)).sum())
     assert 0 < differ <= PIXEL_CENTRE_EDGE_PIXELS
     assert np.asarray(ref.mask).sum() == 3324
+
+
+def _kernel_a_validity(tv_obj, tri_valid, TCO, K, z_near=0.05):
+    """Kernel A's corners, projection and validity (csrc/raster_setup.cu),
+    emulated in numpy float32, one rounding an op in the kernel's order."""
+    f32 = np.float32
+    T, v = TCO.astype(f32), tv_obj.astype(f32)
+    p = [((T[:, None, None, i, 0] * v[..., 0] + T[:, None, None, i, 1] * v[..., 1])
+          + T[:, None, None, i, 2] * v[..., 2]) + T[:, None, None, i, 3] for i in range(3)]
+    fx, cx, fy, cy = (K[:, None, None, r, c].astype(f32) for r, c in ((0, 0), (0, 2), (1, 1), (1, 2)))
+    zs = np.maximum(p[2], f32(z_near))
+    u, w = fx * p[0] / zs + cx, fy * p[1] / zs + cy
+    area2 = (u[..., 1] - u[..., 0]) * (w[..., 2] - w[..., 0]) \
+        - (u[..., 2] - u[..., 0]) * (w[..., 1] - w[..., 0])
+    return np.stack(p, -1), tri_valid & ~(p[2] < f32(z_near)).any(-1) & ~(np.abs(area2) < f32(1e-9))
+
+
+def test_setup_plain_rounds_corners_as_kernel_a():
+    """The plain setup's camera-frame corners equal kernel A's bit for bit, so
+    both decide alike on triangles that are degenerate up to rounding: pole
+    triangles whose corners lie a few nm apart, which project to equal or to
+    one-ulp-apart floats depending on the order of the corner sums."""
+    from cosypose_tpu_torch.ops.rasterizer import camera_corners
+
+    tv, valid, TCO, K = sliver_inputs()
+    F = tv.shape[1]
+    corners, want = _kernel_a_validity(tv, valid, TCO, K)
+    got = camera_corners(torch.as_tensor(tv), torch.as_tensor(TCO)).numpy()
+    assert np.array_equal(got, corners)
+    rows, _ = rasterizer_cuda.setup_plain(torch.as_tensor(tv), torch.as_tensor(valid),
+                                          torch.as_tensor(TCO), torch.as_tensor(K), (240, 320))
+    is_valid = rows[:, :F, rasterizer_cuda.LANE_VALID].numpy() != 0
+    assert np.array_equal(is_valid, want)
+    pole_rows = want[:, :F // 2]
+    assert pole_rows.any() and not pole_rows.all()   # both decisions occur among the poles

@@ -22,6 +22,7 @@ import json
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from cosypose_tpu.data.bop import BOPDataset as JBOPDataset
 from cosypose_tpu.data.procedural_objects import make_procedural_specs as j_specs
@@ -47,6 +48,7 @@ from cosypose_tpu_torch.rendering import SceneRenderer
 from cosypose_tpu_torch.rendering.scene_renderer import SCENE_BUDGET, SCENE_TILE
 from cosypose_tpu_torch.scripts import run_dataset_recording as cli
 from cosypose_tpu_torch.utils import png
+from cosypose_tpu_torch.utils.jpeg import JPEGError
 from tests.test_pose_predictor import cube_specs
 
 RES = (96, 128)
@@ -154,8 +156,18 @@ def test_texture_dataset_reads_pngs_and_refuses_jpeg(tmp_path):
     assert len(tds) == len(jds) == 3
     for i in range(3):
         assert np.array_equal(jds[i], tds[i]) and tds[i].dtype == np.float32
+    # JPEG textures read as Pillow's convert("RGB") gives them; a broken one
+    # raises a named error
+    Image.fromarray((np.arange(17 * 23 * 3) % 251).astype(np.uint8).reshape(17, 23, 3)).save(
+        root / "sub" / "tex9.jpg", quality=80)
+    Image.fromarray((np.arange(9 * 11) % 253).astype(np.uint8).reshape(9, 11)).save(
+        root / "texa.jpeg", quality=60)
+    jds, tds = JTextureDataset(root), TextureDataset(root)
+    assert len(tds) == len(jds) == 5
+    for i in range(5):
+        assert np.array_equal(jds[i], tds[i]) and tds[i].shape[2] == 3
     (root / "sub" / "tex9.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(16))
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    with pytest.raises(JPEGError, match="tex9.jpg"):
         TextureDataset(root)[3]
 
 

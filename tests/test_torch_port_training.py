@@ -787,12 +787,16 @@ def test_make_cfg_matches(name, debug):
                                   "procedural-refiner-mini-moments"])
 def test_make_cfg_refuses_unported_models(name):
     """These configs' models are ported (test_make_cfg_matches holds them to
-    the JAX package's); what stays unported is the JAX package's TPU
-    depthwise lowerings, which the predictor config refuses."""
+    the JAX package's). The JAX package's depthwise lowerings are ported too:
+    an EfficientNet predictor takes +dwdense / +dwshift; a mistyped suffix
+    is refused with the JAX package's message."""
     pred = tconfigs.make_cfg(name).train.predictor
     assert pred.backbone == jconfigs.make_cfg(name).train.predictor.backbone
-    with pytest.raises(ValueError, match="not ported"):
-        dataclasses.replace(pred, backbone=f"{pred.backbone}+dwdense")
+    if pred.backbone.startswith("efficientnet"):
+        for impl in ("dense", "shift"):
+            dataclasses.replace(pred, backbone=f"{pred.backbone}+dw{impl}")
+        with pytest.raises(ValueError, match="unknown depthwise lowering 'dens'"):
+            dataclasses.replace(pred, backbone=f"{pred.backbone}+dwdens")
 
 
 def test_make_cfg_refuses_unknown_names():
