@@ -6,12 +6,17 @@ Phases, none of them caught; any failure exits non-zero:
   1. device line, and both raster kernels built from csrc/ with nvcc (in
      parallel);
   2. the raster path at the main path's shapes (demo inputs, B=128, 240x320
-     renders, LOD 512): kernel A (raster_setup) against its plain version at
-     its stated tolerance; kernel B (raster_resolve) against its plain version
-     on the same sorted rows, at budgets 1024 and 40, on the attribute variant
-     (two-instance scene) and on every tile of a sweep (one ragged); device
-     times of A, the sort and B by torch.profiler, of the whole render() call
-     by CUDA events; their bounds, and how many rows the cull keeps;
+     renders, LOD 512): the device kernels of one render() call, read from a
+     short torch.profiler trace early in the process (one raster_setup, one
+     raster_resolve, no sort kernel); kernel A (raster_setup: rows, keys and
+     their stable y-order) against its plain version at its stated tolerance
+     and its order equal to torch.sort's on the card; kernel B
+     (raster_resolve) against its plain version on the same sorted rows, at
+     budgets 1024 and 40, on the attribute variant (two-instance scene) and
+     on every tile of a sweep (one ragged); device times of A, of torch.sort
+     of its keys alone (the sort the port no longer calls) and of B by
+     torch.profiler, of the whole render() call by CUDA events; their
+     bounds, and how many rows the cull keeps;
   3. the slice (PosePredictor, EfficientNet-B3, fp32, TF32 off) at B=4 on
      the card (kernels) against the CPU (plain versions);
   4. serving: coarse + refiner B3 (bf16 backbone) behind
@@ -114,6 +119,9 @@ Phases, none of them caught; any failure exits non-zero:
      JPEG frames read through data/bop.py and run through phase 8's detector
      and refiner; both kernels held to their plain versions at the training
      step's, the lowerings' and the split's render shapes.
+Wherever kernel A is held to its plain version (setup_vs_plain), its order is
+also held to torch.sort's element for element, and where it is timed
+(setup_timing) so are one block an item and torch.sort of its keys alone.
 Phases 5-6 also log what torch.profiler still records in this process
 (profiler_device_events). The last lines are the card's name and power
 limit, one JSON line of kernel numbers (launches while serving, training,
@@ -710,7 +718,8 @@ def data_parallel_phase(tag: str, checked: dict) -> dict:
     for r, got in enumerate(ranks):
         k = got["kernels"]
         if k["setup_error"]["valid_differs"] or k["setup_error"]["plane"] > rc.SETUP_TOL \
-                or k["setup_error"]["bbox_key"] > rc.SETUP_TOL or k["resolve_max_abs_err"] != 0:
+                or k["setup_error"]["bbox_key"] > rc.SETUP_TOL or not k["order_equal"] \
+                or k["resolve_max_abs_err"] != 0:
             raise AssertionError(f"rank {r}: raster kernels vs plain at {k['rows']}: {k}")
         if got["replicated"]["launches"] != want:
             raise AssertionError(f"rank {r} launched {got['replicated']['launches']}, want {want}")
@@ -844,16 +853,17 @@ def captured_renders(fn, module=None):
 
 def kernels_vs_plain_at(what: str, call, checked: dict) -> str:
     """Both kernels against their plain versions on the card at one captured
-    render call's shape: setup within SETUP_TOL (setup_vs_plain), resolve (and
-    its attribute) exactly equal on the same sorted rows."""
+    render call's shape: setup within SETUP_TOL and its order equal to
+    torch.sort's (setup_vs_plain), resolve (and its attribute) exactly equal
+    on the same sorted rows."""
     import torch
 
     from cosypose_tpu_torch.ops import rasterizer_cuda as rc
 
     args, kw = call
     setup_args = (*args, kw["image_size"], kw["colors"])
-    rows, key, _, err, abs_err = setup_vs_plain(setup_args, kw.get("tri_attr"))
-    order, with_attr = rc.sort_order(key), kw.get("tri_attr") is not None
+    rows, key, order, _, err, abs_err = setup_vs_plain(setup_args, kw.get("tri_attr"))
+    with_attr = kw.get("tri_attr") is not None
     size, tile, budget = kw["image_size"], kw["tile"], kw["max_tris_per_tile"]
     out_k = rc.RASTER_KERNEL.resolve(rows, order, size, tile, budget, with_attr)
     torch.cuda.synchronize()
@@ -866,7 +876,8 @@ def kernels_vs_plain_at(what: str, call, checked: dict) -> str:
     checked["raster_resolve_attr" if with_attr else "raster_resolve"].append(
         f"{shape}, {tuple(size)}, tile {tuple(tile)}, budget {budget}")
     return (f"{shape} at {size[0]}x{size[1]}, tile {tuple(tile)}, budget {budget}: setup plane "
-            f"rel err {err['plane']:.3g}, max abs err {abs_err:.3g}; resolve"
+            f"rel err {err['plane']:.3g}, max abs err {abs_err:.3g}, order equal to torch.sort's; "
+            f"resolve"
             f"{' (attribute)' if with_attr else ''} equal")
 
 
@@ -1024,16 +1035,18 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
     kern = [e for e in events if e.get("cat") == "kernel"]
     counts = {k: sum(1 for e in kern if f"{k}_kernel" in e["name"]) for k in
               ("raster_setup", "raster_resolve")}
+    sorts = sum(1 for e in kern if "sort" in e["name"].lower())
     annot = [e for e in events if e.get("name") == "served_request"]
     dev_ms = sum(e.get("dur", 0) for e in kern) / 1e3
     span = (max(e["ts"] + e.get("dur", 0) for e in kern) - min(e["ts"] for e in kern)) / 1e3 \
         if kern else 0.0
-    if counts != {"raster_setup": N_REFINER, "raster_resolve": N_REFINER} or not annot:
+    if counts != {"raster_setup": N_REFINER, "raster_resolve": N_REFINER} or not annot or sorts:
         raise AssertionError(f"trace in a fresh process: raster kernel events {counts} (want "
-                             f"{N_REFINER} each), annotation events {len(annot)}")
+                             f"{N_REFINER} each), sort kernels {sorts} (want none), annotation "
+                             f"events {len(annot)}")
     log(f"{tag} utils.profiling.trace in a fresh process around one exported call: "
         f"{len(kern)} kernel events ({dev_ms:.2f} ms of kernels over a {span:.2f} ms span), "
-        f"raster kernels {counts}, the 'served_request' range present; trace "
+        f"raster kernels {counts}, no sort kernel, the 'served_request' range present; trace "
         f"{pathlib.Path(report['trace']).relative_to(REPO)}")
     with trace(OUT_DIR / "chip_smoke_trace_main") as prof:
         with annotate("served_request"), torch.no_grad():
@@ -1058,7 +1071,7 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
               for k in ("raster_setup", "raster_resolve")}
     got_b = {k: out["bench_stages"][k] for k in want_b}
     by_stage = {r["stage"]: r for r in stage_rows}
-    if got_b != want_b or len(stage_rows) != 8 or not all(r["ms"] > 0 for r in stage_rows) \
+    if got_b != want_b or len(stage_rows) != 7 or not all(r["ms"] > 0 for r in stage_rows) \
             or not all(by_stage[s].get("pct_of_bound") for s in ("raster setup kernel",
                                                                   "raster resolve kernel")):
         raise AssertionError(f"bench_stages: launches {got_b} (want {want_b}), rows {stage_rows}")
@@ -1128,17 +1141,16 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
 
 def time_kernels_at(what: str, call) -> str:
     """Both kernels' device ms at one captured render call's shape (CUDA
-    events behind a spin kernel), their bounds and their plain versions' ms
-    on the card."""
+    events behind a spin kernel; setup_timing), their bounds and their plain
+    versions' ms on the card."""
     from cosypose_tpu_torch.ops import rasterizer_cuda as rc
     from cosypose_tpu_torch.ops.raster_bounds import resolve_bound, setup_bound
 
     args, kw = call
     sa = (*args, kw["image_size"], kw["colors"])
     size, tile, budget = kw["image_size"], kw["tile"], kw["max_tris_per_tile"]
-    rows, key = rc.setup(*sa)
-    order = rc.sort_order(key)
-    ms_s = queued_ms(lambda: rc.setup(*sa), 50)
+    rows, key, order = rc.setup(*sa)
+    t_s = setup_timing(sa, key)
     ms_r = queued_ms(lambda: rc.RASTER_KERNEL.resolve(rows, order, size, tile, budget, False), 50)
     plain_s = time_cuda_ms(lambda: rc.setup_plain(*sa), 10)
     plain_r = time_cuda_ms(lambda: rc.resolve_plain_binned(rows, order, size, tile, budget, False),
@@ -1146,9 +1158,9 @@ def time_kernels_at(what: str, call) -> str:
     b_s, by_s = setup_bound(sa[0], sa[1], sa[5], None, rows, key)[:2]
     b_r, by_r = resolve_bound(rows, order, size, tile, budget, False)[:2]
     return (f"{what} ({rows.shape[0]} x {rows.shape[1]} rows, {size[0]}x{size[1]}, tile "
-            f"{tuple(tile)}, budget {budget}; CUDA events behind a spin kernel): raster_setup "
-            f"{ms_s:.4f} ms (bound {b_s:.4f} ms by {by_s}, {100 * b_s / ms_s:.1f} %), plain "
-            f"{plain_s:.3f} ms; raster_resolve {ms_r:.4f} ms (bound {b_r:.4f} ms by {by_r}, "
+            f"{tuple(tile)}, budget {budget}; CUDA events behind a spin kernel): "
+            f"{setup_timing_text(t_s, b_s, by_s)}, plain {plain_s:.3f} ms; raster_resolve "
+            f"{ms_r:.4f} ms (bound {b_r:.4f} ms by {by_r}, "
             f"{100 * b_r / ms_r:.1f} %), plain {plain_r:.2f} ms; library_ms: none")
 
 def jpeg_fixtures():
@@ -1425,17 +1437,25 @@ def jpeg_phase(tag: str, checked: dict, ctx: dict) -> dict:
 
 
 def setup_vs_plain(args, tri_attr=None):
-    """Kernel A against setup_plain on the same inputs (tri_verts, tri_valid,
-    TCO, K, image_size, colors), held to SETUP_TOL as
-    rasterizer_cuda.setup_error reads it, with validity and attributes equal.
-    Returns (rows, key, plain key, error dict, max abs error over rows valid
-    in both). The bbox and key lanes are measured against the terms of the
-    projection (setup_error with K): crop intrinsics of far-off poses put the
-    principal point thousands of pixels outside the crop."""
+    """Kernel A against its plain version on the same inputs (tri_verts,
+    tri_valid, TCO, K, image_size, colors): rows held to setup_plain within
+    SETUP_TOL as rasterizer_cuda.setup_error reads it, with validity and
+    attributes equal, and the order equal element for element to
+    torch.sort(key, dim=1, stable=True).indices on the card. Returns (rows,
+    key, order, plain key, error dict, max abs error over rows valid in both).
+    The bbox and key lanes are measured against the terms of the projection
+    (setup_error with K): crop intrinsics of far-off poses put the principal
+    point thousands of pixels outside the crop."""
+    import torch
+
     from cosypose_tpu_torch.ops import rasterizer_cuda as rc
 
-    rows, key = rc.setup(*args, tri_attr=tri_attr)
+    rows, key, order = rc.setup(*args, tri_attr=tri_attr)
     rows_p, key_p = rc.setup_plain(*args, tri_attr=tri_attr)
+    want = torch.sort(key, dim=1, stable=True).indices
+    if not torch.equal(order, want):
+        raise AssertionError(f"raster_setup: the order differs from torch.sort's in "
+                             f"{int((order != want).any(1).sum())} of {order.shape[0]} items")
     err = rc.setup_error(rows, key, rows_p, key_p, args[4], K=args[3])
     both = (rows[..., rc.LANE_VALID] != 0) & (rows_p[..., rc.LANE_VALID] != 0)
     abs_err = max(float((rows[both] - rows_p[both]).abs().max()),
@@ -1444,7 +1464,52 @@ def setup_vs_plain(args, tri_attr=None):
             or err["bbox_key"] > rc.SETUP_TOL:
         raise AssertionError(f"raster_setup vs plain: {err} (tolerance {rc.SETUP_TOL}; largest "
                              f"|cx|, |cy| {args[3][:, :2, 2].abs().max().item():.1f} px)")
-    return rows, key, key_p, err, abs_err
+    return rows, key, order, key_p, err, abs_err
+
+
+def setup_timing(args, key, tri_attr=None) -> dict:
+    """Kernel A's device ms at one shape, by CUDA events behind a spin kernel:
+    with the clusters its launcher chooses (ms), with one block an item
+    (one_block_ms), and torch.sort of its keys alone (torch_sort_ms), the
+    sort that used to follow it and that the port no longer calls."""
+    import torch
+
+    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
+
+    kernel = rc.RASTER_KERNEL
+    return dict(ms=queued_ms(lambda: rc.setup(*args, tri_attr=tri_attr), 50),
+                one_block_ms=queued_ms(lambda: kernel.setup(*args, tri_attr=tri_attr, cluster=1),
+                                       50),
+                torch_sort_ms=queued_ms(lambda: torch.sort(key, dim=1, stable=True), 50))
+
+
+def setup_timing_text(t: dict, bound_ms: float, by: str) -> str:
+    return (f"raster_setup (rows, keys and order) {t['ms']:.4f} ms (bound {bound_ms:.4f} ms by "
+            f"{by}, {100 * bound_ms / t['ms']:.1f} %), one block an item {t['one_block_ms']:.4f} "
+            f"ms; torch.sort of the keys alone {t['torch_sort_ms']:.4f} ms (not called by the "
+            f"port)")
+
+
+def render_kernel_names(call) -> list:
+    """The device kernels that one call of `call` launches, by name, from a
+    torch.profiler trace of that call alone (after a warm-up call). Raises
+    where the trace holds no kernel: the profiler has stopped seeing the card
+    (PERF.md §7), which is why this runs early in the process."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    path = OUT_DIR / "render_trace.json"
+    prof.export_chrome_trace(str(path))
+    names = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") == "kernel"]
+    if not names:
+        raise RuntimeError("the trace of one render call holds no kernel")
+    return names
 
 
 def scene_inputs(device, n_objects=SCENE_OBJECTS, seed=0):
@@ -1480,8 +1545,8 @@ def procedural_scene(device, n_objects=SCENE_OBJECTS, seed=0):
     from cosypose_tpu_torch.ops import rasterizer_cuda as rc
 
     args, ids = scene_inputs(device, n_objects, seed)
-    rows, key = rc.setup(*args, tri_attr=ids)
-    return rows, rc.sort_order(key), args[4]
+    rows, _, order = rc.setup(*args, tri_attr=ids)
+    return rows, order, args[4]
 
 
 def amodal_inputs(device, seed=0):
@@ -1649,8 +1714,7 @@ def vsd_budget_drop(mesh_db, renders):
 
     kept = whole = over = items = 0
     for label_ids, TCO, K, res, n_px, *_ in renders:
-        rows, key = rc.setup(*vsd_setup_args(mesh_db, label_ids, TCO, K, res))
-        order = rc.sort_order(key)
+        rows, _, order = rc.setup(*vsd_setup_args(mesh_db, label_ids, TCO, K, res))
         depth = rc.resolve(rows, order, tuple(res), OBJECT_TILE, rows.shape[1])[1]
         counts = rc.bin_chunks(rows, order, tuple(res), OBJECT_TILE, 1 << 30)[2]
         kept += n_px
@@ -1759,10 +1823,9 @@ def evaluation_card_vs_cpu(preds, scene_ds, dbs: dict, n_frames: int):
     n_sorted, n_items, beyond = 0, 0, {"budget": 0, "unlimited": 0}
     for label_ids, TCO, K, res, *_ in ren_k:
         args = vsd_setup_args(dbs["cuda"], label_ids, TCO, K, res)
-        rows_k, key_k = rc.setup(*args)
-        rows_c, key_c = (x.to(rows_k.device) for x in rc.setup_plain(
+        rows_k, _, o_k = rc.setup(*args)
+        rows_c, _, o_c = (x.to(rows_k.device) for x in rc.setup(
             *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)))
-        o_k, o_c = rc.sort_order(key_k), rc.sort_order(key_c)
         n_sorted += int((o_k != o_c).any(1).sum())
         n_items += o_k.shape[0]
         for name, budget in (("budget", OBJECT_BUDGET), ("unlimited", rows_k.shape[1])):
@@ -1939,28 +2002,43 @@ def main() -> int:
     rows_json = {}
     checked = {name: [] for name in SOURCES}  # shapes each kernel was held to its plain version at
 
-    # kernel A
+    # a card render is two launches: the kernels of one render() call, read
+    # from a short trace while the profiler still sees the card (PERF.md §7)
     args = (first["tri_verts"], first["tri_valid"], TCO, first["K_crop"], RENDER, first["colors"])
-    rows, key, key_p, err, abs_err = setup_vs_plain(args)
+    names = render_kernel_names(lambda: render(*args[:4], image_size=RENDER, colors=args[5],
+                                               tile=tile, max_tris_per_tile=budget))
+    n_setup = sum("raster_setup_kernel" in n for n in names)
+    n_resolve = sum("raster_resolve_kernel" in n for n in names)
+    sorts = [n for n in names if "sort" in n.lower()]
+    log(f"{tag} one render() call launches {len(names)} device kernels: raster_setup {n_setup}, "
+        f"raster_resolve {n_resolve}, sort kernels {len(sorts)}; the others "
+        f"{sorted({n[:60] for n in names if 'raster_' not in n})} (the mask, depth > 0)")
+    if (n_setup, n_resolve) != (1, 1) or sorts:
+        raise AssertionError(f"a render call launched {names}: want one raster_setup, one "
+                             f"raster_resolve and no sort kernel")
+
+    # kernel A (rows, keys and the y-order) against setup_plain and torch.sort
+    rows, key, order, key_p, err, abs_err = setup_vs_plain(args)
     checked["raster_setup"].append(f"main path: {rows.shape[0]} x {rows.shape[1]} rows, {RENDER}")
     both = rows[..., rc.LANE_VALID] != 0
-    order = rc.sort_order(key)
     order_differs = int((order != rc.sort_order(key_p)).any(1).sum())
     ms_a, ev_a = device_ms(lambda: rc.setup(*args)), time_cuda_ms(lambda: rc.setup(*args), 50)
-    plain_a = time_cuda_ms(lambda: rc.setup_plain(*args), 10)
-    ms_sort = device_ms(lambda: rc.sort_order(key))
-    ev_sort = time_cuda_ms(lambda: rc.sort_order(key), 50)
+    plain_a = time_cuda_ms(lambda: rc.sort_order(rc.setup_plain(*args)[1]), 10)
+    ms_sort = device_ms(lambda: torch.sort(key, dim=1, stable=True))
+    ev_sort = time_cuda_ms(lambda: torch.sort(key, dim=1, stable=True), 50)
     bound_a, by_a, bytes_a = setup_bound(first["tri_verts"], first["tri_valid"], first["colors"],
                                          None, rows, key)
     log(f"{tag} raster_setup: rows {tuple(rows.shape)}, {int(both.sum())} valid; vs plain: "
         f"plane rel err {err['plane']:.3g}, bbox/key rel err {err['bbox_key']:.3g} "
-        f"(<= {rc.SETUP_TOL}), max abs err {abs_err:.3g}, validity equal, {order_differs} items "
-        f"sorted differently; kernel {ms_a:.4f} ms on the device ({ev_a:.4f} ms per call by "
-        f"events), "
-        f"plain {plain_a:.3f} ms, bound {bound_a:.4f} ms by {by_a} ({bytes_a / 1e6:.2f} MB); sort "
-        f"{ms_sort:.4f} ms on the device ({ev_sort:.4f} ms by events); library_ms: none")
+        f"(<= {rc.SETUP_TOL}), max abs err {abs_err:.3g}, validity equal, order equal to "
+        f"torch.sort's, {order_differs} items ordered differently from the plain keys; kernel "
+        f"(rows, keys and order) {ms_a:.4f} ms on the device ({ev_a:.4f} ms per call by events, "
+        f"{100 * bound_a / ms_a:.1f} % of bound), plain (setup_plain + sort_order) {plain_a:.3f} "
+        f"ms, bound {bound_a:.4f} ms by {by_a} ({bytes_a / 1e6:.2f} MB); torch.sort of the keys "
+        f"alone {ms_sort:.4f} ms on the device ({ev_sort:.4f} ms by events; not called by the "
+        f"port); library_ms: none")
     rows_json["raster_setup"] = dict(max_abs_err=abs_err, ms=ms_a, plain_ms=plain_a,
-                                     bound_ms=bound_a, bound_by=by_a)
+                                     bound_ms=bound_a, bound_by=by_a, torch_sort_ms=ms_sort)
 
     def check(name, rows, order, tile, budget, with_attr, time_it):
         """Kernel B against resolve_plain_binned on the same sorted rows."""
@@ -2015,7 +2093,7 @@ def main() -> int:
         budget))
     ms_call = time_cuda_ms(lambda: render(*args[:4], image_size=RENDER, colors=args[5], tile=tile,
                                           max_tris_per_tile=budget), 50)
-    log(f"{tag} per call, device time: setup {ms_a:.4f} + sort {ms_sort:.4f} + resolve "
+    log(f"{tag} per call, device time: setup (with the sort) {ms_a:.4f} + resolve "
         f"{rows_json['raster_resolve']['ms']:.4f} ms; whole render() by events {ms_call:.4f} ms "
         f"(gather + resolve in sorted order instead: {ms_gather:.4f} ms on the device vs "
         f"{rows_json['raster_resolve']['ms']:.4f} ms through the permutation); {PR1}")
@@ -2025,12 +2103,12 @@ def main() -> int:
     shift = torch.tensor([0.03, 0.01, 0.05], device=dev)
     n_f = tv_cam.shape[1]
     attr = torch.cat([torch.ones(BATCH, n_f), torch.full((BATCH, n_f), 2.0)], 1).to(dev)
-    rows2, key2 = rc.setup(torch.cat([tv_cam, tv_cam + shift], 1),
+    rows2, _, order2 = rc.setup(torch.cat([tv_cam, tv_cam + shift], 1),
                            torch.cat([first["tri_valid"]] * 2, 1),
                            torch.eye(4, device=dev).expand(BATCH, 4, 4), first["K_crop"], RENDER,
                            torch.cat([first["colors"]] * 2, 1), tri_attr=attr)
     rows_json["raster_resolve_attr"] = check("raster_resolve_attr (two instances)", rows2,
-                                             rc.sort_order(key2), tile, budget, True, True)
+                                             order2, tile, budget, True, True)
 
     for t in TILES:
         r = check("raster_resolve sweep", rows, order, t, budget, False, False)
@@ -2311,12 +2389,16 @@ def main() -> int:
     # the setup kernel on the scene soup, then the attribute kernel at the
     # scene shape against its plain version on the CPU
     args_s, ids_s = scene_inputs(dev)
-    rows_s, key_s, _, err_s, abs_s = setup_vs_plain(args_s, ids_s)
+    rows_s, key_s, order_s, _, err_s, abs_s = setup_vs_plain(args_s, ids_s)
     checked["raster_setup"].append(f"scene soup: {rows_s.shape[0]} x {rows_s.shape[1]} rows")
-    order_s, res_s = rc.sort_order(key_s), args_s[4]
+    res_s = args_s[4]
+    t_ss = setup_timing(args_s, key_s, ids_s)
+    b_ss, by_ss = setup_bound(args_s[0], args_s[1], args_s[5], ids_s, rows_s, key_s)[:2]
     log(f"{tag} raster_setup at the scene soup ({SCENE_CAMERAS} cameras x {rows_s.shape[1]} rows):"
         f" vs plain: plane rel err {err_s['plane']:.3g}, bbox/key rel err {err_s['bbox_key']:.3g} "
-        f"(<= {rc.SETUP_TOL}), max abs err {abs_s:.3g}, validity and instance ids equal")
+        f"(<= {rc.SETUP_TOL}), max abs err {abs_s:.3g}, validity and instance ids equal, order "
+        f"equal to torch.sort's; CUDA events behind a spin kernel: "
+        f"{setup_timing_text(t_ss, b_ss, by_ss)}")
     Fp_s = rows_s.shape[1]
     budget_s = min(Fp_s, SCENE_BUDGET)
     out_k = kernel.resolve(rows_s, order_s, res_s, SCENE_TILE, budget_s, True)
@@ -2372,9 +2454,9 @@ def main() -> int:
 
     # the plain resolve at the amodal re-render's shape, as the sampler builds it
     args_a, tile_a, budget_a = amodal_inputs(dev)
-    rows_a, key_a, _, err_a, abs_a = setup_vs_plain(args_a)
+    rows_a, key_a, order_a, _, err_a, abs_a = setup_vs_plain(args_a)
     checked["raster_setup"].append(f"amodal: {rows_a.shape[0]} x {rows_a.shape[1]} rows")
-    order_a, res_a = rc.sort_order(key_a), args_a[4]
+    res_a = args_a[4]
     out_k = kernel.resolve(rows_a, order_a, res_a, tile_a, budget_a, False)
     torch.cuda.synchronize()
     out_p = rc.resolve_plain_binned(rows_a, order_a, res_a, tile_a, budget_a, False)
@@ -2622,9 +2704,9 @@ def main() -> int:
     # both kernels at the VSD shape: the largest group, as _vsd_matrix builds it
     big = max(renders, key=lambda r: len(r[0]))
     args_v = vsd_setup_args(db_p, *big[:4])
-    rows_v, key_v, _, err_v, abs_v = setup_vs_plain(args_v)
+    rows_v, key_v, order_v, _, err_v, abs_v = setup_vs_plain(args_v)
     checked["raster_setup"].append(f"VSD: {rows_v.shape[0]} x {rows_v.shape[1]} rows")
-    order_v, res_v = rc.sort_order(key_v), args_v[4]
+    res_v = args_v[4]
     out_k = kernel.resolve(rows_v, order_v, res_v, OBJECT_TILE, OBJECT_BUDGET, False)
     torch.cuda.synchronize()
     out_p = rc.resolve_plain_binned(rows_v, order_v, res_v, OBJECT_TILE, OBJECT_BUDGET, False)
@@ -2638,16 +2720,17 @@ def main() -> int:
                                             False), 50)
     plain_v = time_cuda_ms(lambda: rc.resolve_plain_binned(rows_v, order_v, res_v, OBJECT_TILE,
                                                            OBJECT_BUDGET, False), 5, warmup=1)
-    ms_va = queued_ms(lambda: rc.setup(*args_v), 50)
+    t_va = setup_timing(args_v, key_v)
     b_v, by_v, visits_v, bytes_v = resolve_bound(rows_v, order_v, res_v, OBJECT_TILE,
                                                  OBJECT_BUDGET, False)
     b_va, by_va = setup_bound(args_v[0], args_v[1], args_v[5], None, rows_v, key_v)[:2]
     kept_v, whole_v, over_v, items_v = vsd_budget_drop(db_p, renders)
     log(f"{tag} VSD shape (B={rows_v.shape[0]}: estimates and GTs of one group, "
         f"{rows_v.shape[1]} rows, {res_v[0]}x{res_v[1]}, tile {OBJECT_TILE}, budget "
-        f"{OBJECT_BUDGET}; device times by CUDA events behind a spin kernel): raster_setup vs plain plane rel err {err_v['plane']:.3g}, bbox/key "
-        f"{err_v['bbox_key']:.3g} (<= {rc.SETUP_TOL}), max abs err {abs_v:.3g}, {ms_va:.4f} ms on "
-        f"the device (bound {b_va:.4f} ms by {by_va}); raster_resolve equal to the plain version "
+        f"{OBJECT_BUDGET}; device times by CUDA events behind a spin kernel): raster_setup vs "
+        f"plain plane rel err {err_v['plane']:.3g}, bbox/key {err_v['bbox_key']:.3g} (<= "
+        f"{rc.SETUP_TOL}), max abs err {abs_v:.3g}, order equal to torch.sort's; "
+        f"{setup_timing_text(t_va, b_va, by_va)}; raster_resolve equal to the plain version "
         f"(rgb, depth), {ms_v:.4f} ms on the device, bound {b_v:.4f} ms by {by_v} ({visits_v:.4g} "
         f"visits, {bytes_v / 1e6:.2f} MB; {100 * b_v / ms_v:.1f} % of bound), plain on the card "
         f"{plain_v:.2f} ms, library_ms: none")
@@ -2913,9 +2996,8 @@ def main() -> int:
     res_m, tile_m, budget_m = pred_m.render_size, pred_m.raster_tile, pred_m.raster_max_tris_per_tile
     args_m = vsd_setup_args(db_p, db_p.ids_for(chunk.infos["label"]).cpu().numpy(),
                             chunk.poses_input, chunk.K_crop, res_m)
-    rows_m, key_m, _, err_m, abs_m = setup_vs_plain(args_m)
+    rows_m, key_m, order_m, _, err_m, abs_m = setup_vs_plain(args_m)
     checked["raster_setup"].append(f"mini refiner: {rows_m.shape[0]} x {rows_m.shape[1]} rows")
-    order_m = rc.sort_order(key_m)
     out_k = kernel.resolve(rows_m, order_m, res_m, tile_m, budget_m, False)
     torch.cuda.synchronize()
     out_p = rc.resolve_plain_binned(rows_m, order_m, res_m, tile_m, budget_m, False)
@@ -2924,7 +3006,7 @@ def main() -> int:
     checked["raster_resolve"].append(f"mini refiner: {rows_m.shape[0]} x {rows_m.shape[1]} rows, "
                                      f"{res_m}, tile {tile_m}, budget {budget_m}")
     ms_m = queued_ms(lambda: kernel.resolve(rows_m, order_m, res_m, tile_m, budget_m, False), 50)
-    ms_ma = queued_ms(lambda: rc.setup(*args_m), 50)
+    t_ma = setup_timing(args_m, key_m)
     plain_m = time_cuda_ms(lambda: rc.resolve_plain_binned(rows_m, order_m, res_m, tile_m,
                                                            budget_m, False), 3, warmup=1)
     b_m, by_m, visits_m, bytes_m = resolve_bound(rows_m, order_m, res_m, tile_m, budget_m, False)
@@ -2934,8 +3016,9 @@ def main() -> int:
         f"largest |cx|, |cy| of the crops {cxy:.1f} px, "
         f"{res_m[0]}x{res_m[1]}, tile {tile_m}, budget {budget_m}; CUDA events behind a spin "
         f"kernel): raster_setup vs plain plane rel err {err_m['plane']:.3g} (<= {rc.SETUP_TOL}), "
-        f"max abs err {abs_m:.3g}, {ms_ma:.4f} ms (bound {b_ma:.4f} ms by {by_ma}, "
-        f"{100 * b_ma / ms_ma:.1f} %); raster_resolve equal to the plain version, {ms_m:.4f} ms "
+        f"max abs err {abs_m:.3g}, order equal to torch.sort's; "
+        f"{setup_timing_text(t_ma, b_ma, by_ma)}; raster_resolve equal to the plain version, "
+        f"{ms_m:.4f} ms "
         f"(bound {b_m:.4f} ms by {by_m}, {visits_m:.4g} visits, {bytes_m / 1e6:.2f} MB; "
         f"{100 * b_m / ms_m:.1f} % of bound), plain on the card {plain_m:.2f} ms, library_ms: "
         f"none")
@@ -3016,8 +3099,8 @@ def main() -> int:
     K_i = torch.as_tensor(big["K"], device=dev)[[0] * len(ids_i)]
     args_i = (db_p.tri_verts[ids_i], db_p.tri_valid[ids_i], big["preds"].poses.to(dev), K_i,
               tuple(big["depth"].shape[-2:]))
-    rows_i, key_i, _, err_i, abs_i = setup_vs_plain(args_i)
-    order_i, res_i = rc.sort_order(key_i), args_i[4]
+    rows_i, key_i, order_i, _, err_i, abs_i = setup_vs_plain(args_i)
+    res_i = args_i[4]
     out_k = kernel.resolve(rows_i, order_i, res_i, ICP_TILE, ICP_BUDGET, False)
     torch.cuda.synchronize()
     out_p = rc.resolve_plain_binned(rows_i, order_i, res_i, ICP_TILE, ICP_BUDGET, False)
@@ -3025,18 +3108,18 @@ def main() -> int:
         raise AssertionError("raster_resolve at ICP's shape: kernel vs plain not equal")
     ms_i = queued_ms(lambda: kernel.resolve(rows_i, order_i, res_i, ICP_TILE, ICP_BUDGET, False),
                      50)
-    ms_ia = queued_ms(lambda: rc.setup(*args_i), 50)
+    t_ia = setup_timing(args_i, key_i)
     plain_i = time_cuda_ms(lambda: rc.resolve_plain_binned(rows_i, order_i, res_i, ICP_TILE,
                                                            ICP_BUDGET, False), 3, warmup=1)
-    plain_ia = time_cuda_ms(lambda: rc.setup_plain(*args_i), 10)
+    plain_ia = time_cuda_ms(lambda: rc.sort_order(rc.setup_plain(*args_i)[1]), 10)
     b_i, by_i, visits_i, bytes_i = resolve_bound(rows_i, order_i, res_i, ICP_TILE, ICP_BUDGET,
                                                  False)
     b_ia, by_ia = setup_bound(args_i[0], args_i[1], torch.empty(0), None, rows_i, key_i)[:2]
     log(f"{tag} ICP's render shape (B={rows_i.shape[0]} detections x {rows_i.shape[1]} rows, "
         f"{res_i[0]}x{res_i[1]}, tile {ICP_TILE}, budget {ICP_BUDGET}; CUDA events behind a spin "
         f"kernel): raster_setup vs plain plane rel err {err_i['plane']:.3g}, bbox/key "
-        f"{err_i['bbox_key']:.3g} (<= {rc.SETUP_TOL}), max abs err {abs_i:.3g}, {ms_ia:.4f} ms "
-        f"(bound {b_ia:.4f} ms by {by_ia}, {100 * b_ia / ms_ia:.1f} %), plain on the card "
+        f"{err_i['bbox_key']:.3g} (<= {rc.SETUP_TOL}), max abs err {abs_i:.3g}, order equal to "
+        f"torch.sort's; {setup_timing_text(t_ia, b_ia, by_ia)}, plain on the card "
         f"{plain_ia:.3f} ms; raster_resolve equal to the plain version, {ms_i:.4f} ms (bound "
         f"{b_i:.4f} ms by {by_i}, {visits_i:.4g} visits, {bytes_i / 1e6:.2f} MB; "
         f"{100 * b_i / ms_i:.1f} % of bound), plain on the card {plain_i:.2f} ms, library_ms: "

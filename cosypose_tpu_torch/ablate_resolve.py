@@ -68,9 +68,8 @@ def main(tiles=((16, 32), (8, 64), (32, 32))) -> int:
         return 2
     dev = torch.device("cuda")
     first = demo.first_render_inputs(BATCH, IMAGE, RENDER, LOD, dev)
-    rows, key = rc.setup(first["tri_verts"], first["tri_valid"], first["TCO"], first["K_crop"],
-                         RENDER, first["colors"])
-    order = rc.sort_order(key)
+    rows, _, order = rc.setup(first["tri_verts"], first["tri_valid"], first["TCO"],
+                              first["K_crop"], RENDER, first["colors"])
     libs = build(rc.BUILD_DIR / "ablate")
     H, W = RENDER
     B, Fp = rows.shape[:2]

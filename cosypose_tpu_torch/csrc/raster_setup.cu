@@ -1,15 +1,15 @@
-// Triangle setup of the binned rasterizer, for Hopper (sm_90a): kernel A of
-// the raster path (raster_setup -> torch.sort -> raster_resolve).
+// Triangle setup and y-sort of the binned rasterizer, for Hopper (sm_90a):
+// kernel A of the raster path (raster_setup -> raster_resolve, two launches).
 //
 // Replaces the XLA plane setup and packing that feed the Pallas TPU kernel
 // cosypose_tpu/ops/rasterizer_pallas.py: camera transform (:149-155),
 // _triangle_planes (cosypose_tpu/ops/rasterizer.py:42, vmapped at :156) and
 // the packing of the coefficient rows with invalid rows zeroed (:161-177),
-// plus the y-sort key (:199). In the port's plain version these are
-// camera_corners + triangle_planes (ops/rasterizer.py) and the packing of
-// ops/rasterizer_cuda.setup_plain: some 150 small PyTorch ops per call.
+// the y-sort key (:199) and its stable argsort (:200). In the port's plain
+// version these are camera_corners + triangle_planes (ops/rasterizer.py), the
+// packing of ops/rasterizer_cuda.setup_plain and sort_order (torch.sort).
 //
-// What it computes. One thread per (item b, row f < Fp): for f < F, the
+// What it computes. For each item b and row f < Fp: for f < F, the
 // triangle's camera-frame corners (TCO applied), their projection by K with
 // z clamped to z_near, the headlight shading of the face normal, and from
 // these the barycentric, 1/z and colour/z planes, the screen bbox and the
@@ -19,7 +19,10 @@
 //   18:21 col_c, 21 attr, 22 0, 23 valid (1.0), 24:28 bbox (x0, y0, x1, y1),
 //   28:32 cover box (x0, y0, x1, y1)
 // and the sort key 0.5 * (y0 + y1). Invalid rows and the padding rows
-// F <= f < Fp are all zero with key +inf, so they sort to the tail.
+// F <= f < Fp are all zero with key +inf, so they sort to the tail. Then the
+// item's permutation order (B, Fp) int64: its rows by key, equal keys in mesh
+// order, element for element what torch.sort(ykey, dim=1, stable=True)
+// gives on the card (-0.0 tied with +0.0, NaN above +inf).
 //
 // The cover box holds every pixel centre of the H x W image at which the
 // resolve kernel's rounded inside tests (lambda_i >= -1e-6, each plane
@@ -35,12 +38,33 @@
 // cover box is the image. A box with no pixel centre (all zero) culls the row
 // everywhere. ops/rasterizer_cuda.cover_box is the same in PyTorch.
 //
-// Bound on an H100: bytes, and in practice the launch. Per triangle it reads
-// 36 B of corners, 36 B of colours, 1 B of validity (4 B of attribute) and
-// writes 132 B; ~220 fp32 operations per triangle are far under the bytes'
-// time. At the main path's B=128, F=176 that is ~4.5 MB, ~1.3 us at
-// 3.35 TB/s, so the launch itself dominates. The design makes it one launch
-// in place of ~150: each thread writes its row as eight 16-byte stores.
+// Bound on an H100: bytes, and in practice the launch and the latency of
+// one block's work. Per triangle it reads 36 B of corners, 36 B of colours,
+// 1 B of validity (4 B of attribute) and writes 140 B (row, key, order);
+// ~220 fp32 operations per triangle are far under the bytes' time. At the
+// main path's B=128, F=176 that is ~4.7 MB, ~1.4 us at 3.35 TB/s. The sort
+// used to be a torch.sort of the keys after this kernel: its own launches,
+// and the keys' round trip through device memory, each costing more than the
+// setup itself.
+//
+// Design. A cluster of C blocks per item (C chosen by the launcher: 1 when
+// the items alone fill the SMs, up to 8 when few items would leave most SMs
+// idle, and no more than lets every cluster be resident at once), each block
+// a slice of at most ceil(Fp / C) rows:
+//  1. Its threads stride over the slice's rows; each row is computed and
+//     written as eight 16-byte stores, and its composite key goes to shared
+//     memory: the high 32 bits an order-preserving map of the float key
+//     (-0.0 as +0.0, as torch.sort orders on the card), the low 32 bits f.
+//     Composites are unique, so sorting them is stable by construction.
+//  2. A bitonic sort of the slice's composites in shared memory, padded to a
+//     power of two with all-ones composites (8 B a row: 128 KB at 16,384
+//     rows, the cap, within the 227 KB a block may opt in to).
+//  3. With C = 1 the sorted low halves are the order. Otherwise each block
+//     ranks its own composites among the other slices by binary searches in
+//     their shared memory (distributed shared memory of the cluster), the
+//     C - 1 searches of a composite interleaved so that their loads overlap,
+//     and writes order[b, rank] = f: no merge buffer, no second pass.
+// The keys never leave the SM: only the permutation is written.
 //
 // Exactness: the arithmetic follows the association of the plain version's
 // ops (corners as ((r0 v0 + r1 v1) + r2 v2) + t, sums of three in order) with
@@ -49,12 +73,18 @@
 // for bit; torch.linalg.norm may round the normal's length otherwise, and
 // with it the colour planes: ops/rasterizer_cuda.py states the tolerance.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kRow = 32;
+constexpr int kThreads = 512;     // a block
+constexpr int kMaxCluster = 8;    // blocks an item, at most (the portable cluster size)
+constexpr int kMinSlice = 256;    // rows a block, at least, when an item is split
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -101,17 +131,14 @@ __device__ void cover_box(const float* a, const float* b, const float* c, int H,
   }
 }
 
-__global__ void __launch_bounds__(128) raster_setup_kernel(
+// Row f of item b, written to rows[b, f] as eight 16-byte stores; returns its
+// sort key (+inf for an invalid or padding row).
+__device__ __forceinline__ float setup_row(
     const float* __restrict__ tri_verts, const unsigned char* __restrict__ tri_valid,
     const float* __restrict__ TCO, const float* __restrict__ K,
     const float* __restrict__ colors, const float* __restrict__ tri_attr,
-    float* __restrict__ rows, float* __restrict__ ykey, int B, int F, int Fp, int H, int W,
-    float z_near) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(B) * Fp) return;
-  const int b = static_cast<int>(idx / Fp);
-  const int f = static_cast<int>(idx - static_cast<long long>(b) * Fp);
-
+    float* __restrict__ rows, int b, int f, int F, int Fp, int H, int W, float z_near) {
+  const long long idx = static_cast<long long>(b) * Fp + f;
   float r[kRow];
 #pragma unroll
   for (int i = 0; i < kRow; ++i) r[i] = 0.f;
@@ -213,24 +240,187 @@ __global__ void __launch_bounds__(128) raster_setup_kernel(
 #pragma unroll
   for (int i = 0; i < kRow / 4; ++i)
     out[i] = make_float4(r[4 * i], r[4 * i + 1], r[4 * i + 2], r[4 * i + 3]);
-  ykey[idx] = key;
+  return key;
+}
+
+// The composite sort key of row f: an order-preserving map of the float key
+// in the high half, f in the low half. The map orders as torch.sort does on
+// the card (CUB's radix order): -0.0 tied with +0.0, denormals by value, a
+// NaN by its bits (above +inf, or below -inf with the sign bit set; the
+// kernel's own NaNs are positive). ops/rasterizer_cuda.sort_composite_keys is
+// the same in PyTorch.
+__device__ __forceinline__ unsigned long long composite(float key, int f) {
+  unsigned u = key == 0.f ? 0u : __float_as_uint(key);
+  u ^= (u & 0x80000000u) ? 0xffffffffu : 0x80000000u;
+  return (static_cast<unsigned long long>(u) << 32) | static_cast<unsigned>(f);
+}
+
+// Ascending bitonic sort of keys[0:n] in shared memory, n a power of two.
+__device__ void bitonic_sort(unsigned long long* keys, int n) {
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = threadIdx.x; t < n / 2; t += blockDim.x) {
+        const int i = 2 * t - (t & (stride - 1));  // the pair (i, i + stride)
+        const unsigned long long a = keys[i], c = keys[i + stride];
+        if ((a > c) == ((i & size) == 0)) {
+          keys[i] = c;
+          keys[i + stride] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) raster_setup_kernel(
+    const float* __restrict__ tri_verts, const unsigned char* __restrict__ tri_valid,
+    const float* __restrict__ TCO, const float* __restrict__ K,
+    const float* __restrict__ colors, const float* __restrict__ tri_attr,
+    float* __restrict__ rows, float* __restrict__ ykey, long long* __restrict__ order, int F,
+    int Fp, int H, int W, float z_near, int slice, int slice_pow2) {
+  extern __shared__ unsigned long long keys[];  // this block's slice, sorted in place
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int n_blocks = static_cast<int>(cluster.dim_blocks().x);
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = static_cast<int>(blockIdx.x) / n_blocks;
+  const int lo = rank * slice;
+  const int n = max(0, min(slice, Fp - lo));  // rows of this slice
+
+  for (int i = threadIdx.x; i < slice_pow2; i += blockDim.x) {
+    unsigned long long k = ~0ull;
+    if (i < n) {
+      const int f = lo + i;
+      const float key =
+          setup_row(tri_verts, tri_valid, TCO, K, colors, tri_attr, rows, b, f, F, Fp, H, W, z_near);
+      ykey[static_cast<long long>(b) * Fp + f] = key;
+      k = composite(key, f);
+    }
+    keys[i] = k;
+  }
+  __syncthreads();
+  bitonic_sort(keys, slice_pow2);
+
+  long long* out = order + static_cast<long long>(b) * Fp;
+  if (n_blocks == 1) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      out[i] = static_cast<long long>(static_cast<unsigned>(keys[i]));
+    return;
+  }
+
+  cluster.sync();  // every slice of the item sorted
+  const unsigned long long* other[kMaxCluster];
+  int size[kMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) {
+    other[r] = r < n_blocks ? cluster.map_shared_rank(keys, r) : keys;
+    size[r] = r < n_blocks && r != rank ? max(0, min(slice, Fp - r * slice)) : 0;
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const unsigned long long k = keys[i];
+    int base[kMaxCluster], len[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      base[r] = 0;
+      len[r] = size[r];
+    }
+    // lower bounds of k in every other slice, one probe of each per step
+    for (int s = slice; s > 0; s >>= 1) {
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r) {
+        if (len[r] > 0) {
+          const int half = len[r] >> 1;
+          if (other[r][base[r] + half] < k) {
+            base[r] += half + 1;
+            len[r] -= half + 1;
+          } else {
+            len[r] = half;
+          }
+        }
+      }
+    }
+    int pos = i;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) pos += base[r];
+    out[pos] = static_cast<long long>(static_cast<unsigned>(k));
+  }
+  cluster.sync();  // no block leaves while another still reads its slice
 }
 
 }  // namespace
 
+// The most rows an item may have in this kernel on `device`: the largest
+// power of two whose composites (8 B a row) fit the shared memory a block may
+// opt in to (16,384 on an H100), or -1 with the CUDA error negated where the
+// attribute cannot be read.
+extern "C" int cosypose_raster_setup_max_rows(int device) {
+  int optin = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int rows = 1;
+  while (static_cast<size_t>(rows) * 2 * sizeof(unsigned long long) <= static_cast<size_t>(optin))
+    rows *= 2;
+  return rows;
+}
+
 // Plain C entry point, loaded with ctypes. `colors` and `tri_attr` may be
-// null (flat 0.7 albedo, zero attribute). Launches on `stream` and returns
-// cudaGetLastError() (0 when the launch was accepted).
+// null (flat 0.7 albedo, zero attribute). `cluster` is the number of blocks an
+// item (1 to 8), or 0 to let the launcher choose: the most, up to 8, that the
+// SMs hold for B items, that leave kMinSlice rows a block, and for which all
+// B clusters are resident at once (cudaOccupancyMaxActiveClusters: a cluster
+// lives within one GPC, so B x C blocks below the SM count may still need a
+// second wave). The caller keeps Fp within cosypose_raster_setup_max_rows.
+// Launches on `stream` and returns the launch's error (0 when it was
+// accepted).
 extern "C" int cosypose_raster_setup(
     const float* tri_verts, const unsigned char* tri_valid, const float* TCO, const float* K,
-    const float* colors, const float* tri_attr, float* rows, float* ykey, int B, int F, int Fp,
-    int H, int W, float z_near, int device, void* stream) {
+    const float* colors, const float* tri_attr, float* rows, float* ykey, long long* order,
+    int B, int F, int Fp, int H, int W, float z_near, int cluster, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n = static_cast<long long>(B) * Fp;
-  const int block = 128;
-  const dim3 grid(static_cast<unsigned>((n + block - 1) / block));
-  raster_setup_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      tri_verts, tri_valid, TCO, K, colors, tri_attr, rows, ykey, B, F, Fp, H, W, z_near);
+  if (B == 0 || Fp == 0) return 0;
+  if (cluster > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  cudaLaunchConfig_t config = {};
+  config.blockDim = dim3(kThreads);
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int slice = 0, slice_pow2 = 1;
+  // grid, cluster and shared memory of a launch in clusters of c
+  auto configure = [&](int c) -> cudaError_t {
+    slice = (Fp + c - 1) / c;
+    slice_pow2 = 1;
+    while (slice_pow2 < slice) slice_pow2 <<= 1;
+    const size_t smem = static_cast<size_t>(slice_pow2) * sizeof(unsigned long long);
+    attr[0].val.clusterDim.x = static_cast<unsigned>(c);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.gridDim = dim3(static_cast<unsigned>(B) * static_cast<unsigned>(c));
+    config.dynamicSmemBytes = smem;
+    if (smem <= 48 * 1024) return cudaSuccess;  // above 48 KB only by opt-in
+    return cudaFuncSetAttribute(raster_setup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem));
+  };
+  if (cluster <= 0) {
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cluster = max(1, min(min(kMaxCluster, sms / B), (Fp + kMinSlice - 1) / kMinSlice));
+    for (; cluster > 1; --cluster) {
+      err = configure(cluster);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      int resident = 0;
+      err = cudaOccupancyMaxActiveClusters(&resident, raster_setup_kernel, &config);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (resident >= B) break;
+    }
+  }
+  err = configure(cluster);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaLaunchKernelEx(&config, raster_setup_kernel, tri_verts, tri_valid, TCO, K, colors,
+                           tri_attr, rows, ykey, order, F, Fp, H, W, z_near, slice, slice_pow2);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

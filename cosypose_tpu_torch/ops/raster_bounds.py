@@ -66,9 +66,11 @@ def resolve_bound(rows, order, image, tile, budget, with_attr):
 
 def setup_bound(tri_verts, tri_valid, colors, tri_attr, rows, ykey):
     """(bound_ms, by, bytes) of one setup: corners, colours, validity, poses,
-    intrinsics (and attributes) read once, rows and keys written once."""
+    intrinsics (and attributes) read once; rows, keys and the int64 order
+    (one entry a key) written once. The sort itself moves no device memory:
+    kernel A sorts in shared memory."""
     B, F = tri_valid.shape
     n_bytes = (4 * tri_verts.numel() + tri_valid.numel() + 4 * colors.numel() + 4 * B * (16 + 9)
                + (4 * tri_attr.numel() if tri_attr is not None else 0)
-               + 4 * (rows.numel() + ykey.numel()))
+               + 4 * (rows.numel() + ykey.numel()) + 8 * ykey.numel())
     return (*bound(B * F * FLOPS_PER_TRIANGLE, n_bytes), n_bytes)

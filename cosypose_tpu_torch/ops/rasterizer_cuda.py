@@ -1,16 +1,15 @@
-"""Binned tile rasterizer: two Hopper kernels with a sort between, and their
-plain versions.
+"""Binned tile rasterizer: two Hopper kernels, and their plain versions.
 
 Port of cosypose_tpu/ops/rasterizer_pallas.py. Same contract and math as
 ops/rasterizer.py (affine screen-space planes, perspective-correct 1/z,
 headlight shading baked into the colour planes). A call is
 
   setup    kernel A (csrc/raster_setup.cu): one packed 32-float row per
-           triangle and its y-sort key;
-  sort     torch.sort(ykey, stable=True), where the JAX package argsorts;
+           triangle, its y-sort key, and the rows' stable order by key
+           (sorted inside the kernel, where the JAX package argsorts);
   resolve  kernel B (csrc/raster_resolve.cu): per (tile, item) block, bins
            the sorted chunks itself, culls rows per warp and resolves depth,
-           reading the rows through the sort's permutation.
+           reading the rows through that permutation.
 
 `setup` and `resolve` call the kernels as registered PyTorch operators,
 `cosypose::raster_setup` and `cosypose::raster_resolve` (torch.library), so
@@ -19,6 +18,10 @@ CUDA implementation launches the kernel, its CPU implementation runs the
 plain version, and no other device has one. The plain versions:
 
   setup_plain     camera_corners + triangle_planes + packing, in PyTorch ops;
+  sort_order      the stable sort of the keys (torch.sort), which with
+                  setup_plain makes kernel A's function;
+  sort_composite_keys  the kernel's own sort key in PyTorch (its float map
+                  and composites), held to sort_order by the tests;
   bin_chunks      the chunk binning of the JAX package (chunk AABBs, overlap,
                   first_k_true), on the sorted rows;
   resolve_plain   the per-pixel resolve with the kernel's exact arithmetic,
@@ -205,8 +208,25 @@ def setup_error(rows_a: torch.Tensor, key_a: torch.Tensor, rows_b: torch.Tensor,
 
 
 def sort_order(ykey: torch.Tensor) -> torch.Tensor:
-    """(B, Fp) int64: rows in order of ykey, equal keys in mesh order."""
+    """(B, Fp) int64: rows in order of ykey, equal keys in mesh order. The
+    plain version of kernel A's order (the CPU path and the tests)."""
     return torch.sort(ykey, dim=1, stable=True).indices
+
+
+def sort_composite_keys(ykey: torch.Tensor) -> torch.Tensor:
+    """(B, Fp) int64: kernel A's sort in PyTorch. Each key becomes a unique
+    composite, an order-preserving integer map of the float in the high 32
+    bits and the row index f in the low 32; the sorted composites' low halves
+    are the order. The map orders as torch.sort does on the card: -0.0 tied
+    with +0.0, denormals by value, a NaN by its bits (a positive one above
+    +inf, a negative one below -inf; on the CPU torch.sort puts every NaN
+    last). Here the map is the signed one (non-negative floats as their
+    bits, negative ones with all but the sign bit flipped), which orders as
+    the kernel's unsigned map does."""
+    bits = torch.where(ykey == 0, 0, ykey.float().contiguous().view(torch.int32).long())
+    mapped = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    f = torch.arange(ykey.shape[1], device=ykey.device)
+    return torch.sort(mapped * 2 ** 32 + f, dim=1).values & 0xFFFFFFFF
 
 
 def bin_chunks(rows: torch.Tensor, order: torch.Tensor, image_size: tuple[int, int],
@@ -423,34 +443,52 @@ class RasterKernels:
     def load(self):
         if self._fns is None:
             libs = build_libraries()
-            setup = ctypes.CDLL(str(libs["setup"][0])).cosypose_raster_setup
-            setup.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            setup_lib = ctypes.CDLL(str(libs["setup"][0]))
+            setup = setup_lib.cosypose_raster_setup
+            setup.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             lib = ctypes.CDLL(str(libs["resolve"][0]))
             resolve = lib.cosypose_raster_resolve
             resolve.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-            max_rows = lib.cosypose_raster_resolve_max_rows
-            max_rows.argtypes = [ctypes.c_int]
-            setup.restype = resolve.restype = max_rows.restype = ctypes.c_int
-            self._fns = {"setup": setup, "resolve": resolve, "max_rows": max_rows}
+            fns = {"setup": setup, "resolve": resolve,
+                   "setup_max_rows": setup_lib.cosypose_raster_setup_max_rows,
+                   "max_rows": lib.cosypose_raster_resolve_max_rows}
+            for name in ("setup_max_rows", "max_rows"):
+                fns[name].argtypes = [ctypes.c_int]
+            for fn in fns.values():
+                fn.restype = ctypes.c_int
+            self._fns = fns
         return self._fns
+
+    def _cap(self, which: str, device: torch.device) -> int:
+        index = device.index or 0
+        if (which, index) not in self._max_rows:
+            n = self.load()[which](index)
+            if n <= 0:
+                raise RuntimeError(f"{which}: cannot read the shared memory limit "
+                                   f"(cudaError {-n})")
+            self._max_rows[which, index] = n
+        return self._max_rows[which, index]
 
     def max_rows(self, device: torch.device) -> int:
         """The most rows an item may have in kernel B on `device`: kernel B
         stages 22 B a row in shared memory, so whole chunks within the shared
         memory a block may opt in to (10,560 on an H100)."""
-        index = device.index or 0
-        if index not in self._max_rows:
-            n = self.load()["max_rows"](index)
-            if n <= 0:
-                raise RuntimeError(f"raster_resolve: cannot read the shared memory limit "
-                                   f"(cudaError {-n})")
-            self._max_rows[index] = n
-        return self._max_rows[index]
+        return self._cap("max_rows", device)
+
+    def setup_max_rows(self, device: torch.device) -> int:
+        """The most rows an item may have in kernel A on `device`: it sorts
+        8 B a row in shared memory, padded to a power of two, within the
+        shared memory a block may opt in to (16,384 on an H100, above
+        max_rows, so that kernel A refuses no shape that kernel B takes)."""
+        return self._cap("setup_max_rows", device)
 
     def setup(self, tri_verts, tri_valid, TCO, K, image_size, colors=None, z_near=0.05,
-              tri_attr=None):
-        """Kernel A on CUDA tensors: (rows (B,Fp,32), ykey (B,Fp))."""
+              tri_attr=None, cluster=0):
+        """Kernel A on CUDA tensors: (rows (B,Fp,32), ykey (B,Fp), order
+        (B,Fp) int64). `cluster` is the number of blocks an item (1 to 8), or
+        0, which every render passes, to let the launcher choose; the outputs
+        are the same for every choice (tests and measurements set it)."""
         if not tri_verts.is_cuda:
             raise ValueError("the raster kernels take CUDA tensors")
         dev = tri_verts.device
@@ -464,18 +502,24 @@ class RasterKernels:
         if tri_attr is not None:
             _check("tri_attr", tri_attr, dev, torch.float32, (B, Fn))
         Fp = padded_rows(Fn)
+        cap = self.setup_max_rows(dev)
+        if Fp > cap or not 0 <= cluster <= 8:
+            raise ValueError(f"raster_setup does not take {B} items of {Fp} rows in clusters of "
+                             f"{cluster} (at most {cap} rows an item, clusters of 0 to 8)")
         rows = torch.empty(B, Fp, ROW, device=dev)
         ykey = torch.empty(B, Fp, device=dev)
+        order = torch.empty(B, Fp, dtype=torch.int64, device=dev)
         err = self.load()["setup"](
             tri_verts.data_ptr(), tri_valid.data_ptr(), TCO.data_ptr(), K.data_ptr(),
             None if colors is None else colors.data_ptr(),
             None if tri_attr is None else tri_attr.data_ptr(), rows.data_ptr(),
-            ykey.data_ptr(), B, Fn, Fp, int(image_size[0]), int(image_size[1]), float(z_near),
-            dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+            ykey.data_ptr(), order.data_ptr(), B, Fn, Fp, int(image_size[0]),
+            int(image_size[1]), float(z_near), int(cluster), dev.index or 0,
+            torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"raster_setup launch failed: cudaError {err}")
         self.launches["raster_setup"] += 1
-        return rows, ykey
+        return rows, ykey, order
 
     def resolve(self, rows, order, image_size, tile, max_tris_per_tile=1024, with_attr=False):
         """Kernel B on CUDA tensors: (rgb (B,3,H,W), depth (B,H,W), attr or None)."""
@@ -527,10 +571,12 @@ RASTER_KERNEL = RasterKernels()
 @torch.library.custom_op(
     "cosypose::raster_setup", mutates_args=(), device_types="cpu",
     schema="(Tensor tri_verts, Tensor tri_valid, Tensor TCO, Tensor K, int[] image_size, "
-           "Tensor? colors, float z_near, Tensor? tri_attr) -> (Tensor, Tensor)")
+           "Tensor? colors, float z_near, Tensor? tri_attr) -> (Tensor, Tensor, Tensor)")
 def raster_setup_op(tri_verts, tri_valid, TCO, K, image_size, colors, z_near, tri_attr):
-    """CPU: setup_plain."""
-    return setup_plain(tri_verts, tri_valid, TCO, K, tuple(image_size), colors, z_near, tri_attr)
+    """CPU: setup_plain, then sort_order."""
+    rows, ykey = setup_plain(tri_verts, tri_valid, TCO, K, tuple(image_size), colors, z_near,
+                             tri_attr)
+    return rows, ykey, sort_order(ykey)
 
 
 @raster_setup_op.register_kernel("cuda")
@@ -543,7 +589,8 @@ def _setup_cuda(tri_verts, tri_valid, TCO, K, image_size, colors, z_near, tri_at
 def _setup_fake(tri_verts, tri_valid, TCO, K, image_size, colors, z_near, tri_attr):
     B, Fn = tri_verts.shape[:2]
     Fp = padded_rows(Fn)
-    return tri_verts.new_empty(B, Fp, ROW), tri_verts.new_empty(B, Fp)
+    return (tri_verts.new_empty(B, Fp, ROW), tri_verts.new_empty(B, Fp),
+            tri_verts.new_empty(B, Fp, dtype=torch.int64))
 
 
 @torch.library.custom_op(
@@ -577,8 +624,9 @@ def _on_raster_device(x: torch.Tensor) -> None:
 
 
 def setup(tri_verts, tri_valid, TCO, K, image_size, colors=None, z_near=0.05, tri_attr=None):
-    """cosypose::raster_setup: kernel A on CUDA tensors, setup_plain on CPU
-    tensors, on float32 copies of the inputs: (rows, ykey)."""
+    """cosypose::raster_setup: kernel A on CUDA tensors, setup_plain and
+    sort_order on CPU tensors, on float32 copies of the inputs: (rows, ykey,
+    order), order the stable y-sort that resolve takes."""
     _on_raster_device(tri_verts)
 
     def f32(x):

@@ -229,7 +229,8 @@ def gathers(rank: int, world: int, device: torch.device, case: dict) -> dict:
 def kernels_vs_plain(rank: int, world: int, device: torch.device, case: dict) -> dict:
     """Both raster kernels on this rank's card at a train step's first render
     (case: batch, image_size, render_size, tile, budget, lod) against their
-    plain versions: setup's error as rasterizer_cuda.setup_error reads it,
+    plain versions: setup's error as rasterizer_cuda.setup_error reads it and
+    whether its order equals torch.sort's,
     resolve's outputs equal. Launches made here are not the step's."""
     from .. import demo
 
@@ -239,16 +240,16 @@ def kernels_vs_plain(rank: int, world: int, device: torch.device, case: dict) ->
                                      case["lod"], device)
     args = (first["tri_verts"], first["tri_valid"], first["TCO"], first["K_crop"],
             case["render_size"], first["colors"])
-    rows, key = rc.setup(*args)
+    rows, key, order = rc.setup(*args)
     rows_p, key_p = rc.setup_plain(*args)
     err = rc.setup_error(rows, key, rows_p, key_p, case["render_size"], K=first["K_crop"])
     both = (rows[..., rc.LANE_VALID] != 0) & (rows_p[..., rc.LANE_VALID] != 0)
-    order = rc.sort_order(key)
     out_k = rc.resolve(rows, order, case["render_size"], case["tile"], case["budget"])
     out_p = rc.resolve_plain_binned(rows, order, case["render_size"], case["tile"],
                                     case["budget"], False)
     torch.cuda.synchronize(device)
     return dict(setup_error=err, rows=tuple(rows.shape),
+                order_equal=bool(torch.equal(order, torch.sort(key, dim=1, stable=True).indices)),
                 setup_max_abs_err=float((rows[both] - rows_p[both]).abs().max()),
                 resolve_max_abs_err=max(float((a - b).abs().max())
                                         for a, b in zip(out_k[:2], out_p[:2])))

@@ -2,8 +2,9 @@
 cosypose_tpu/scripts/bench_stages.py).
 
 Times each stage of the render-and-compare iteration on its own — the crop
-(roi_align), the setup kernel, the sort, the resolve kernel, the whole render
-call, the backbone with its head, the pose update — and the whole iteration,
+(roi_align), the setup kernel (rows, keys and their y-order), the resolve
+kernel, the whole render call, the backbone with its head, the pose update —
+and the whole iteration,
 at the demo inputs (`demo.make_inputs`, 480x640 frames) with random weights.
 Each stage is read against what bounds it: the raster kernels against
 ops/raster_bounds.py (an H100's least time for the bytes or fp32 operations
@@ -103,8 +104,7 @@ def main(argv=None):
     with torch.inference_mode():
         images_crop, K_crop, _, _ = pp.crop(md, images, K, TCO)
         raster_args = (md["tri_verts"], md["tri_valid"], TCO, K_crop, size, md["tri_colors"])
-        rows, key = rc.setup(*raster_args)
-        order = rc.sort_order(key)
+        rows, key, order = rc.setup(*raster_args)
         rendered = rc.resolve(rows, order, size, tile, budget)[0]
         x = torch.cat([images_crop, rendered], dim=1)
         pose_outputs = pp.net(x)
@@ -112,10 +112,9 @@ def main(argv=None):
         stages = [
             ("crop(roi_align)", lambda: pp.crop(md, images, K, TCO), (0, 0), torch.float32),
             ("raster setup kernel", lambda: rc.setup(*raster_args), (1, 0), None),
-            ("raster sort (torch.sort)", lambda: rc.sort_order(key), (0, 0), None),
             ("raster resolve kernel", lambda: rc.resolve(rows, order, size, tile, budget),
              (0, 1), None),
-            ("raster full (setup+sort+resolve)",
+            ("raster full (setup+resolve)",
              lambda: render(*raster_args[:4], image_size=size, colors=raster_args[5], tile=tile,
                             max_tris_per_tile=budget), (1, 1), None),
             (f"backbone {args.backbone} bf16", lambda: pp.net(x), (0, 0), torch.bfloat16),

@@ -57,6 +57,26 @@ def demo_scene(device, B=8, image=IMAGE, lod=512, seed=0):
             torch.as_tensor(K, device=device), db.tri_colors[label_ids])
 
 
+def tie_soup(B=3, F=45, seed=0, device="cpu", image=(48, 64)):
+    """Triangles whose second half repeats the first (equal keys), item 1 all
+    invalid (every key +inf), rows above the image (negative keys) and, for
+    F % 8 != 0, padding rows (key +inf): (tri_verts, tri_valid, TCO, K,
+    colors) on `device`, with the principal point near the image's top."""
+    rng = np.random.RandomState(seed)
+    c = rng.uniform(-0.1, 0.1, (B, F, 1, 3))
+    tv = c + rng.uniform(-0.01, 0.01, (B, F, 3, 3))
+    tv[:, F // 2:] = tv[:, :F - F // 2]
+    valid = rng.uniform(size=(B, F)) > 0.1
+    valid[min(1, B - 1)] = False
+    TCO = np.tile(np.eye(4), (B, 1, 1))
+    TCO[:, 2, 3] = rng.uniform(0.5, 1.0, B)
+    f = 2.5 * image[1]
+    K = np.tile(np.array([[f, 0, image[1] / 2], [0, f, image[0] / 8], [0, 0, 1]]), (B, 1, 1))
+    colors = rng.uniform(0, 1, (B, F, 3, 3))
+    return tuple(torch.as_tensor(a, dtype=torch.float32 if a.dtype != bool else torch.bool,
+                                 device=device).contiguous() for a in (tv, valid, TCO, K, colors))
+
+
 def _compare(kernel_out, plain_out, with_attr):
     (rgb_k, depth_k, attr_k), (rgb_p, depth_p, attr_p) = kernel_out, plain_out
     assert (depth_k - depth_p).abs().max().item() <= ATOL
@@ -69,9 +89,10 @@ def _compare(kernel_out, plain_out, with_attr):
 def test_setup_matches_plain(cuda):
     scene = demo_scene(cuda)
     launches = dict(rasterizer_cuda.RASTER_KERNEL.launches)
-    rows, key = rasterizer_cuda.RASTER_KERNEL.setup(*scene[:4], IMAGE, scene[4])
+    rows, key, order = rasterizer_cuda.RASTER_KERNEL.setup(*scene[:4], IMAGE, scene[4])
     torch.cuda.synchronize()
     assert rasterizer_cuda.RASTER_KERNEL.launches["raster_setup"] == launches["raster_setup"] + 1
+    assert torch.equal(order, torch.sort(key, dim=1, stable=True).indices)
     plain = rasterizer_cuda.setup_plain(*scene[:4], IMAGE, scene[4])
     err = rasterizer_cuda.setup_error(rows, key, *plain, IMAGE)
     assert err["valid_differs"] == 0 and err["attr"] == 0
@@ -85,8 +106,7 @@ def test_setup_matches_plain(cuda):
 def test_resolve_matches_plain(cuda, tile, budget):
     """Tiles (32, 32) and (64, 64) are ragged on the 240-row image."""
     scene = demo_scene(cuda)
-    rows, key = rasterizer_cuda.RASTER_KERNEL.setup(*scene[:4], IMAGE, scene[4])
-    order = rasterizer_cuda.sort_order(key)
+    rows, _, order = rasterizer_cuda.RASTER_KERNEL.setup(*scene[:4], IMAGE, scene[4])
     launches = dict(rasterizer_cuda.RASTER_KERNEL.launches)
     out = rasterizer_cuda.RASTER_KERNEL.resolve(rows, order, IMAGE, tile, budget)
     torch.cuda.synchronize()
@@ -111,9 +131,8 @@ def test_resolve_attr_variant(cuda):
     attr = torch.cat([torch.full((n,), 1.0), torch.full((n,), 2.0)])[None].to(cuda)
     eye = torch.eye(4, device=cuda)[None]
     tile = (16, 16)
-    rows, key = rasterizer_cuda.RASTER_KERNEL.setup(tv2, valid2, eye, K[:1].contiguous(), IMAGE,
-                                                    tri_attr=attr)
-    order = rasterizer_cuda.sort_order(key)
+    rows, _, order = rasterizer_cuda.RASTER_KERNEL.setup(tv2, valid2, eye, K[:1].contiguous(),
+                                                         IMAGE, tri_attr=attr)
     out = rasterizer_cuda.RASTER_KERNEL.resolve(rows, order, IMAGE, tile, with_attr=True)
     _compare(out, rasterizer_cuda.resolve_plain_binned(rows, order, IMAGE, tile, 1024, True), True)
     assert set(out[2].unique().tolist()) == {0.0, 1.0, 2.0}
@@ -126,8 +145,7 @@ def test_kernels_refuse_bad_inputs(cuda):
         kernels.setup(tv.double(), valid, TCO, K, (64, 64))
     with pytest.raises(ValueError):
         kernels.setup(tv, valid.float(), TCO, K, (64, 64))
-    rows, key = kernels.setup(tv, valid, TCO, K, (64, 64), colors)
-    order = rasterizer_cuda.sort_order(key)
+    rows, _, order = kernels.setup(tv, valid, TCO, K, (64, 64), colors)
     with pytest.raises(ValueError):
         kernels.resolve(rows.double(), order, (64, 64), (16, 16))
     with pytest.raises(ValueError):
@@ -245,8 +263,8 @@ def test_resolve_attr_at_the_scene_shape(cuda):
     import chip_smoke
 
     args, ids = chip_smoke.scene_inputs(cuda)
-    rows, key = chip_smoke.setup_vs_plain(args, ids)[:2]  # raises beyond SETUP_TOL
-    order, res = rasterizer_cuda.sort_order(key), args[4]
+    rows, _, order = chip_smoke.setup_vs_plain(args, ids)[:3]  # raises beyond SETUP_TOL
+    res = args[4]
     assert rows.shape[1] >= 8872
     budget = min(rows.shape[1], 6144)
     out = rasterizer_cuda.RASTER_KERNEL.resolve(rows, order, res, (8, 320), budget, True)
@@ -265,8 +283,7 @@ def test_resolve_at_the_amodal_shape(cuda):
 
     args, tile, budget = chip_smoke.amodal_inputs(cuda)
     assert tuple(args[0].shape[:2]) == (80, 1216) and (tile, budget) == ((24, 320), 768)
-    rows, key = chip_smoke.setup_vs_plain(args)[:2]
-    order = rasterizer_cuda.sort_order(key)
+    rows, _, order = chip_smoke.setup_vs_plain(args)[:3]
     out = rasterizer_cuda.RASTER_KERNEL.resolve(rows, order, args[4], tile, budget)
     torch.cuda.synchronize()
     plain = rasterizer_cuda.resolve_plain_binned(rows, order, args[4], tile, budget)
@@ -554,9 +571,9 @@ def test_raster_operators_opcheck_on_the_card(cuda, op):
     if op == "raster_setup":
         fn, args = rasterizer_cuda.raster_setup_op, sargs
     else:
-        rows, key = rasterizer_cuda.raster_setup_op(*sargs)
-        fn, args = rasterizer_cuda.raster_resolve_op, (rows, rasterizer_cuda.sort_order(key),
-                                                       list(IMAGE), [16, 32], 1024, with_attr)
+        rows, _, order = rasterizer_cuda.raster_setup_op(*sargs)
+        fn, args = rasterizer_cuda.raster_resolve_op, (rows, order, list(IMAGE), [16, 32], 1024,
+                                                       with_attr)
     name = "raster_resolve_attr" if with_attr else op
     before = rasterizer_cuda.RASTER_KERNEL.launches[name]
     torch.library.opcheck(fn, args)
@@ -663,7 +680,7 @@ def test_setup_kernel_equals_plain_bit_for_bit_on_slivers(cuda):
     same order, so validity, the barycentric and 1/z planes, the boxes and
     the keys are equal, and the colour planes within SETUP_TOL."""
     args = [torch.as_tensor(a, device=cuda) for a in sliver_inputs()]
-    rows_k, key_k = rasterizer_cuda.setup(*args, (240, 320))
+    rows_k, key_k, _ = rasterizer_cuda.setup(*args, (240, 320))
     rows_p, key_p = rasterizer_cuda.setup_plain(*args, (240, 320))
     colour = slice(12, 21)
     exact = [i for i in range(rows_k.shape[-1]) if not colour.start <= i < colour.stop]
@@ -671,3 +688,108 @@ def test_setup_kernel_equals_plain_bit_for_bit_on_slivers(cuda):
     err = rasterizer_cuda.setup_error(rows_k.cpu(), key_k.cpu(), rows_p.cpu(), key_p.cpu(),
                                       (240, 320), K=args[3].cpu())
     assert err["valid_differs"] == 0 and err["plane"] <= rasterizer_cuda.SETUP_TOL, err
+
+
+# PERF.md §6's shapes of kernel A (items x rows, render size), and the largest
+# soups: the amodal re-render, a procedural scene of 10 cameras, kernel B's
+# row cap
+SETUP_SHAPES = {"main path": (128, None, (240, 320)), "VSD": (8, 1216, (240, 320)),
+                "ICP": (7, 1216, (240, 320)), "mini refiner": (64, 1216, (120, 160)),
+                "VOC training": (32, 1216, (240, 320)), "amodal": (80, 1216, (240, 320)),
+                "scene": (10, 10088, (240, 320)), "ties": (5, 45, (48, 64))}
+
+
+@pytest.mark.parametrize("shape", [*SETUP_SHAPES, "kernel B's row cap"])
+def test_setup_order_equals_torch_sort(cuda, shape):
+    """Kernel A's order against torch.sort(ykey, dim=1, stable=True).indices
+    on the card, element for element, for every cluster size (the launcher's
+    choice, one block an item, 2 and 8): the same rows, keys and order each
+    time, and rows within SETUP_TOL of setup_plain with validity equal. The
+    soups tie keys (repeated triangles, an all-invalid item, padding rows)
+    and put rows above the image (negative keys)."""
+    kernels = rasterizer_cuda.RASTER_KERNEL
+    if shape == "main path":
+        first = demo.first_render_inputs(128, (480, 640), (240, 320), 512, cuda)
+        args = (first["tri_verts"], first["tri_valid"], first["TCO"], first["K_crop"],
+                first["colors"])
+        image = (240, 320)
+    else:
+        B, F, image = SETUP_SHAPES.get(shape, (2, kernels.max_rows(cuda), (240, 320)))
+        args = tie_soup(B, F, seed=F + B, device=cuda, image=image)
+    first_out = None
+    for cluster in (0, 1, 2, 8):
+        out = kernels.setup(*args[:4], image, args[4], cluster=cluster)
+        torch.cuda.synchronize()
+        rows, key, order = out
+        assert torch.equal(order, torch.sort(key, dim=1, stable=True).indices), cluster
+        if first_out is None:
+            first_out = out
+        assert all(torch.equal(a, b) for a, b in zip(out, first_out)), cluster
+    err = rasterizer_cuda.setup_error(rows, key, *rasterizer_cuda.setup_plain(
+        *args[:4], image, args[4]), image, K=args[3])
+    assert err["valid_differs"] == 0 and err["plane"] <= rasterizer_cuda.SETUP_TOL, err
+    assert err["bbox_key"] <= rasterizer_cuda.SETUP_TOL, err
+
+
+def test_setup_row_cap(cuda):
+    """Kernel A sorts 8 B a row in shared memory, padded to a power of two:
+    it takes setup_max_rows() rows an item (16,384 on an H100), at least
+    kernel B's max_rows(), and refuses more with a ValueError naming the
+    cap; nothing falls back to torch.sort."""
+    kernels = rasterizer_cuda.RASTER_KERNEL
+    cap = kernels.setup_max_rows(cuda)
+    assert cap >= kernels.max_rows(cuda) and cap & (cap - 1) == 0
+    optin = getattr(torch.cuda.get_device_properties(cuda), "shared_memory_per_block_optin", None)
+    assert optin is None or 8 * cap <= optin < 16 * cap
+    args = tie_soup(2, cap, device=cuda, image=(240, 320))
+    rows, key, order = kernels.setup(*args[:4], (240, 320), args[4], cluster=1)
+    assert torch.equal(order, torch.sort(key, dim=1, stable=True).indices)
+    big = tie_soup(1, cap + 8, device=cuda, image=(240, 320))
+    launches = dict(kernels.launches)
+    with pytest.raises(ValueError, match=f"at most {cap} rows"):
+        rasterizer_cuda.setup(*big[:4], (240, 320), big[4])
+    assert kernels.launches == launches
+
+
+def test_composite_keys_order_as_torch_sort_on_the_card(cuda):
+    """The kernel's key map (sort_composite_keys) orders as torch.sort does on
+    the card, on keys with ties, +-0.0, +-inf, NaNs of both signs and other
+    payloads, denormals and negative keys, in rows short and long enough for
+    both of torch.sort's paths."""
+    bits = np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0x7FFFFFFF, 0x7F800000, 0xFF800000,
+                     0x80000000, 0, 1, 0x80000001, 0x00400000, 0x80400000, 0x3F800000,
+                     0xBF800000], np.uint32)
+    special = torch.as_tensor(bits.view(np.float32))
+    rng = np.random.RandomState(0)
+    for n in (5, 14, 700, 5000):
+        picks = rng.randint(0, len(bits), (3, n))
+        keys = special[picks].to(cuda)
+        keys[1] = torch.as_tensor(rng.normal(size=n).astype(np.float32)).round()
+        want = torch.sort(keys, dim=1, stable=True).indices
+        assert torch.equal(rasterizer_cuda.sort_composite_keys(keys), want), n
+
+
+def test_render_launches_two_kernels_and_no_sort(cuda):
+    """One render() call on the card launches kernel A and kernel B once each
+    and no sort kernel: read from a torch.profiler trace in a fresh process
+    (chip_smoke.render_kernel_names), where the profiler still sees the card
+    (PERF.md §7)."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    code = (f"import json, sys; sys.path.insert(0, {str(repo)!r}); import chip_smoke; "
+            "from cosypose_tpu_torch import demo; "
+            "from cosypose_tpu_torch.ops.render import render; "
+            "f = demo.first_render_inputs(8, (480, 640), (240, 320), 512, 'cuda'); "
+            "print(json.dumps(chip_smoke.render_kernel_names(lambda: render(f['tri_verts'], "
+            "f['tri_valid'], f['TCO'], f['K_crop'], image_size=(240, 320), "
+            "colors=f['colors']))))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=600, cwd=repo, check=True)
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sum("raster_setup_kernel" in n for n in names) == 1, names
+    assert sum("raster_resolve_kernel" in n for n in names) == 1, names
+    assert not [n for n in names if "sort" in n.lower()], names

@@ -193,8 +193,8 @@ def test_raster_operators_opcheck_and_fake_shapes(op):
     if op == "raster_setup":
         fn, args = rc.raster_setup_op, sargs
     else:
-        rows, key = rc.raster_setup_op(*sargs)
-        fn, args = rc.raster_resolve_op, (rows, rc.sort_order(key), [48, 64], [16, 32], 1024,
+        rows, _, order = rc.raster_setup_op(*sargs)
+        fn, args = rc.raster_resolve_op, (rows, order, [48, 64], [16, 32], 1024,
                                           with_attr)
     torch.library.opcheck(fn, args)
     real = fn(*args)
@@ -233,8 +233,8 @@ def test_bench_stages_writes_every_stage(tmp_path):
                               "cpu", "--json", str(out)])
     assert json.loads(out.read_text()) == json.loads(json.dumps(rows))
     assert [r["stage"] for r in rows] == [
-        "crop(roi_align)", "raster setup kernel", "raster sort (torch.sort)",
-        "raster resolve kernel", "raster full (setup+sort+resolve)",
+        "crop(roi_align)", "raster setup kernel", "raster resolve kernel",
+        "raster full (setup+resolve)",
         "backbone efficientnet-b3 bf16", "pose update", "full iteration"]
     for r in rows:
         assert {"stage", "ms", "ms_per_call", "gflop", "tflops", "mfu_pct", "calls", "launches",
@@ -254,13 +254,15 @@ def test_raster_bounds_at_the_main_path_shape():
     first = demo.first_render_inputs(128, (480, 640), (240, 320), 512, "cpu")
     args = (first["tri_verts"], first["tri_valid"], first["TCO"], first["K_crop"], (240, 320),
             first["colors"])
-    rows, key = rc.setup(*args)
+    rows, key, order = rc.setup(*args)
     assert rows.shape == (128, 176, rc.ROW)
-    r_ms, r_by, visits, r_bytes = resolve_bound(rows, rc.sort_order(key), (240, 320), (16, 32),
+    r_ms, r_by, visits, r_bytes = resolve_bound(rows, order, (240, 320), (16, 32),
                                                 1024, False)
     s_ms, s_by, s_bytes = setup_bound(first["tri_verts"], first["tri_valid"], first["colors"],
                                       None, rows, key)
     assert (r_by, s_by) == ("bytes", "bytes")
     assert r_bytes == 4 * 128 * 176 * 32 + 8 * 128 * 176 + 4 * 128 * 240 * 320 * 4
+    # setup: corners and colours, validity, poses and intrinsics in; rows, keys, order out
+    assert s_bytes == 2 * 4 * 128 * 176 * 9 + 128 * 176 + 4 * 128 * 25 + (4 * 33 + 8) * 128 * 176
     assert round(r_ms, 4) == 0.0479 and round(s_ms, 4) == 0.0014
     assert 0 < visits * 20 / 67e12 * 1e3 < r_ms
