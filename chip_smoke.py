@@ -108,9 +108,13 @@ Phases, none of them caught; any failure exits non-zero:
      held to their plain versions at their shapes;
  12. the JPEG data path and the depthwise lowerings (jpeg_phase): every
      committed JPEG fixture (tests/torch_port_data/jpeg) through the C++ and
-     the numpy decoder, both equal to the Pillow arrays stored beside them,
-     with host decode times (a 480x640 frame, the VOC frames, the same frame
-     as PNG); procedural-refiner trained with VOC backgrounds
+     the numpy decoder, both equal to the Pillow arrays stored beside them
+     (arithmetic-coded, lossless, CMYK, YCCK and block-smoothed files among
+     them), with host decode times (a 480x640 frame, the VOC frames, the same
+     frame as PNG, the 480x640 arithmetic-coded and CMYK frames); the CMYK
+     fixtures through data/bop.py, the texture dataset and the background
+     paste; masked_boxes_from_uv, BatchedMeshes.select and
+     sample_points(deterministic=False, seed=3) card vs CPU; procedural-refiner trained with VOC backgrounds
      (PoseDataset(voc_root=...)) at 0 and 8 loader workers, an item's
      background held to the decoded, resized VOC image; one refiner
      iteration at B=128, B3 bf16, LOD 512 in each depthwise lowering
@@ -275,6 +279,11 @@ N_OVERLAYS = 4
 # the JPEG BOP split's frames (the 480x640 fixtures, each twice)
 JPEG_FRAME = "frame_420_q95.jpg"
 JPEG_DECODES = 20
+# the 480x640 arithmetic-coded and CMYK frames (decode times) and the CMYK
+# fixtures the readers take (data/bop.py, data/texture_dataset.py and the
+# background paste), held to the stored Pillow arrays
+JPEG_MODE_FRAMES = ("frame_arith_420_q90.jpg", "frame_cmyk_q90.jpg")
+JPEG_CMYK = ("small_cmyk_q90.jpg", "small_ycck_2211.jpg", "frame_cmyk_q90.jpg")
 VOC_STEPS = {0: 6, 8: 32}
 DW_IMPLS = ("conv", "shift", "dense")
 DW_REPS = 5
@@ -311,28 +320,39 @@ def time_cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+# profiler sessions device_ms runs before it gives up on an empty one
+PROFILER_SESSIONS = 3
+
+
 def device_ms(fn, reps: int = 20) -> float:
     """Mean device time of the kernels fn() launches, by torch.profiler: for
     calls too short for CUDA events, which then time the host's dispatch.
-    Raises where the profiler records no device activity."""
+    The profiler on the card can lose every device record of a short session
+    (PERF.md §7: the longer the process has lived, the more), so a session
+    that comes back empty is run again with four times the calls, up to
+    PROFILER_SESSIONS times; raises where none records device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    averages = prof.key_averages()
-    events = [e for e in averages if e.device_type == DeviceType.CUDA]
-    if not events:
-        raise RuntimeError(f"torch.profiler recorded no device activity ({len(averages)} host "
-                           f"events)")
-    attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") \
-        else "self_cuda_time_total"
-    return sum(getattr(e, attr) for e in events) / 1e3 / reps
+    for _ in range(PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        events = [e for e in averages if e.device_type == DeviceType.CUDA]
+        if events:
+            attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") \
+                else "self_cuda_time_total"
+            return sum(getattr(e, attr) for e in events) / 1e3 / reps
+        log(f"torch.profiler recorded no device activity over {reps} calls "
+            f"({len(averages)} host events); again with {4 * reps}")
+        reps *= 4
+    raise RuntimeError(f"torch.profiler recorded no device activity in {PROFILER_SESSIONS} "
+                       "sessions")
 
 
 def queued_ms(fn, reps: int) -> float:
@@ -883,6 +903,16 @@ def kernels_vs_plain_at(what: str, call, checked: dict) -> str:
 
 # the subprocess of phase 11 (b) and (d): torch and the operators' module
 # only, the exported artifact and its inputs from build/
+# the modules a loaded program imports: the operators' module, and the ops and
+# utils packages with what they re-export; no model, predictor, data, training
+# or serving code
+FRESH_MODULES = ["cosypose_tpu_torch"] + [f"cosypose_tpu_torch.{m}" for m in (
+    "config", "ops", "ops.camera", "ops.cropping", "ops.losses", "ops.mesh_db",
+    "ops.mesh_io", "ops.mesh_ops", "ops.pose_ops", "ops.rasterizer", "ops.rasterizer_cuda",
+    "ops.render", "ops.roi_align", "ops.symmetric", "ops.symmetries", "ops.transform",
+    "ops.transforms", "utils", "utils.device", "utils.distributed", "utils.logging",
+    "utils.tensor_collection", "utils.timer")]
+
 FRESH_LOAD = """
 import sys, json, numpy as np, torch
 import cosypose_tpu_torch.ops.rasterizer_cuda as rc
@@ -1019,15 +1049,13 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
     report = json.loads(run.stdout.strip().splitlines()[-1])
     fresh = torch.as_tensor(np.load(y_path))
     same = torch.equal(fresh, got.cpu())
-    allowed = {"cosypose_tpu_torch", "cosypose_tpu_torch.ops", "cosypose_tpu_torch.ops.rasterizer",
-               "cosypose_tpu_torch.ops.rasterizer_cuda", "cosypose_tpu_torch.utils",
-               "cosypose_tpu_torch.utils.logging", "cosypose_tpu_torch.utils.profiling"}
-    if not same or report["launches"] != want_l or not set(report["modules"]) <= allowed:
+    if not same or report["launches"] != want_l or report["modules"] != FRESH_MODULES:
         raise AssertionError(f"fresh-process load: equal to (a) {same} (max diff "
                              f"{float((fresh - got.cpu()).abs().max())}), launches "
                              f"{report['launches']}, modules {report['modules']}")
     log(f"{tag} fresh process ({time.perf_counter() - t0:.1f} s, torch and "
-        f"cosypose_tpu_torch.ops.rasterizer_cuda only; no checkpoint, no mesh files): output "
+        f"cosypose_tpu_torch.ops.rasterizer_cuda, which loads {len(FRESH_MODULES)} modules of "
+        f"the port; no checkpoint, no mesh files): output "
         f"equal to (a) bit for bit, launches {report['launches']}")
 
     # (d) the trace that process wrote around one served call
@@ -1252,6 +1280,12 @@ def jpeg_phase(tag: str, checked: dict, ctx: dict) -> dict:
         f"{1e3 * t_numpy[JPEG_FRAME]:.1f} ms once by numpy; the same frame as PNG "
         f"({len(png_bytes)} bytes) {ms_png:.3f} ms by utils/png.decode; the VOC frames "
         f"(500x375 / 375x500 q75 4:2:0) {', '.join(f'{m:.3f}' for m in ms_voc)} ms")
+    for name in JPEG_MODE_FRAMES:
+        data = (jpeg_root / name).read_bytes()
+        log(f"{tag} JPEG host decode, median of {JPEG_DECODES}: {name} (480x640, {len(data)} "
+            f"bytes) {median_ms(jpeg_cext.decode, data):.3f} ms by the C++ library, "
+            f"{1e3 * t_numpy[name]:.1f} ms once by numpy")
+    log(f"{tag} " + cmyk_readers(fx, arrays))
 
     # (b) procedural-refiner with VOC backgrounds, 0 and 8 loader workers
     run_p = ctx["make_cfg"]("procedural-refiner")
@@ -1432,8 +1466,88 @@ def jpeg_phase(tag: str, checked: dict, ctx: dict) -> dict:
         f"{runner.seconds['pose']:.2f} s; {len(poses)} detections ({chunks} refiner chunks); "
         f"launches {launches_bop} (want {want}); "
         + kernels_vs_plain_at("JPEG BOP split", calls[0], checked))
+    log(f"{tag} " + public_names_card_vs_cpu())
     log(f"phase 12 took {time.perf_counter() - t_phase:.0f} s")
     return {"training": launches_train, "dw": launches_dw, "bop": launches_bop}
+
+
+def cmyk_readers(fx, arrays: dict) -> str:
+    """The CMYK fixtures through the port's readers, against the stored Pillow
+    arrays: data/bop.py keeps the first three channels as Pillow presents
+    them (the JAX package slices its raw array), the texture dataset and the
+    background paste convert to RGB as Pillow does (data/pillow_ops.py)."""
+    import random
+    import shutil
+
+    import numpy as np
+
+    from cosypose_tpu_torch.data import pillow_ops
+    from cosypose_tpu_torch.data.augmentations import BackgroundAugmentation, SceneObservation
+    from cosypose_tpu_torch.data.bop import BOPDataset
+    from cosypose_tpu_torch.data.texture_dataset import TextureDataset
+
+    root = REPO / "build" / "chip_smoke_data" / "cmyk"
+    shutil.rmtree(root, ignore_errors=True)
+    scene = root / "test" / "000000"
+    (scene / "rgb").mkdir(parents=True)
+    (root / "textures").mkdir()
+    cam = {}
+    for view, name in enumerate(JPEG_CMYK):
+        shutil.copyfile(fx.ROOT / name, scene / "rgb" / f"{view:06d}.jpg")
+        shutil.copyfile(fx.ROOT / name, root / "textures" / name)
+        cam[str(view)] = {"cam_K": [600.0, 0.0, 320.0, 0.0, 600.0, 240.0, 0.0, 0.0, 1.0]}
+    (scene / "scene_camera.json").write_text(json.dumps(cam))
+    bop = BOPDataset(root, split="test")
+    textures = TextureDataset(root / "textures")
+    for view, name in enumerate(JPEG_CMYK):
+        ref = arrays[name]
+        if ref.shape[2] != 4 or not np.array_equal(bop[view][0], ref[..., :3]):
+            raise AssertionError(f"BOPDataset on {name}: not the first three CMYK channels")
+        got = textures[textures.index.index(root / "textures" / name)]
+        if not np.array_equal(got, pillow_ops.cmyk_to_rgb(ref).astype(np.float32) / 255.0):
+            raise AssertionError(f"TextureDataset on {name}: not Pillow's convert('RGB')")
+    h, w = 96, 128
+    obs = SceneObservation(np.zeros((h, w, 3), np.uint8), np.zeros((h, w), np.int32), {})
+    aug = BackgroundAugmentation([fx.ROOT / JPEG_CMYK[0]], p=1.0, rng=random.Random(0))
+    want = pillow_ops.resize_bilinear(pillow_ops.cmyk_to_rgb(arrays[JPEG_CMYK[0]]), (h, w))
+    if not np.array_equal(aug(obs).rgb, want):
+        raise AssertionError("BackgroundAugmentation on a CMYK JPEG: not Pillow's RGB, resized")
+    return (f"CMYK readers on {', '.join(JPEG_CMYK)}: BOPDataset's frames are the first three "
+            f"channels as Pillow presents them, TextureDataset and BackgroundAugmentation "
+            f"convert to RGB as Pillow does; all equal to the stored arrays")
+
+
+def public_names_card_vs_cpu() -> str:
+    """masked_boxes_from_uv, BatchedMeshes.select and sample_points(
+    deterministic=False, seed=3) on the card against the CPU: gathers and
+    minima, so equal."""
+    import numpy as np
+    import torch
+
+    from cosypose_tpu_torch import demo
+    from cosypose_tpu_torch.ops.camera import masked_boxes_from_uv
+    from cosypose_tpu_torch.ops.mesh_db import build_mesh_db
+
+    rng = np.random.RandomState(0)
+    uv = rng.uniform(-50, 700, (BATCH, 2000, 2)).astype(np.float32)
+    valid = rng.uniform(size=(BATCH, 2000)) > 0.3
+    valid[1] = False
+    boxes = [masked_boxes_from_uv(torch.as_tensor(uv, device=d), torch.as_tensor(valid, device=d))
+             .cpu() for d in ("cuda", "cpu")]
+    dbs = [build_mesh_db(demo.demo_specs(), render_max_faces=LOD, device=d) for d in ("cuda", "cpu")]
+    ids = rng.randint(0, dbs[0].n_objects, BATCH)
+    sel = [db.select(torch.as_tensor(ids, device=db.device)) for db in dbs]
+    pts = [db.sample_points(torch.as_tensor(ids, device=db.device), 500, deterministic=False,
+                            seed=3).cpu() for db in dbs]
+    same = {"masked_boxes_from_uv": torch.equal(*boxes),
+            "select": all(torch.equal(getattr(sel[0], f).cpu(), getattr(sel[1], f))
+                          for f in ("points", "valid", "symmetries", "sym_valid")),
+            "sample_points": torch.equal(*pts)}
+    if not all(same.values()) or not torch.isinf(boxes[0][1]).all():
+        raise AssertionError(f"card vs CPU: {same}")
+    return (f"card vs CPU, equal: masked_boxes_from_uv ({BATCH} x 2000 points, an empty row "
+            f"gives +-inf), BatchedMeshes.select ({BATCH} ids of {dbs[0].n_objects} objects), "
+            f"sample_points(500, deterministic=False, seed=3)")
 
 
 def setup_vs_plain(args, tri_attr=None):

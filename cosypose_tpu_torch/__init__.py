@@ -8,3 +8,5 @@ torch and numpy only — never jax, flax or the JAX package.
 Entry points run on the card (`device="cuda"`) unless the caller asks for the
 CPU; with no card present they raise instead of falling back.
 """
+
+__version__ = "0.1.0"

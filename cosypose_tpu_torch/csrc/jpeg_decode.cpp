@@ -17,6 +17,7 @@
 // On failure both return 1 and write a message into err.
 
 #include <algorithm>
+#include <array>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -52,6 +53,50 @@ constexpr int64_t FIX_0_298631336 = 2446, FIX_0_390180644 = 3196, FIX_0_54119610
 constexpr int SCALEBITS = 16;
 constexpr int64_t ONE_HALF = int64_t(1) << (SCALEBITS - 1);
 constexpr int MAX_BLOCKS_IN_MCU = 10, SMOOTHING_COEFS = 10;
+// jdarith.c
+constexpr int NUM_ARITH_TBLS = 16, DC_STAT_BINS = 64, AC_STAT_BINS = 256;
+
+// T.81 Table D.2 (libjpeg's jaricom.c): Qe, Next_Index_LPS and the states whose
+// LPS switches the MPS sense; Next_Index_MPS is the next state but for the jumps
+// below. State 113 is the fixed 0.5 bin.
+const uint16_t kQe[114] = {
+    0x5a1d, 0x2586, 0x1114, 0x080b, 0x03d8, 0x01da, 0x00e5, 0x006f, 0x0036, 0x001a, 0x000d,
+    0x0006, 0x0003, 0x0001, 0x5a7f, 0x3f25, 0x2cf2, 0x207c, 0x17b9, 0x1182, 0x0cef, 0x09a1,
+    0x072f, 0x055c, 0x0406, 0x0303, 0x0240, 0x01b1, 0x0144, 0x00f5, 0x00b7, 0x008a, 0x0068,
+    0x004e, 0x003b, 0x002c, 0x5ae1, 0x484c, 0x3a0d, 0x2ef1, 0x261f, 0x1f33, 0x19a8, 0x1518,
+    0x1177, 0x0e74, 0x0bfb, 0x09f8, 0x0861, 0x0706, 0x05cd, 0x04de, 0x040f, 0x0363, 0x02d4,
+    0x025c, 0x01f8, 0x01a4, 0x0160, 0x0125, 0x00f6, 0x00cb, 0x00ab, 0x008f, 0x5b12, 0x4d04,
+    0x412c, 0x37d8, 0x2fe8, 0x293c, 0x2379, 0x1edf, 0x1aa9, 0x174e, 0x1424, 0x119c, 0x0f6b,
+    0x0d51, 0x0bb6, 0x0a40, 0x5832, 0x4d1c, 0x438e, 0x3bdd, 0x34ee, 0x2eae, 0x299a, 0x2516,
+    0x5570, 0x4ca9, 0x44d9, 0x3e22, 0x3824, 0x32b4, 0x2e17, 0x56a8, 0x4f46, 0x47e5, 0x41cf,
+    0x3c3d, 0x375e, 0x5231, 0x4c0f, 0x4639, 0x415e, 0x5627, 0x50e7, 0x4b85, 0x5597, 0x504f,
+    0x5a10, 0x5522, 0x59eb, 0x5a1d};
+const uint8_t kNextLps[114] = {
+    1,   14,  16,  18,  20,  23,  25,  28,  30,  33,  35,  9,   10,  12,  15,  36,  38,  39, 40,
+    42,  43,  45,  46,  48,  49,  51,  52,  54,  56,  57,  59,  60,  62,  63,  32,  33,  37, 64,
+    65,  67,  68,  69,  70,  72,  73,  74,  75,  77,  78,  79,  48,  50,  50,  51,  52,  53, 54,
+    55,  56,  57,  58,  59,  61,  61,  65,  80,  81,  82,  83,  84,  86,  87,  87,  72,  72, 74,
+    74,  75,  77,  77,  80,  88,  89,  90,  91,  92,  93,  86,  88,  95,  96,  97,  99,  99, 93,
+    95,  101, 102, 103, 104, 99,  105, 106, 107, 103, 105, 108, 109, 110, 111, 110, 112, 112, 113};
+
+// jaricom.c's packing: Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS
+struct Aritab {
+  int32_t v[114];
+  Aritab() {
+    const int jumps[][2] = {{13, 13},   {35, 9},    {63, 32},   {79, 48},   {87, 71},
+                            {94, 86},   {100, 93},  {104, 99},  {107, 103}, {109, 107},
+                            {111, 109}, {112, 111}, {113, 113}};
+    const int switches[] = {0, 14, 36, 64, 80, 88, 95, 105, 110, 112};
+    for (int i = 0; i < 114; i++) {
+      int next_mps = i + 1, sw = 0;
+      for (const auto& j : jumps)
+        if (j[0] == i) next_mps = j[1];
+      for (int k : switches) sw |= k == i;
+      v[i] = (int32_t(kQe[i]) << 16) | (next_mps << 8) | (sw << 7) | kNextLps[i];
+    }
+  }
+};
+const Aritab kAritab;
 
 struct Tables {
   uint8_t idct_limit[1024];
@@ -75,9 +120,10 @@ const Tables kTables;
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0, td = 0, ta = 0;
   int dw = 0, dh = 0, wib = 0, hib = 0, bw = 0, bh = 0;
-  std::vector<int32_t> coef;
+  std::vector<int32_t> coef;  // coefficients, or a lossless file's samples
   int coef_bits[64] = {};
-  int dc_pred = 0;
+  int dc_pred = 0, dc_ctx = 0;
+  int pt = 0;  // a lossless scan's point transform
 };
 
 struct Huffman {
@@ -89,38 +135,46 @@ struct Frame {
   bool has_quant[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
   int restart = 0;
-  bool progressive = false, jfif = false;
+  bool progressive = false, arithmetic = false, lossless = false, jfif = false;
   int adobe = -1;
   int height = 0, width = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   std::vector<Component> comps;
   int eobrun = 0;
+  // DAC conditioning (jdmarker.c get_soi's defaults) and the statistics bins
+  int arith_dc_L[NUM_ARITH_TBLS], arith_dc_U[NUM_ARITH_TBLS], arith_ac_K[NUM_ARITH_TBLS];
+  uint8_t dc_stats[NUM_ARITH_TBLS][DC_STAT_BINS], ac_stats[NUM_ARITH_TBLS][AC_STAT_BINS];
+  uint8_t fixed_bin[4] = {113, 0, 0, 0};
+  Frame() {
+    for (int i = 0; i < NUM_ARITH_TBLS; i++) {
+      arith_dc_L[i] = 0;
+      arith_dc_U[i] = 1;
+      arith_ac_K[i] = 5;
+    }
+  }
 };
 
 inline int u16(const uint8_t* d) { return (d[0] << 8) | d[1]; }
 
 const char* refused(int m) {
   switch (m) {
-    case 0xC3: return "lossless coding (SOF3)";
     case 0xC5: return "hierarchical coding (SOF5)";
     case 0xC6: return "hierarchical coding (SOF6)";
     case 0xC7: return "hierarchical coding (SOF7)";
-    case 0xC9: return "arithmetic coding (SOF9)";
-    case 0xCA: return "arithmetic coding (SOF10)";
-    case 0xCB: return "arithmetic coding (SOF11)";
-    case 0xCD: return "arithmetic coding (SOF13)";
-    case 0xCE: return "arithmetic coding (SOF14)";
-    case 0xCF: return "arithmetic coding (SOF15)";
-    case 0xCC: return "arithmetic coding (DAC)";
+    case 0xCB: return "lossless arithmetic coding (SOF11)";
+    case 0xCD: return "hierarchical coding (SOF13)";
+    case 0xCE: return "hierarchical coding (SOF14)";
+    case 0xCF: return "hierarchical coding (SOF15)";
     case 0xDE: return "hierarchical coding (DHP)";
     case 0xDF: return "hierarchical coding (EXP)";
     default: return nullptr;
   }
 }
 
-bool is_sof(int m) {
-  return m == 0xC0 || m == 0xC1 || m == 0xC2 || (refused(m) && m != 0xCC && m != 0xDE &&
-                                                  m != 0xDF);
+bool decoded_sof(int m) {
+  return m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 || m == 0xCA;
 }
+
+bool is_sof(int m) { return decoded_sof(m) || (refused(m) && m != 0xDE && m != 0xDF); }
 
 void parse_sof(Frame& fr, int m, const uint8_t* d, int len) {
   std::string mk = "marker 0xFF" + hex2(m);
@@ -134,11 +188,12 @@ void parse_sof(Frame& fr, int m, const uint8_t* d, int len) {
     fail(std::to_string(prec) + "-bit precision is not decoded (" + mk + ", 8-bit only)");
   if (fr.height == 0) fail("a height given by a DNL marker is not decoded (" + mk + ")");
   if (fr.width == 0) fail("empty image (" + mk + ")");
-  if (nf == 4) fail("four components (CMYK or YCCK) are not decoded (" + mk + ")");
-  if (nf != 1 && nf != 3)
-    fail(std::to_string(nf) + " components are not decoded (" + mk + "; 1 or 3)");
+  if (nf != 1 && nf != 3 && nf != 4)
+    fail(std::to_string(nf) + " components are not decoded (" + mk + "; 1, 3 or 4)");
   if (len < 6 + 3 * nf) fail("truncated frame header (" + mk + ")");
-  fr.progressive = m == 0xC2;
+  fr.progressive = m == 0xC2 || m == 0xCA;
+  fr.arithmetic = m == 0xC9 || m == 0xCA;
+  fr.lossless = m == 0xC3;
   for (int i = 0; i < nf; i++) {
     Component c;
     c.id = d[6 + 3 * i];
@@ -154,16 +209,17 @@ void parse_sof(Frame& fr, int m, const uint8_t* d, int len) {
     fr.hmax = std::max(fr.hmax, c.h);
     fr.vmax = std::max(fr.vmax, c.v);
   }
-  fr.mcux = (fr.width + 8 * fr.hmax - 1) / (8 * fr.hmax);
-  fr.mcuy = (fr.height + 8 * fr.vmax - 1) / (8 * fr.vmax);
+  const int unit = fr.lossless ? 1 : 8;  // a lossless data unit is one sample
+  fr.mcux = (fr.width + unit * fr.hmax - 1) / (unit * fr.hmax);
+  fr.mcuy = (fr.height + unit * fr.vmax - 1) / (unit * fr.vmax);
   for (auto& c : fr.comps) {
     c.dw = (fr.width * c.h + fr.hmax - 1) / fr.hmax;
     c.dh = (fr.height * c.v + fr.vmax - 1) / fr.vmax;
-    c.wib = (c.dw + 7) / 8;
-    c.hib = (c.dh + 7) / 8;
+    c.wib = (c.dw + unit - 1) / unit;
+    c.hib = (c.dh + unit - 1) / unit;
     c.bw = fr.mcux * c.h;
     c.bh = fr.mcuy * c.v;
-    c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+    c.coef.assign(size_t(c.bw) * c.bh * unit * unit, 0);
     for (int k = 0; k < 64; k++) c.coef_bits[k] = -1;
   }
 }
@@ -210,6 +266,24 @@ void parse_dht(Frame& fr, const uint8_t* d, int len) {
   }
 }
 
+void parse_dac(Frame& fr, const uint8_t* d, int len) {  // jdmarker.c get_dac
+  if (len % 2) fail("bad arithmetic conditioning table (marker 0xFFCC)");
+  for (int p = 0; p < len; p += 2) {
+    int index = d[p], val = d[p + 1];
+    if (index >= 2 * NUM_ARITH_TBLS)
+      fail("bad arithmetic conditioning table index " + std::to_string(index) +
+           " (marker 0xFFCC)");
+    if (index >= NUM_ARITH_TBLS) {
+      fr.arith_ac_K[index - NUM_ARITH_TBLS] = val;
+    } else {
+      fr.arith_dc_L[index] = val & 15;
+      fr.arith_dc_U[index] = val >> 4;
+      if ((val & 15) > (val >> 4))
+        fail("bad arithmetic conditioning value " + std::to_string(val) + " (marker 0xFFCC)");
+    }
+  }
+}
+
 // MSB-first bits of one unstuffed segment; past its end zero bits, which
 // check_end turns into an error
 struct Bits {
@@ -248,6 +322,52 @@ struct Bits {
 
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
 
+// T.81 Annex D's decoder as jdarith.c runs it over one unstuffed segment: a
+// state byte per context (index | MPS << 7); past the segment's end it reads
+// zero bytes, as libjpeg does after a marker
+struct Arith {
+  const uint8_t* seg;
+  size_t len, pos = 0;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  Arith(const uint8_t* s, size_t l) : seg(s), len(l) {}
+  inline int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int data = pos < len ? seg[pos++] : 0;
+        c = (c << 8) | data;
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int32_t qe = kAritab.v[sv & 0x7F];
+    int nl = qe & 0xFF, nm = (qe >> 8) & 0xFF;
+    qe >>= 16;
+    a -= qe;
+    int64_t temp = a << ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+      a = qe;
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
 struct Scan {
   std::vector<Component*> comps;
   int ss = 0, se = 63, ah = 0, al = 0;
@@ -266,7 +386,7 @@ Scan parse_sos(Frame& fr, const uint8_t* d, int len) {
            ", absent from the frame (marker 0xFFDA)");
     c->td = d[2 + 2 * i] >> 4;
     c->ta = d[2 + 2 * i] & 15;
-    if (c->td > 3 || c->ta > 3) fail("bad scan header (marker 0xFFDA)");
+    if (!fr.arithmetic && (c->td > 3 || c->ta > 3)) fail("bad scan header (marker 0xFFDA)");
     sc.comps.push_back(c);
   }
   int q = 1 + 2 * ns;
@@ -275,7 +395,9 @@ Scan parse_sos(Frame& fr, const uint8_t* d, int len) {
   sc.ah = d[q + 2] >> 4;
   sc.al = d[q + 2] & 15;
   bool bad;
-  if (fr.progressive)
+  if (fr.lossless)  // Ss is the predictor, Al the point transform (jdlossls.c)
+    bad = sc.ss < 1 || sc.ss > 7 || sc.se != 0 || sc.ah || sc.al >= 8;
+  else if (fr.progressive)
     bad = sc.ss > sc.se || sc.se > 63 || sc.al > 13 || (sc.ah && sc.ah != sc.al + 1) ||
           (sc.ss == 0 && sc.se != 0) || (sc.ss > 0 && ns != 1);
   else
@@ -287,12 +409,15 @@ Scan parse_sos(Frame& fr, const uint8_t* d, int len) {
   for (auto* c : sc.comps) blocks += c->h * c->v;
   if (ns > 1 && blocks > MAX_BLOCKS_IN_MCU) fail("too many blocks in an MCU (marker 0xFFDA)");
   for (auto* c : sc.comps) {
-    if (sc.ss == 0 && (!sc.ah || !fr.progressive) && fr.dc[c->td].lut.empty())
+    if (fr.arithmetic) continue;  // tables 0-15, conditioned by DAC or its defaults
+    if ((fr.lossless || (sc.ss == 0 && (!sc.ah || !fr.progressive))) && fr.dc[c->td].lut.empty())
       fail("no DC Huffman table " + std::to_string(c->td) + " (marker 0xFFDA)");
     if (sc.se > 0 && fr.ac[c->ta].lut.empty())
       fail("no AC Huffman table " + std::to_string(c->ta) + " (marker 0xFFDA)");
-    for (int k = sc.ss; k <= sc.se; k++) c->coef_bits[k] = sc.al;
   }
+  if (!fr.lossless)
+    for (auto* c : sc.comps)
+      for (int k = sc.ss; k <= sc.se; k++) c->coef_bits[k] = sc.al;
   return sc;
 }
 
@@ -440,6 +565,194 @@ inline void decode_block(Frame& fr, Bits& bits, Component& c, size_t off, const 
   }
 }
 
+// -- arithmetic-coded blocks (jdarith.c) ------------------------------------------
+
+// the statistics a scan's start and each restart clear (start_pass, process_restart)
+void arith_reset(Frame& fr, const Scan& sc) {
+  for (auto* c : sc.comps) {
+    if (!fr.progressive || (sc.ss == 0 && sc.ah == 0))
+      std::memset(fr.dc_stats[c->td], 0, DC_STAT_BINS);
+    if (!fr.progressive || sc.ss) std::memset(fr.ac_stats[c->ta], 0, AC_STAT_BINS);
+  }
+}
+
+// Figures F.19-F.24: the DC difference, updating the component's context
+int arith_dc_diff(Frame& fr, Arith& dec, Component& c) {
+  uint8_t* stats = fr.dc_stats[c.td];
+  int st = c.dc_ctx;
+  if (!dec.decode(stats + st)) {
+    c.dc_ctx = 0;
+    return 0;
+  }
+  int sign = dec.decode(stats + st + 1);
+  st += 2 + sign;
+  int m = dec.decode(stats + st);
+  if (m) {
+    st = 20;
+    while (dec.decode(stats + st)) {
+      if ((m <<= 1) == 0x8000) fail("corrupt JPEG data (arithmetic-coded magnitude overflow)");
+      st++;
+    }
+  }
+  if (m < (1 << fr.arith_dc_L[c.td]) >> 1)
+    c.dc_ctx = 0;
+  else if (m > (1 << fr.arith_dc_U[c.td]) >> 1)
+    c.dc_ctx = 12 + sign * 4;
+  else
+    c.dc_ctx = 4 + sign * 4;
+  int v = m;
+  st += 14;
+  while (m >>= 1)
+    if (dec.decode(stats + st)) v |= m;
+  v += 1;
+  return sign ? -v : v;
+}
+
+// Figures F.21-F.24 from bin st (after SE's S0 + 1 outcome): an AC value
+int arith_ac_value(Frame& fr, Arith& dec, const Component& c, int st, int k) {
+  uint8_t* stats = fr.ac_stats[c.ta];
+  int sign = dec.decode(fr.fixed_bin);
+  st += 2;
+  int m = dec.decode(stats + st);
+  if (m && dec.decode(stats + st)) {
+    m <<= 1;
+    st = k <= fr.arith_ac_K[c.ta] ? 189 : 217;
+    while (dec.decode(stats + st)) {
+      if ((m <<= 1) == 0x8000) fail("corrupt JPEG data (arithmetic-coded magnitude overflow)");
+      st++;
+    }
+  }
+  int v = m;
+  st += 14;
+  while (m >>= 1)
+    if (dec.decode(stats + st)) v |= m;
+  v += 1;
+  return sign ? -v : v;
+}
+
+inline void arith_block(Frame& fr, Arith& dec, Component& c, size_t off, const Scan& sc,
+                        Step step) {
+  int32_t* coef = c.coef.data() + off;
+  uint8_t* stats = fr.ac_stats[c.ta];
+  switch (step) {
+    case SEQUENTIAL: {
+      c.dc_pred = (c.dc_pred + arith_dc_diff(fr, dec, c)) & 0xFFFF;
+      coef[0] = int16_t(uint16_t(c.dc_pred));
+      for (int k = 0; k < 63;) {
+        int st = 3 * k;
+        if (dec.decode(stats + st)) break;
+        for (;;) {
+          k++;
+          if (dec.decode(stats + st + 1)) break;
+          st += 3;
+          if (k >= 63) fail("corrupt JPEG data (arithmetic-coded run past the block)");
+        }
+        coef[kZigzag[k]] = arith_ac_value(fr, dec, c, st, k);
+      }
+      return;
+    }
+    case DC_FIRST:
+      c.dc_pred += arith_dc_diff(fr, dec, c);
+      coef[0] = int32_t(uint32_t(c.dc_pred) << sc.al);
+      return;
+    case DC_REFINE:
+      if (dec.decode(fr.fixed_bin)) coef[0] |= 1 << sc.al;
+      return;
+    case AC_FIRST:
+      for (int k = sc.ss; k <= sc.se; k++) {
+        int st = 3 * (k - 1);
+        if (dec.decode(stats + st)) break;
+        while (!dec.decode(stats + st + 1)) {
+          st += 3;
+          if (++k > sc.se) fail("corrupt JPEG data (arithmetic-coded run past the band)");
+        }
+        coef[kZigzag[k]] = int32_t(uint32_t(arith_ac_value(fr, dec, c, st, k)) << sc.al);
+      }
+      return;
+    case AC_REFINE: {
+      int p1 = 1 << sc.al, m1 = -(1 << sc.al);
+      int kex = sc.se;
+      while (kex > 0 && !coef[kZigzag[kex]]) kex--;
+      for (int k = sc.ss; k <= sc.se; k++) {
+        int st = 3 * (k - 1);
+        if (k > kex && dec.decode(stats + st)) break;
+        for (;;) {
+          int32_t& z = coef[kZigzag[k]];
+          if (z) {
+            if (dec.decode(stats + st + 2)) z += z < 0 ? m1 : p1;
+            break;
+          }
+          if (dec.decode(stats + st + 1)) {
+            z = dec.decode(fr.fixed_bin) ? m1 : p1;
+            break;
+          }
+          st += 3;
+          if (++k > sc.se) fail("corrupt JPEG data (arithmetic-coded run past the band)");
+        }
+      }
+      return;
+    }
+  }
+}
+
+// -- lossless samples (jdlhuff.c, jdlossls.c) ------------------------------------------
+
+// Huffman-coded differences undone by T.81 Annex H's predictor. Each restart
+// interval is whole MCU rows (libjpeg-turbo's rule); its first row of each
+// component predicts from the left, the first sample from 2^(7 - Pt), every
+// other row's first sample from above.
+void lossless_scan(Frame& fr, const Scan& sc, const std::vector<std::vector<uint8_t>>& segs,
+                   int64_t n_mcu, int64_t ri) {
+  bool single = sc.comps.size() == 1;
+  int64_t per_row = single ? sc.comps[0]->wib : fr.mcux;
+  if (fr.restart && fr.restart % per_row)
+    fail("a lossless restart interval of " + std::to_string(fr.restart) +
+         " MCUs is not a whole number of MCU rows (" + std::to_string(per_row) + " MCUs)");
+  const int predictor = sc.ss;
+  for (auto* c : sc.comps) c->pt = sc.al;
+  for (size_t s_i = 0; s_i < segs.size(); s_i++) {
+    Bits bits(segs[s_i].data(), segs[s_i].size());
+    int64_t first = int64_t(s_i) * ri / per_row;  // the interval's first MCU row
+    int64_t end = std::min(n_mcu, int64_t(s_i + 1) * ri);
+    auto sample = [&](Component& c, int64_t y, int64_t x) {
+      int s = bits.huff(fr.dc[c.td]);
+      if (s > 16) fail("corrupt JPEG data (difference category above 16)");
+      int diff = s == 16 ? 32768 : s ? extend(bits.bits(s), s) : 0;
+      int32_t* row = c.coef.data() + size_t(y) * c.bw;
+      int pred;
+      if (y == first * (single ? 1 : c.v)) {
+        pred = x ? row[x - 1] : 1 << (7 - c.pt);
+      } else if (x == 0) {
+        pred = row[x - c.bw];
+      } else {
+        int ra = row[x - 1], rb = row[x - c.bw], rc = row[x - c.bw - 1];
+        switch (predictor) {
+          case 1: pred = ra; break;
+          case 2: pred = rb; break;
+          case 3: pred = rc; break;
+          case 4: pred = ra + rb - rc; break;
+          case 5: pred = ra + ((rb - rc) >> 1); break;
+          case 6: pred = rb + ((ra - rc) >> 1); break;
+          default: pred = (ra + rb) >> 1; break;
+        }
+      }
+      row[x] = (diff + pred) & 0xFFFF;
+    };
+    for (int64_t i = int64_t(s_i) * ri; i < end; i++) {
+      if (single) {
+        Component& c = *sc.comps[0];
+        sample(c, i / c.wib, i % c.wib);
+        continue;
+      }
+      int64_t my = i / fr.mcux, mx = i % fr.mcux;
+      for (auto* c : sc.comps)
+        for (int v = 0; v < c->v; v++)
+          for (int h = 0; h < c->h; h++) sample(*c, my * c->v + v, mx * c->h + h);
+    }
+    bits.check_end();
+  }
+}
+
 void decode_scan(Frame& fr, const Scan& sc, const std::vector<std::vector<uint8_t>>& segs,
                  const std::vector<int>& rsts) {
   bool single = sc.comps.size() == 1;
@@ -454,30 +767,39 @@ void decode_scan(Frame& fr, const Scan& sc, const std::vector<std::vector<uint8_
     if (rsts[k] != int(k % 8))
       fail("corrupt JPEG data (RST" + std::to_string(rsts[k]) + " where RST" +
            std::to_string(k % 8) + " belongs)");
+  if (fr.lossless) {
+    lossless_scan(fr, sc, segs, n_mcu, ri);
+    return;
+  }
   Step step = !fr.progressive ? SEQUENTIAL
               : sc.ss == 0    ? (sc.ah ? DC_REFINE : DC_FIRST)
                               : (sc.ah ? AC_REFINE : AC_FIRST);
   for (int64_t s_i = 0; s_i < n_int; s_i++) {
     Bits bits(segs[s_i].data(), segs[s_i].size());
-    for (auto* c : sc.comps) c->dc_pred = 0;
+    Arith dec(segs[s_i].data(), segs[s_i].size());
+    if (fr.arithmetic) arith_reset(fr, sc);
+    for (auto* c : sc.comps) c->dc_pred = c->dc_ctx = 0;
     fr.eobrun = 0;
+    auto block = [&](Component& c, size_t off) {
+      if (fr.arithmetic)
+        arith_block(fr, dec, c, off, sc, step);
+      else
+        decode_block(fr, bits, c, off, sc, step);
+    };
     int64_t end = std::min(n_mcu, (s_i + 1) * ri);
     for (int64_t i = s_i * ri; i < end; i++) {
       if (single) {
         Component& c = *sc.comps[0];
-        size_t off = (size_t(i / c.wib) * c.bw + size_t(i % c.wib)) * 64;
-        decode_block(fr, bits, c, off, sc, step);
+        block(c, (size_t(i / c.wib) * c.bw + size_t(i % c.wib)) * 64);
         continue;
       }
       int64_t my = i / fr.mcux, mx = i % fr.mcux;
       for (auto* c : sc.comps)
         for (int v = 0; v < c->v; v++)
-          for (int h = 0; h < c->h; h++) {
-            size_t off = ((size_t(my) * c->v + v) * c->bw + size_t(mx) * c->h + h) * 64;
-            decode_block(fr, bits, *c, off, sc, step);
-          }
+          for (int h = 0; h < c->h; h++)
+            block(*c, ((size_t(my) * c->v + v) * c->bw + size_t(mx) * c->h + h) * 64);
     }
-    bits.check_end();
+    if (!fr.arithmetic) bits.check_end();
   }
 }
 
@@ -524,8 +846,14 @@ inline void idct_1d(const In* in, int is, Out* out, int os, int shift, F store) 
   store(out[4 * os], descale(tmp13 - tmp0, shift));
 }
 
-// a component's blocks -> its plane (bh * 8 rows of bw * 8 samples)
-std::vector<uint8_t> plane(const Frame& fr, const Component& c) {
+// a component's blocks (its coefficients, or `coef`) -> its plane (bh * 8 rows
+// of bw * 8 samples)
+std::vector<uint8_t> plane(const Frame& fr, const Component& c, const int32_t* coef = nullptr) {
+  if (fr.lossless) {  // jdlossls.c's scaler: the sample << Pt, cast to 8 bits
+    std::vector<uint8_t> out(c.coef.size());
+    for (size_t i = 0; i < out.size(); i++) out[i] = uint8_t(c.coef[i] << c.pt);
+    return out;
+  }
   if (!fr.has_quant[c.tq]) fail("no quantization table " + std::to_string(c.tq));
   const int* q = fr.quant[c.tq];
   size_t stride = size_t(c.bw) * 8;
@@ -534,7 +862,7 @@ std::vector<uint8_t> plane(const Frame& fr, const Component& c) {
   int ws[64];
   for (int by = 0; by < c.bh; by++)
     for (int bx = 0; bx < c.bw; bx++) {
-      const int32_t* blk = c.coef.data() + (size_t(by) * c.bw + bx) * 64;
+      const int32_t* blk = (coef ? coef : c.coef.data()) + (size_t(by) * c.bw + bx) * 64;
       for (int k = 0; k < 64; k++) x[k] = int64_t(blk[k]) * q[k];
       for (int col = 0; col < 8; col++)
         idct_1d(x + col, 8, ws + col, 8, CONST_BITS - PASS1_BITS,
@@ -551,14 +879,15 @@ std::vector<uint8_t> plane(const Frame& fr, const Component& c) {
 // scale with fancy upsampling on; edges repeat the last real sample
 std::vector<uint8_t> upsample(const Frame& fr, const Component& c, const std::vector<uint8_t>& p) {
   const int H = fr.height, W = fr.width, dw = c.dw, dh = c.dh;
-  const size_t ps = size_t(c.bw) * 8;
+  const size_t ps = size_t(c.bw) * (fr.lossless ? 1 : 8);
+  const bool fancy = !fr.lossless;  // a lossless file's one-sample units are replicated
   std::vector<uint8_t> out(size_t(H) * W);
   auto at = [&](int y, int x) -> int { return p[size_t(y) * ps + x]; };
   if (c.h == fr.hmax && c.v == fr.vmax) {
     for (int y = 0; y < H; y++) std::memcpy(&out[size_t(y) * W], &p[size_t(y) * ps], W);
     return out;
   }
-  if (2 * c.h == fr.hmax && c.v == fr.vmax && dw > 2) {  // h2v1_fancy_upsample
+  if (fancy && 2 * c.h == fr.hmax && c.v == fr.vmax && dw > 2) {  // h2v1_fancy_upsample
     for (int y = 0; y < H; y++)
       for (int x = 0; x < W; x++) {
         int i = x >> 1, me = 3 * at(y, i);
@@ -567,7 +896,7 @@ std::vector<uint8_t> upsample(const Frame& fr, const Component& c, const std::ve
       }
     return out;
   }
-  if (c.h == fr.hmax && 2 * c.v == fr.vmax) {  // h1v2_fancy_upsample
+  if (fancy && c.h == fr.hmax && 2 * c.v == fr.vmax) {  // h1v2_fancy_upsample
     for (int y = 0; y < H; y++) {
       int j = y >> 1, far = (y & 1) ? std::min(j + 1, dh - 1) : std::max(j - 1, 0),
           bias = (y & 1) ? 2 : 1;
@@ -576,7 +905,7 @@ std::vector<uint8_t> upsample(const Frame& fr, const Component& c, const std::ve
     }
     return out;
   }
-  if (2 * c.h == fr.hmax && 2 * c.v == fr.vmax && dw > 2) {  // h2v2_fancy_upsample
+  if (fancy && 2 * c.h == fr.hmax && 2 * c.v == fr.vmax && dw > 2) {  // h2v2_fancy_upsample
     std::vector<int> sums(dw);
     for (int y = 0; y < H; y++) {
       int j = y >> 1, far = (y & 1) ? std::min(j + 1, dh - 1) : std::max(j - 1, 0);
@@ -599,25 +928,121 @@ std::vector<uint8_t> upsample(const Frame& fr, const Component& c, const std::ve
        std::to_string(fr.vmax) + "/" + std::to_string(c.v) + " is not a whole number");
 }
 
-bool rgb_colour_space(const Frame& fr) {  // default_decompress_parms (jdapimin.c)
-  if (fr.jfif) return false;
-  if (fr.adobe >= 0) return fr.adobe == 0;
-  return fr.comps[0].id == 82 && fr.comps[1].id == 71 && fr.comps[2].id == 66;
+enum Space { GRAY, RGB, YCBCR, CMYK, YCCK };
+
+Space colour_space(const Frame& fr) {  // default_decompress_parms (jdapimin.c)
+  if (fr.comps.size() == 1) return GRAY;
+  if (fr.comps.size() == 4) return fr.adobe > 0 ? YCCK : CMYK;
+  if (fr.jfif) return YCBCR;
+  if (fr.adobe >= 0) return fr.adobe == 0 ? RGB : YCBCR;
+  int a = fr.comps[0].id, b = fr.comps[1].id, c = fr.comps[2].id;
+  if ((a == 82 && b == 71 && c == 66) || (a == 1 && b == 2 && c == 3 && fr.lossless)) return RGB;
+  return YCBCR;
 }
 
-void check_smoothing(const Frame& fr) {  // jdcoefct.c smoothing_ok
-  if (!fr.progressive) return;
-  static const int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+// -- block smoothing (jdcoefct.c, libjpeg-turbo 2.1 on) -------------------------------
+
+// zigzag 1-9's natural positions: the AC coefficients block smoothing estimates
+const int kSmoothedAc[9] = {1, 8, 16, 9, 2, 3, 10, 17, 24};
+struct Tap {
+  int i, w;
+};
+// their estimates from the 5x5 window of DC values d[0..24] (row-major), a
+// list of taps each, ending at w = 0: when some AC data is known (K.8 over
+// 5x5; the first five) and when only DC data is (all nine, and the DC)
+const Tap kAcKnown[5][13] = {
+    {{10, -7}, {11, 50}, {13, -50}, {14, 7}, {0, 0}},
+    {{2, -7}, {7, 50}, {17, -50}, {22, 7}, {0, 0}},
+    {{2, -1}, {7, 13}, {12, -24}, {17, 13}, {22, -1}, {0, 0}},
+    {{9, 1}, {15, 1}, {16, -10}, {18, 10}, {1, -1}, {19, -1}, {21, 1}, {23, -1}, {3, 1}, {5, -1},
+     {6, 10}, {8, -10}, {0, 0}},
+    {{10, -1}, {11, 13}, {12, -24}, {13, 13}, {14, -1}, {0, 0}}};
+const Tap kDcOnly[9][21] = {
+    {{0, -1}, {1, -1}, {3, 1}, {4, 1}, {5, -3}, {6, 13}, {8, -13}, {9, 3}, {10, -3}, {11, 38},
+     {13, -38}, {14, 3}, {15, -3}, {16, 13}, {18, -13}, {19, 3}, {20, -1}, {21, -1}, {23, 1},
+     {24, 1}, {0, 0}},
+    {{0, -1}, {1, -3}, {2, -3}, {3, -3}, {4, -1}, {5, -1}, {6, 13}, {7, 38}, {8, 13}, {9, -1},
+     {15, 1}, {16, -13}, {17, -38}, {18, -13}, {19, 1}, {20, 1}, {21, 3}, {22, 3}, {23, 3},
+     {24, 1}, {0, 0}},
+    {{2, 1}, {6, 2}, {7, 7}, {8, 2}, {11, -5}, {12, -14}, {13, -5}, {16, 2}, {17, 7}, {18, 2},
+     {22, 1}, {0, 0}},
+    {{0, -1}, {4, 1}, {6, 9}, {8, -9}, {16, -9}, {18, 9}, {20, 1}, {24, -1}, {0, 0}},
+    {{6, 2}, {7, -5}, {8, 2}, {10, 1}, {11, 7}, {12, -14}, {13, 7}, {14, 1}, {16, 2}, {17, -5},
+     {18, 2}, {0, 0}},
+    {{6, 1}, {8, -1}, {11, 2}, {13, -2}, {16, 1}, {18, -1}, {0, 0}},
+    {{6, 1}, {7, -3}, {8, 1}, {16, -1}, {17, 3}, {18, -1}, {0, 0}},
+    {{6, 1}, {8, -1}, {11, -3}, {13, 3}, {16, 1}, {18, -1}, {0, 0}},
+    {{6, 1}, {7, 2}, {8, 1}, {16, -1}, {17, -2}, {18, -1}, {0, 0}}};
+const int kDcEstimate[25] = {-2, -6, -8, -6, -2, -6, 6,  42, 6,  -6, -8, 42, 152,
+                             42, -8, -6, 6,  42, 6,  -6, -2, -6, -8, -6, -2};
+
+// smoothing_ok: a progressive file's blocks are smoothed when every
+// component's DC is at least partly known, its quantizers for the DC and the
+// first nine AC coefficients are nonzero, and some of those AC coefficients'
+// bits stay unknown after every scan
+bool smoothing_ok(const Frame& fr) {
+  if (!fr.progressive) return false;
   bool useful = false;
   for (const auto& c : fr.comps) {
-    if (!fr.has_quant[c.tq] || c.coef_bits[0] < 0) return;
-    for (int i : kPos)
-      if (fr.quant[c.tq][i] == 0) return;
+    if (!fr.has_quant[c.tq] || c.coef_bits[0] < 0 || fr.quant[c.tq][0] == 0) return false;
+    for (int p : kSmoothedAc)
+      if (fr.quant[c.tq][p] == 0) return false;
     for (int k = 1; k < SMOOTHING_COEFS; k++) useful |= c.coef_bits[k] != 0;
   }
-  if (useful)
-    fail("a progressive file whose scans leave coefficient bits unknown (libjpeg's block "
-         "smoothing) is not decoded");
+  return useful;
+}
+
+// ((q << 7) + |num|) / (q << 8) with num's sign, capped below 2^Al when Al > 0
+inline int32_t estimate(int64_t num, int64_t q, int al) {
+  int64_t mag = ((q << 7) + (num < 0 ? -num : num)) / (q << 8);
+  if (al > 0 && mag >= (int64_t(1) << al)) mag = (int64_t(1) << al) - 1;
+  return int32_t(num < 0 ? -mag : mag);
+}
+
+// decompress_smooth_data: the component's coefficients with zero
+// low-frequency AC coefficients whose bits are not all known estimated from
+// the 5x5 window of DC values around each block (the edge blocks repeated),
+// and, when no AC data is known at all, the DC too. The window's rows follow
+// libjpeg's iMCU-row arithmetic.
+std::vector<int32_t> smoothed(const Frame& fr, const Component& c) {
+  std::vector<int32_t> out = c.coef;
+  const int* bits = c.coef_bits;
+  const int* q = fr.quant[c.tq];
+  bool change_dc = true;
+  for (int k = 1; k < SMOOTHING_COEFS; k++) change_dc &= bits[k] == -1;
+  const int total = fr.mcuy, v = c.v;
+  std::vector<std::array<int, 5>> rows;
+  for (int imcu = 0; imcu < total; imcu++) {
+    int block_rows = imcu < total - 1 ? v : (c.hib % v ? c.hib % v : v);
+    int image_rows = block_rows * total;
+    for (int br = 0; br < block_rows; br++) {
+      int ibr = imcu * block_rows + br, cur = imcu * v + br;
+      int prev = ibr > 0 ? cur - 1 : cur, next = ibr < image_rows - 1 ? cur + 1 : cur;
+      rows.push_back({ibr > 1 ? cur - 2 : prev, prev, cur, next, ibr < image_rows - 2 ? cur + 2 : next});
+    }
+  }
+  auto dc_at = [&](int row, int col) { return int64_t(c.coef[(size_t(row) * c.bw + col) * 64]); };
+  for (const auto& r : rows)
+    for (int x = 0; x < c.wib; x++) {
+      int64_t d[25];
+      for (int i = 0; i < 5; i++)
+        for (int j = 0; j < 5; j++) d[i * 5 + j] = dc_at(r[i], std::min(std::max(x + j - 2, 0), c.wib - 1));
+      int32_t* ws = out.data() + (size_t(r[2]) * c.bw + x) * 64;
+      const int n = change_dc ? 9 : 5;
+      for (int k = 1; k <= n; k++) {
+        int pos = kSmoothedAc[k - 1];
+        if (bits[k] == 0 || ws[pos] != 0) continue;
+        int64_t sum = 0;
+        for (const Tap* t = change_dc ? kDcOnly[k - 1] : kAcKnown[k - 1]; t->w; t++) sum += t->w * d[t->i];
+        ws[pos] = estimate(q[0] * sum, q[pos], bits[k]);
+      }
+      if (change_dc) {
+        int64_t sum = 0;
+        for (int i = 0; i < 25; i++) sum += kDcEstimate[i] * d[i];
+        ws[0] = estimate(q[0] * sum, q[0], 0);
+      }
+    }
+  return out;
 }
 
 // walk the markers, decoding each scan; with header_only stop at the frame header
@@ -656,6 +1081,8 @@ void read(Frame& fr, const uint8_t* data, size_t n, bool header_only, int* nf_ou
       parse_dqt(fr, d, len);
     } else if (m == 0xC4) {
       parse_dht(fr, d, len);
+    } else if (m == 0xCC) {
+      parse_dac(fr, d, len);
     } else if (m == 0xDD) {
       if (len < 2) fail("truncated restart interval (marker 0xFFDD)");
       fr.restart = u16(d);
@@ -714,17 +1141,41 @@ int cosypose_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t o
   try {
     Frame fr;
     read(fr, data, size_t(n), false, nullptr);
-    check_smoothing(fr);
+    const bool smooth = smoothing_ok(fr);
+    const Space space = colour_space(fr);
+    if (fr.lossless && (space == YCBCR || space == YCCK))
+      fail(std::string("lossless coding (SOF3) of ") + (space == YCBCR ? "YCbCr" : "YCCK") +
+           " colour is not decoded (libjpeg converts no colour in lossless mode)");
     const size_t npix = size_t(fr.height) * fr.width;
     if (out_size != int64_t(npix * fr.comps.size())) fail("output buffer of the wrong size");
     std::vector<std::vector<uint8_t>> planes;
-    for (const auto& c : fr.comps) planes.push_back(upsample(fr, c, plane(fr, c)));
+    for (const auto& c : fr.comps)
+      planes.push_back(upsample(fr, c, smooth ? plane(fr, c, smoothed(fr, c).data()) : plane(fr, c)));
     if (planes.size() == 1) {
       std::memcpy(out, planes[0].data(), npix);
       return 0;
     }
+    auto clamp = [](int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); };
     const uint8_t *y = planes[0].data(), *cb = planes[1].data(), *cr = planes[2].data();
-    if (rgb_colour_space(fr)) {
+    if (planes.size() == 4) {  // as Pillow presents CMYK (raw mode CMYK;I, inverted)
+      const uint8_t* k = planes[3].data();
+      for (size_t i = 0; i < npix; i++) {
+        if (space == YCCK) {  // ycck_cmyk_convert, then inverted: the clamped RGB
+          int Y = y[i];
+          out[4 * i] = clamp(Y + kTables.cr_r[cr[i]]);
+          out[4 * i + 1] =
+              clamp(Y + int((kTables.cb_g[cb[i]] + kTables.cr_g[cr[i]]) >> SCALEBITS));
+          out[4 * i + 2] = clamp(Y + kTables.cb_b[cb[i]]);
+        } else {
+          out[4 * i] = uint8_t(255 - y[i]);
+          out[4 * i + 1] = uint8_t(255 - cb[i]);
+          out[4 * i + 2] = uint8_t(255 - cr[i]);
+        }
+        out[4 * i + 3] = uint8_t(255 - k[i]);
+      }
+      return 0;
+    }
+    if (space == RGB) {
       for (size_t i = 0; i < npix; i++) {
         out[3 * i] = y[i];
         out[3 * i + 1] = cb[i];
@@ -732,7 +1183,6 @@ int cosypose_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t o
       }
       return 0;
     }
-    auto clamp = [](int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); };
     for (size_t i = 0; i < npix; i++) {  // ycc_rgb_convert
       int Y = y[i];
       out[3 * i] = clamp(Y + kTables.cr_r[cr[i]]);

@@ -93,7 +93,7 @@ class BackgroundAugmentation:
             return s
         h, w = s.rgb.shape[:2]
         path = self.rng.choice(self.image_paths)
-        bg = pillow_ops.resize_bilinear(as_rgb(imread(path)), (h, w))
+        bg = pillow_ops.resize_bilinear(as_rgb(*imread(path, with_mode=True)), (h, w))
         fg = s.mask > 0
         rgb = np.where(fg[..., None], s.rgb, bg)
         return SceneObservation(rgb, s.mask, s.obs)

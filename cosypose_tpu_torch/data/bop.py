@@ -173,6 +173,8 @@ class BOPDataset:
         rgb = imread(rgb_path)
         if rgb.ndim == 2:
             rgb = np.repeat(rgb[..., None], 3, axis=-1)
+        # the JAX package slices Pillow's array as it comes: an RGBA frame keeps
+        # R, G, B and a CMYK (JPEG) frame its C, M, Y as Pillow presents them
         rgb = rgb[..., :3]
         h, w = rgb.shape[:2]
 

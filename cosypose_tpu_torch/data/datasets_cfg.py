@@ -141,3 +141,9 @@ def make_texture_dataset(name_or_path: str, ds_root=None):
     if not p.is_absolute():
         p = pathlib.Path(ds_root or LOCAL_DATA_DIR) / "textures" / name_or_path
     return TextureDataset(p)
+
+
+def make_urdf_dataset(ds_name: str, ds_root=None):
+    """The JAX package's name for `make_object_dataset`: the rasterizer renders
+    the PLY meshes, so the reference's URDF assets map to the object dataset."""
+    return make_object_dataset(ds_name, ds_root)

@@ -54,7 +54,7 @@ def draw_gaussian(heatmap, cx, cy, radius):
 class DetectionDataset:
     def __init__(self, scene_ds, label_to_category_id, resize=(480, 640), stride=4,
                  max_objects=32, min_area=64.0, apply_rgb_augmentation=True,
-                 visib_fract_th=0.05):
+                 visib_fract_th=0.05, seed=0):
         self.scene_ds = scene_ds
         self.label_to_category_id = label_to_category_id
         self.n_classes = len(label_to_category_id)
@@ -65,6 +65,7 @@ class DetectionDataset:
         self.max_objects = max_objects
         self.min_area = min_area
         self.visib_fract_th = visib_fract_th
+        self.reseed(seed)
 
     def reseed(self, seed: int) -> None:
         if self.rgb_aug is not None:

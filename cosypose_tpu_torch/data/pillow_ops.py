@@ -17,6 +17,8 @@ tests/test_torch_port_data.py holds them against PIL.
                     fixed point and edge pixels repeated;
   smooth            ImageFilter.SMOOTH: the 3x3 kernel in float32, borders kept;
   luminance         convert("L"): (19595 R + 38470 G + 7471 B + 32768) >> 16;
+  cmyk_to_rgb       convert("RGB") of CMYK: each channel nk - x·nk/255 with
+                    nk = 255 - K, Convert.c's rounded MULDIV255;
   blend             Image.blend(degenerate, image, f) in float32, truncated;
   sharpness, contrast, brightness, colour
                     ImageEnhance's four enhancers: blend against SMOOTH, the
@@ -170,6 +172,14 @@ def luminance(rgb: np.ndarray) -> np.ndarray:
     c = rgb.astype(np.int64)
     return ((c[..., 0] * 19595 + c[..., 1] * 38470 + c[..., 2] * 7471 + 0x8000) >> 16).astype(
         np.uint8)
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """(..., 4) uint8 CMYK -> (..., 3) uint8 RGB as Pillow's cmyk2rgb."""
+    x = cmyk.astype(np.int32)
+    nk = 255 - x[..., 3:4]
+    tmp = x[..., :3] * nk + 128
+    return np.clip(nk - (((tmp >> 8) + tmp) >> 8), 0, 255).astype(np.uint8)
 
 
 def blend(degenerate: np.ndarray, image: np.ndarray, factor: float) -> np.ndarray:

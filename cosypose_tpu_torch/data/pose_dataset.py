@@ -4,7 +4,7 @@ of cosypose_tpu/data/pose_dataset.py).
 Crop/resize to the aspect ratio → background paste → photometric jitter →
 pick ONE random visible object a frame → (image uint8 CHW, K, TCO, bbox,
 label), with a retry loop over random indices when a frame has no valid
-object. Items are what training/train_pose.collate takes. Backgrounds
+object. `collate` makes the training loop's batches of the items. Backgrounds
 come from a VOC devkit (`voc_root`, e.g. VOCdevkit/VOC2012: its
 JPEGImages/*.jpg), which takes precedence, or from a list of image files;
 either is pasted with probability 0.3.
@@ -20,13 +20,38 @@ one stream.
 
 from __future__ import annotations
 
+import dataclasses
 import random
 
 import numpy as np
+import torch
 
-from ..training.train_pose import collate
 from .augmentations import (BackgroundAugmentation, ColorJitterAugmentation,
                             CropResizeToAspect, SceneObservation, VOCBackgroundAugmentation)
+
+
+def collate(items) -> dict:
+    """PoseDataset items (image uint8 CHW, K, TCO, bbox, label) → a batch of
+    tensors (images uint8, K, TCO, bboxes float32) and the labels."""
+    return dict(images=torch.as_tensor(np.stack([it["image"] for it in items])),
+                K=torch.as_tensor(np.stack([it["K"] for it in items]), dtype=torch.float32),
+                TCO=torch.as_tensor(np.stack([it["TCO"] for it in items]), dtype=torch.float32),
+                bboxes=torch.as_tensor(np.stack([it["bbox"] for it in items]),
+                                       dtype=torch.float32),
+                labels=[it["label"] for it in items])
+
+
+@dataclasses.dataclass
+class PoseData:
+    """The fields of a batch (the dict `make_batch` and `collate_fn` return)."""
+    images: torch.Tensor    # (B, 3, H, W) uint8
+    K: torch.Tensor         # (B, 3, 3) float32
+    TCO: torch.Tensor       # (B, 4, 4) float32
+    bboxes: torch.Tensor    # (B, 4) float32
+    labels: list            # length B
+
+
+PoseBatch = PoseData
 
 
 class PoseDataset:
@@ -108,3 +133,7 @@ class PoseDataset:
         return item
 
     collate_fn = staticmethod(collate)
+
+    def make_batch(self, ids) -> dict:
+        """The items `ids` collated as the training loop collates them."""
+        return self.collate_fn([self[i] for i in ids])

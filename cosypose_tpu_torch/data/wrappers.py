@@ -1,6 +1,7 @@
-"""Samplers of the training loop, dataset concatenation and the multiview
-grouping (port of PartialSampler, ListSampler, DistributedSceneSampler,
-ConcatSceneDataset and MultiViewWrapper in cosypose_tpu/data/wrappers.py,
+"""Samplers of the training loop, dataset concatenation, the visibility
+filter and the multiview grouping (port of VisibilityWrapper, PartialSampler,
+ListSampler, DistributedSceneSampler, ConcatSceneDataset and MultiViewWrapper
+in cosypose_tpu/data/wrappers.py,
 and of the training loop's dataset concat). PartialSampler and
 DistributedSceneSampler draw with numpy's RandomState exactly as the JAX
 package does, so epoch orders and rank splits are equal. RankBatchSampler
@@ -9,6 +10,27 @@ cuts a data-parallel rank's rows out of each global batch."""
 from __future__ import annotations
 
 import numpy as np
+
+
+class VisibilityWrapper:
+    """A scene dataset whose frames keep only the objects with visib_fract
+    at or above the threshold (1.0 where an object has no visib_fract)."""
+
+    def __init__(self, scene_ds, visib_fract_th: float = 0.1):
+        self.scene_ds = scene_ds
+        self.visib_fract_th = visib_fract_th
+
+    def __len__(self):
+        return len(self.scene_ds)
+
+    @property
+    def frame_index(self):
+        return self.scene_ds.frame_index
+
+    def __getitem__(self, idx):
+        rgb, mask, obs = self.scene_ds[idx]
+        objects = [o for o in obs["objects"] if o.get("visib_fract", 1.0) >= self.visib_fract_th]
+        return rgb, mask, dict(obs, objects=objects)
 
 
 class PartialSampler:

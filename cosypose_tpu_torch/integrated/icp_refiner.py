@@ -130,10 +130,13 @@ def _icp_refine_batch(TCO: torch.Tensor, rendered_depth: torch.Tensor,
 
 
 class ICPRefiner:
-    """Post-refine predicted poses against observed depth (BOP20's --icp)."""
+    """Post-refine predicted poses against observed depth (BOP20's --icp).
+    `resolution` is kept as the JAX package keeps it, unread: the depth
+    renders at the observed depth's size."""
 
-    def __init__(self, mesh_db):
+    def __init__(self, mesh_db, resolution=(240, 320)):
         self.mesh_db = mesh_db
+        self.resolution = resolution
 
     def render_depth(self, predictions: TensorCollection, K: torch.Tensor, image_size):
         """Each detection's depth at its pose, (B, H, W), and its K (B, 3, 3)."""

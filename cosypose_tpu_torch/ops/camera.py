@@ -29,6 +29,16 @@ def boxes_from_uv(uv: torch.Tensor) -> torch.Tensor:
     return torch.cat([uv.amin(dim=1), uv.amax(dim=1)], dim=-1)
 
 
+def masked_boxes_from_uv(uv: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """boxes_from_uv over the rows where valid (B,P) is True; a box with no
+    valid row is (inf, inf, -inf, -inf)."""
+    keep = valid[..., None]
+    inf = torch.tensor(float("inf"), dtype=uv.dtype, device=uv.device)
+    mins = torch.where(keep, uv, inf).amin(dim=1)
+    maxs = torch.where(keep, uv, -inf).amax(dim=1)
+    return torch.cat([mins, maxs], dim=-1)
+
+
 def get_K_crop_resize(K: torch.Tensor, boxes: torch.Tensor, orig_size,
                       crop_resize) -> torch.Tensor:
     """Intrinsics after cropping to `boxes` and resizing to `crop_resize`.

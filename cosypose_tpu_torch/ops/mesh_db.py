@@ -76,18 +76,43 @@ class BatchedMeshes:
                  for k in _FIELDS}
         return BatchedMeshes(self.labels, infos=self.infos, **moved)
 
+    @property
+    def n_objects(self) -> int:
+        return self.points.shape[0]
+
+    @property
+    def n_sym(self) -> int:
+        return self.symmetries.shape[1]
+
     def ids_for(self, labels: Sequence[str]) -> torch.Tensor:
         return torch.tensor([self.label_to_id[l] for l in labels], dtype=torch.long,
                             device=self.device)
 
-    def sample_points(self, label_ids: torch.Tensor, n_points: int) -> torch.Tensor:
-        """Per-candidate point subsets: the JAX package's deterministic column
-        ids (RandomState(0)), device gather."""
+    def select(self, label_ids: torch.Tensor) -> "SelectedMeshes":
+        """Each candidate's points, validity and symmetries, gathered by object id
+        on the meshes' device."""
+        label_ids = torch.as_tensor(label_ids, dtype=torch.long, device=self.device)
+        return SelectedMeshes(self.points[label_ids], self.valid[label_ids],
+                              self.symmetries[label_ids], self.sym_valid[label_ids])
+
+    def sample_points(self, label_ids: torch.Tensor, n_points: int, deterministic: bool = True,
+                      seed: int = 0) -> torch.Tensor:
+        """Per-candidate point subsets: column ids drawn on the host as the JAX
+        package draws them (RandomState(0), or RandomState(seed) when not
+        deterministic), gathered on the device."""
         P = self.points.shape[1]
-        rng = np.random.RandomState(0)
+        rng = np.random.RandomState(0 if deterministic else seed)
         ids = torch.as_tensor(rng.choice(P, size=min(n_points, P), replace=False),
                               device=self.device)
         return self.points[label_ids][:, ids]
+
+
+@dataclasses.dataclass
+class SelectedMeshes:
+    points: torch.Tensor      # (B, P, 3)
+    valid: torch.Tensor       # (B, P)
+    symmetries: torch.Tensor  # (B, S, 4, 4)
+    sym_valid: torch.Tensor   # (B, S)
 
 
 def _pad_points(arrs: list[np.ndarray], rng: np.random.RandomState):

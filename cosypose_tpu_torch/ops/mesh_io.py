@@ -231,3 +231,50 @@ def decimate_mesh(verts: np.ndarray, faces: np.ndarray,
         res //= 2
     return new_verts, new_faces.astype(np.int64), new_colors
 
+
+
+def save_ply(path, vertices: np.ndarray, faces: np.ndarray | None = None,
+             colors: np.ndarray | None = None, binary: bool = True):
+    """A PLY of float vertices, uchar colours (given in [0, 255], or in
+    [0, 1] when none is above 1) and triangle faces, which load_ply reads back.
+
+    binary=True writes the JAX package's save_ply bytes (little-endian);
+    binary=False the ASCII form of its convert_models.write_ply (six decimals
+    a coordinate)."""
+    vertices = np.asarray(vertices, np.float32 if binary else np.float64)
+    n_v = len(vertices)
+    header = ["ply", "format binary_little_endian 1.0" if binary else "format ascii 1.0",
+              f"element vertex {n_v}", "property float x", "property float y", "property float z"]
+    rgb = None
+    if colors is not None:
+        header += ["property uchar red", "property uchar green", "property uchar blue"]
+        rgb = np.clip(np.asarray(colors), 0, 255)
+        if rgb.max() <= 1.0:
+            rgb = rgb * 255.0
+        rgb = rgb.astype(np.uint8)
+    if faces is not None:
+        faces = np.asarray(faces, np.int32)
+        header += [f"element face {len(faces)}", "property list uchar int vertex_indices"]
+    header.append("end_header")
+
+    if not binary:
+        rows = [f"{v[0]:.6f} {v[1]:.6f} {v[2]:.6f}" for v in vertices]
+        if rgb is not None:
+            rows = [f"{r} {c[0]} {c[1]} {c[2]}" for r, c in zip(rows, rgb.tolist())]
+        if faces is not None:
+            rows += [f"3 {f[0]} {f[1]} {f[2]}" for f in faces.tolist()]
+        with open(path, "w") as f:
+            f.write("\n".join(header + rows) + "\n")
+        return
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode())
+        if rgb is not None:
+            rec = np.empty(n_v, np.dtype([("xyz", np.float32, 3), ("rgb", np.uint8, 3)]))
+            rec["xyz"], rec["rgb"] = vertices, rgb
+            f.write(rec.tobytes())
+        else:
+            f.write(vertices.tobytes())
+        if faces is not None:
+            rec = np.empty(len(faces), np.dtype([("n", np.uint8), ("idx", np.int32, 3)]))
+            rec["n"], rec["idx"] = 3, faces
+            f.write(rec.tobytes())

@@ -72,7 +72,7 @@ def dryrun_rank(rank: int, world: int, device: torch.device) -> float:
 
 def dryrun_multichip(n_ranks: int = 2) -> float:
     """The step on n_ranks spawned gloo ranks of the CPU; returns the loss."""
-    losses = spawn(dryrun_rank, n_ranks, n_threads=1)
+    losses = spawn(dryrun_rank, n_ranks, device="cpu", n_threads=1)
     if len(set(losses)) != 1:
         raise AssertionError(f"the ranks disagree on the global loss: {losses}")
     print(f"dryrun_multichip({n_ranks}): ok, loss={losses[0]:.4f}")

@@ -18,6 +18,7 @@ import time
 import torch
 import torch.multiprocessing as mp
 
+from ..utils.device import resolve_device
 from ..utils.distributed import destroy, get_tmp_dir, init_distributed_mode
 
 
@@ -40,13 +41,16 @@ def _rank_main(rank, world, fn, args, port, backend, device, n_threads, out_dir)
         destroy()
 
 
-def spawn(fn, world: int, args: tuple = (), backend: str = "gloo", device: str = "cpu",
+def spawn(fn, world: int, args: tuple = (), backend: str = "gloo", device: str = "cuda",
           n_threads: int | None = None, timeout_s: float = 900.0) -> list:
     """fn(rank, world, device, *args) on `world` spawned ranks joined over
     `backend` (tcp://localhost on a free port) on `device` ("cuda" gives
-    cuda:<rank>, "cuda:0" puts every rank on card 0). Returns each rank's
-    result in rank order. A rank that raises stops the others and raises
-    here; so does a run past `timeout_s`."""
+    cuda:<rank>, "cuda:0" puts every rank on card 0, "cpu" runs on the host).
+    Returns each rank's result in rank order. A rank that raises stops the
+    others and raises here; so does a run past `timeout_s`. Without a card,
+    a CUDA device raises resolve_device's error before any rank starts."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        resolve_device(device)
     with tempfile.TemporaryDirectory(dir=get_tmp_dir()) as out_dir:
         ctx = mp.start_processes(
             _rank_main, args=(world, fn, args, free_port(), backend, device, n_threads, out_dir),

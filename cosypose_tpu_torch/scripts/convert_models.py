@@ -13,9 +13,8 @@ import argparse
 import pathlib
 import shutil
 
-import numpy as np
 
-from ..ops.mesh_io import decimate_mesh, load_mesh
+from ..ops.mesh_io import decimate_mesh, load_mesh, save_ply
 from ..utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -24,21 +23,7 @@ logger = get_logger(__name__)
 def write_ply(path, verts, faces, colors=None):
     """An ASCII PLY of float vertices (with uchar colours from [0, 1]
     colours, when given) and triangle faces."""
-    header = ["ply", "format ascii 1.0", f"element vertex {len(verts)}",
-              "property float x", "property float y", "property float z"]
-    if colors is not None:
-        header += ["property uchar red", "property uchar green", "property uchar blue"]
-    header += [f"element face {len(faces)}", "property list uchar int vertex_indices",
-               "end_header"]
-    lines = list(header)
-    for i, v in enumerate(verts):
-        row = f"{v[0]:.6f} {v[1]:.6f} {v[2]:.6f}"
-        if colors is not None:
-            c = np.clip(colors[i] * 255, 0, 255).astype(int)
-            row += f" {c[0]} {c[1]} {c[2]}"
-        lines.append(row)
-    lines += [f"3 {f[0]} {f[1]} {f[2]}" for f in faces]
-    pathlib.Path(path).write_text("\n".join(lines) + "\n")
+    save_ply(path, verts, faces, colors, binary=False)
 
 
 def main(argv=None):

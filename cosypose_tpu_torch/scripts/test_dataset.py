@@ -12,7 +12,6 @@ import time
 
 from ..data.datasets_cfg import make_scene_dataset
 from ..data.pose_dataset import PoseDataset
-from ..training.train_pose import collate
 from ..utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -31,7 +30,7 @@ def main(argv=None):
     n = 0
     for start in range(0, min(args.n_frames, len(pose_ds)), args.batch_size):
         ids = range(start, min(start + args.batch_size, len(pose_ds)))
-        batch = collate([pose_ds[i] for i in ids])
+        batch = pose_ds.make_batch(ids)
         if batch["images"].shape[0] != len(ids):
             raise RuntimeError(f"a batch of {batch['images'].shape[0]} for {len(ids)} frames")
         n += len(ids)

@@ -29,6 +29,7 @@ import torch
 from torch.utils.data import DataLoader
 
 from ..config import EXP_DIR
+from ..data.pose_dataset import collate
 from ..data.wrappers import ConcatDataset, PartialSampler, RankBatchSampler
 from ..utils.device import resolve_device
 from ..utils.distributed import barrier, get_rank, get_world_size, reduce_dict
@@ -40,17 +41,6 @@ from .logs import MetricsAccumulator, RunLogger
 from .pose_training import create_train_state, draw_step, make_train_step, make_val_step
 
 logger = get_logger(__name__)
-
-
-def collate(items) -> dict:
-    """PoseDataset items (image uint8 CHW, K, TCO, bbox, label) → a batch of
-    tensors (images uint8, K, TCO, bboxes float32) and the labels."""
-    return dict(images=torch.as_tensor(np.stack([it["image"] for it in items])),
-                K=torch.as_tensor(np.stack([it["K"] for it in items]), dtype=torch.float32),
-                TCO=torch.as_tensor(np.stack([it["TCO"] for it in items]), dtype=torch.float32),
-                bboxes=torch.as_tensor(np.stack([it["bbox"] for it in items]),
-                                       dtype=torch.float32),
-                labels=[it["label"] for it in items])
 
 
 def reseed_datasets(dataset, entropy: list, rank: int = 0) -> None:

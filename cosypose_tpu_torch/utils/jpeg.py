@@ -1,26 +1,46 @@
-"""Baseline and progressive JPEG decoding in numpy, equal to Pillow's bit for bit.
+"""JPEG decoding in numpy, equal to Pillow's bit for bit.
 
 The JAX package reads its JPEG frames, backgrounds and textures with Pillow,
 which decodes through libjpeg-turbo with its defaults: the accurate integer
-IDCT (`jpeg_idct_islow`, jidctint.c), fancy upsampling (jdsample.c) and the
-table-driven YCbCr -> RGB conversion (jdcolor.c). This module repeats those
-steps in integer arithmetic, so `decode` returns what
-`np.asarray(PIL.Image.open(path))` gives: (H, W, 3) uint8 for a
-three-component file, (H, W) uint8 for a grayscale one.
+IDCT (`jpeg_idct_islow`, jidctint.c), fancy upsampling (jdsample.c), the
+table-driven YCbCr -> RGB conversion (jdcolor.c), the arithmetic decoder
+(jdarith.c), the lossless one (jdlhuff.c, jdlossls.c) and block smoothing
+(jdcoefct.c). This module repeats
+those steps in integer arithmetic, so `decode` returns what
+`np.asarray(PIL.Image.open(path))` gives: (H, W) uint8 for one component
+(mode L), (H, W, 3) RGB for three, (H, W, 4) CMYK for four (Pillow's raw mode
+CMYK;I: the samples inverted, as Adobe writes them).
 
 It is the plain version of csrc/jpeg_decode.cpp (utils/jpeg_cext.py), which
 every runtime path calls; this one is for the tests and for holding the
 library to it. `image_size` reads (height, width) from the frame header alone.
 
-Decoded: SOF0 (baseline), SOF1 (extended sequential, Huffman) and SOF2
-(progressive, Huffman) at 8-bit precision, with one or three components,
-interleaved and non-interleaved scans, 8- and 16-bit quantization tables,
-restart intervals, and any sampling factors whose ratios are whole numbers.
-Everything else raises JPEGError naming the marker and the file: arithmetic
-coding (SOF9-11, DAC), lossless (SOF3) and hierarchical (SOF5-7, DHP, EXP)
-files, 12-bit precision, four components (CMYK or YCCK), a progressive file
-whose scans leave low-frequency coefficient bits unknown (where libjpeg would
-smooth blocks), and truncated or corrupt data. Nothing falls back.
+What Pillow 12.1 (libjpeg-turbo 3.1) does with each mode, and so this decoder:
+
+  mode                                          Pillow                  here
+  SOF0/SOF1 baseline and extended, Huffman      decodes                 decodes
+  SOF2 progressive, Huffman                     decodes                 decodes
+  SOF9 sequential, arithmetic (DAC, restarts)   decodes                 decodes
+  SOF10 progressive, arithmetic                 decodes                 decodes
+  SOF3 lossless, Huffman, 8-bit, predictors
+    1-7, point transform, L / RGB / CMYK        decodes (replicated     decodes
+                                                upsampling)
+  SOF3 of YCbCr or YCCK colour                  OSError                 JPEGError
+  SOF3 restart interval not whole MCU rows      OSError                 JPEGError
+  SOF11 lossless, arithmetic                    OSError                 JPEGError
+  SOF5-7, SOF13-15, DHP, EXP (hierarchical)     OSError                 JPEGError
+  precision other than 8 bits (2-16)            UnidentifiedImageError  JPEGError
+  four components: Adobe CMYK (transform 0 or
+    no APP14) and YCCK (transform 2)            decodes (mode CMYK)     decodes
+  two components                                UnidentifiedImageError  JPEGError
+  a progressive file whose scans leave low-
+    frequency AC bits unknown (cut short)       decodes, smoothing      decodes,
+                                                blocks (jdcoefct.c)     smoothing
+
+Sampling: interleaved and non-interleaved scans, 8- and 16-bit quantization
+tables, restart intervals and any sampling factors whose ratios are whole
+numbers. Everything refused raises JPEGError naming the marker and the file,
+as does truncated or corrupt data. Nothing falls back.
 """
 
 from __future__ import annotations
@@ -28,18 +48,21 @@ from __future__ import annotations
 import numpy as np
 
 SOI, EOI, SOS, DQT, DHT, DRI, DNL, COM, DAC = 0xD8, 0xD9, 0xDA, 0xDB, 0xC4, 0xDD, 0xDC, 0xFE, 0xCC
-SOF_DECODED = {0xC0: "SOF0", 0xC1: "SOF1", 0xC2: "SOF2"}
+# frame marker -> (progressive, arithmetic, lossless)
+SOF_DECODED = {0xC0: (False, False, False), 0xC1: (False, False, False),
+               0xC2: (True, False, False), 0xC3: (False, False, True),
+               0xC9: (False, True, False), 0xCA: (True, True, False)}
 SOF_REFUSED = {
-    0xC3: "lossless coding (SOF3)",
     0xC5: "hierarchical coding (SOF5)", 0xC6: "hierarchical coding (SOF6)",
-    0xC7: "hierarchical coding (SOF7)",
-    0xC9: "arithmetic coding (SOF9)", 0xCA: "arithmetic coding (SOF10)",
-    0xCB: "arithmetic coding (SOF11)",
-    0xCD: "arithmetic coding (SOF13)", 0xCE: "arithmetic coding (SOF14)",
-    0xCF: "arithmetic coding (SOF15)",
-    DAC: "arithmetic coding (DAC)", 0xDE: "hierarchical coding (DHP)",
-    0xDF: "hierarchical coding (EXP)",
+    0xC7: "hierarchical coding (SOF7)", 0xCB: "lossless arithmetic coding (SOF11)",
+    0xCD: "hierarchical coding (SOF13)", 0xCE: "hierarchical coding (SOF14)",
+    0xCF: "hierarchical coding (SOF15)",
+    0xDE: "hierarchical coding (DHP)", 0xDF: "hierarchical coding (EXP)",
 }
+NOT_FRAMES = (0xDE, 0xDF)    # refused markers that are not frame headers
+MODES = {1: "L", 3: "RGB", 4: "CMYK"}    # component count -> Pillow's mode
+NUM_ARITH_TBLS = 16
+DC_STAT_BINS, AC_STAT_BINS = 64, 256
 
 # zigzag index -> natural (row-major) index
 ZIGZAG = np.array([
@@ -104,10 +127,11 @@ IDCT_LIMIT = _idct_range_limit()
 
 class _Component:
     __slots__ = ("cid", "h", "v", "tq", "dw", "dh", "bw", "bh", "wib", "hib", "coef",
-                 "coef_bits", "dc_pred", "td", "ta")
+                 "coef_bits", "dc_pred", "dc_ctx", "td", "ta", "pt")
 
     def __init__(self, cid, h, v, tq):
         self.cid, self.h, self.v, self.tq = cid, h, v, tq
+        self.pt = 0    # a lossless scan's point transform
 
 
 class _Frame:
@@ -116,8 +140,15 @@ class _Frame:
         self.qt = {}                 # table id -> 64 ints, natural order
         self.dc, self.ac = {}, {}    # table id -> 65,536-entry lookup
         self.restart = 0
-        self.progressive = False
+        self.progressive = self.arithmetic = self.lossless = False
         self.comps = []
+        # DAC conditioning (jdmarker.c get_soi's defaults) and the statistics bins
+        self.arith_dc_L = [0] * NUM_ARITH_TBLS
+        self.arith_dc_U = [1] * NUM_ARITH_TBLS
+        self.arith_ac_K = [5] * NUM_ARITH_TBLS
+        self.dc_stats = [bytearray(DC_STAT_BINS) for _ in range(NUM_ARITH_TBLS)]
+        self.ac_stats = [bytearray(AC_STAT_BINS) for _ in range(NUM_ARITH_TBLS)]
+        self.fixed_bin = bytearray([113, 0, 0, 0])
         self.jfif = False
         self.adobe = None            # APP14 transform flag
         self.height = self.width = 0
@@ -145,13 +176,11 @@ def _parse_sof(fr: _Frame, m, d: bytes):
         fr.fail(f"a height given by a DNL marker is not decoded (marker 0xFF{m:02X})")
     if fr.width == 0:
         fr.fail(f"empty image (marker 0xFF{m:02X})")
-    if nf == 4:
-        fr.fail(f"four components (CMYK or YCCK) are not decoded (marker 0xFF{m:02X})")
-    if nf not in (1, 3):
-        fr.fail(f"{nf} components are not decoded (marker 0xFF{m:02X}; 1 or 3)")
+    if nf not in MODES:
+        fr.fail(f"{nf} components are not decoded (marker 0xFF{m:02X}; 1, 3 or 4)")
     if len(d) < 6 + 3 * nf:
         fr.fail(f"truncated frame header (marker 0xFF{m:02X})")
-    fr.progressive = m == 0xC2
+    fr.progressive, fr.arithmetic, fr.lossless = SOF_DECODED[m]
     for i in range(nf):
         cid, hv, tq = d[6 + 3 * i], d[7 + 3 * i], d[8 + 3 * i]
         h, v = hv >> 4, hv & 15
@@ -161,14 +190,15 @@ def _parse_sof(fr: _Frame, m, d: bytes):
     hmax = max(c.h for c in fr.comps)
     vmax = max(c.v for c in fr.comps)
     fr.hmax, fr.vmax = hmax, vmax
-    fr.mcux = -(-fr.width // (8 * hmax))
-    fr.mcuy = -(-fr.height // (8 * vmax))
+    unit = 1 if fr.lossless else 8      # a lossless data unit is one sample
+    fr.mcux = -(-fr.width // (unit * hmax))
+    fr.mcuy = -(-fr.height // (unit * vmax))
     for c in fr.comps:
         c.dw = -(-fr.width * c.h // hmax)     # downsampled_width
         c.dh = -(-fr.height * c.v // vmax)
-        c.wib, c.hib = -(-c.dw // 8), -(-c.dh // 8)
+        c.wib, c.hib = -(-c.dw // unit), -(-c.dh // unit)
         c.bw, c.bh = fr.mcux * c.h, fr.mcuy * c.v
-        c.coef = [0] * (c.bw * c.bh * 64)
+        c.coef = [0] * (c.bw * c.bh * unit * unit)
         c.coef_bits = [-1] * 64
 
 
@@ -219,6 +249,23 @@ def _parse_dht(fr: _Frame, d: bytes):
         symbols = list(d[p:p + total])
         p += total
         (fr.ac if tc else fr.dc)[th] = _huffman_lookup(fr, counts, symbols)
+
+
+def _parse_dac(fr: _Frame, d: bytes):
+    """jdmarker.c get_dac: (index, value) pairs, DC tables' L and U below 16,
+    AC tables' K from 16 on."""
+    if len(d) % 2:
+        fr.fail("bad arithmetic conditioning table (marker 0xFFCC)")
+    for p in range(0, len(d), 2):
+        index, val = d[p], d[p + 1]
+        if index >= 2 * NUM_ARITH_TBLS:
+            fr.fail(f"bad arithmetic conditioning table index {index} (marker 0xFFCC)")
+        if index >= NUM_ARITH_TBLS:
+            fr.arith_ac_K[index - NUM_ARITH_TBLS] = val
+        else:
+            fr.arith_dc_L[index], fr.arith_dc_U[index] = val & 15, val >> 4
+            if val & 15 > val >> 4:
+                fr.fail(f"bad arithmetic conditioning value {val} (marker 0xFFCC)")
 
 
 def _parse_app(fr: _Frame, m, d: bytes):
@@ -316,6 +363,86 @@ def _extend(v: int, s: int) -> int:
     return v - (1 << s) + 1 if v < (1 << (s - 1)) else v
 
 
+# T.81 Table D.2 (libjpeg's jaricom.c): Qe, Next_Index_LPS, Next_Index_MPS, and
+# the states whose LPS switches the MPS sense; state 113 is the fixed 0.5 bin
+QE = [
+    0x5a1d, 0x2586, 0x1114, 0x080b, 0x03d8, 0x01da, 0x00e5, 0x006f, 0x0036, 0x001a, 0x000d,
+    0x0006, 0x0003, 0x0001, 0x5a7f, 0x3f25, 0x2cf2, 0x207c, 0x17b9, 0x1182, 0x0cef, 0x09a1,
+    0x072f, 0x055c, 0x0406, 0x0303, 0x0240, 0x01b1, 0x0144, 0x00f5, 0x00b7, 0x008a, 0x0068,
+    0x004e, 0x003b, 0x002c, 0x5ae1, 0x484c, 0x3a0d, 0x2ef1, 0x261f, 0x1f33, 0x19a8, 0x1518,
+    0x1177, 0x0e74, 0x0bfb, 0x09f8, 0x0861, 0x0706, 0x05cd, 0x04de, 0x040f, 0x0363, 0x02d4,
+    0x025c, 0x01f8, 0x01a4, 0x0160, 0x0125, 0x00f6, 0x00cb, 0x00ab, 0x008f, 0x5b12, 0x4d04,
+    0x412c, 0x37d8, 0x2fe8, 0x293c, 0x2379, 0x1edf, 0x1aa9, 0x174e, 0x1424, 0x119c, 0x0f6b,
+    0x0d51, 0x0bb6, 0x0a40, 0x5832, 0x4d1c, 0x438e, 0x3bdd, 0x34ee, 0x2eae, 0x299a, 0x2516,
+    0x5570, 0x4ca9, 0x44d9, 0x3e22, 0x3824, 0x32b4, 0x2e17, 0x56a8, 0x4f46, 0x47e5, 0x41cf,
+    0x3c3d, 0x375e, 0x5231, 0x4c0f, 0x4639, 0x415e, 0x5627, 0x50e7, 0x4b85, 0x5597, 0x504f,
+    0x5a10, 0x5522, 0x59eb, 0x5a1d]
+NEXT_LPS = [
+    1, 14, 16, 18, 20, 23, 25, 28, 30, 33, 35, 9, 10, 12, 15, 36, 38, 39, 40, 42, 43, 45, 46,
+    48, 49, 51, 52, 54, 56, 57, 59, 60, 62, 63, 32, 33, 37, 64, 65, 67, 68, 69, 70, 72, 73, 74,
+    75, 77, 78, 79, 48, 50, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59, 61, 61, 65, 80, 81, 82, 83,
+    84, 86, 87, 87, 72, 72, 74, 74, 75, 77, 77, 80, 88, 89, 90, 91, 92, 93, 86, 88, 95, 96, 97,
+    99, 99, 93, 95, 101, 102, 103, 104, 99, 105, 106, 107, 103, 105, 108, 109, 110, 111, 110,
+    112, 112, 113]
+_MPS_JUMPS = {13: 13, 35: 9, 63: 32, 79: 48, 87: 71, 94: 86, 100: 93, 104: 99, 107: 103,
+              109: 107, 111: 109, 112: 111, 113: 113}
+NEXT_MPS = [_MPS_JUMPS.get(i, i + 1) for i in range(114)]
+SWITCH_MPS = (0, 14, 36, 64, 80, 88, 95, 105, 110, 112)
+# jaricom.c's packing: Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS
+ARITAB = [(QE[i] << 16) | (NEXT_MPS[i] << 8) | ((i in SWITCH_MPS) << 7) | NEXT_LPS[i]
+          for i in range(114)]
+
+
+class _Arith:
+    """T.81 Annex D's decoder as jdarith.c runs it over one unstuffed
+    segment: a state byte per context (index | MPS << 7); past the segment's
+    end it reads zero bytes, as libjpeg does after a marker."""
+
+    __slots__ = ("seg", "pos", "c", "a", "ct")
+
+    def __init__(self, seg: bytes):
+        self.seg, self.pos, self.c, self.a, self.ct = seg, 0, 0, 0, -16
+
+    def decode(self, st: bytearray, i: int) -> int:
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                if self.pos < len(self.seg):
+                    data = self.seg[self.pos]
+                    self.pos += 1
+                else:
+                    data = 0
+                c = (c << 8) | data
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        qe = ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
 def _parse_sos(fr: _Frame, d: bytes):
     ns = d[0]
     if not 1 <= ns <= 4 or len(d) < 4 + 2 * ns:
@@ -330,7 +457,9 @@ def _parse_sos(fr: _Frame, d: bytes):
         comps.append(c)
     q = 1 + 2 * ns
     ss, se, ah, al = d[q], d[q + 1], d[q + 2] >> 4, d[q + 2] & 15
-    if fr.progressive:
+    if fr.lossless:     # Ss is the predictor, Al the point transform (jdlossls.c)
+        bad = not 1 <= ss <= 7 or se != 0 or ah or al >= 8
+    elif fr.progressive:
         bad = (ss > se or se > 63 or al > 13 or (ah and ah != al + 1)
                or (ss == 0 and se != 0) or (ss > 0 and ns != 1))
     else:
@@ -340,22 +469,28 @@ def _parse_sos(fr: _Frame, d: bytes):
     if ns > 1 and sum(c.h * c.v for c in comps) > MAX_BLOCKS_IN_MCU:
         fr.fail("too many blocks in an MCU (marker 0xFFDA)")
     for c in comps:
-        if ss == 0 and (not ah or not fr.progressive) and c.td not in fr.dc:
+        if fr.arithmetic:
+            continue    # tables 0-15, conditioned by DAC or its defaults
+        if (fr.lossless or ss == 0 and (not ah or not fr.progressive)) and c.td not in fr.dc:
             fr.fail(f"no DC Huffman table {c.td} (marker 0xFFDA)")
         if se > 0 and c.ta not in fr.ac:
             fr.fail(f"no AC Huffman table {c.ta} (marker 0xFFDA)")
-        for k in range(ss, se + 1):
-            c.coef_bits[k] = al
+    if not fr.lossless:
+        for c in comps:
+            for k in range(ss, se + 1):
+                c.coef_bits[k] = al
     return comps, ss, se, ah, al
 
 
 def _mcu_blocks(fr: _Frame, comps):
-    """(MCU count, a function from MCU index to [(component, block offset)])."""
+    """(MCU count, a function from MCU index to [(component, block offset)]);
+    a lossless file's blocks are single samples."""
+    size = 1 if fr.lossless else 64
     if len(comps) == 1:
         c = comps[0]
 
         def blocks(i, c=c):
-            return ((c, ((i // c.wib) * c.bw + i % c.wib) * 64),)
+            return ((c, ((i // c.wib) * c.bw + i % c.wib) * size),)
         return c.wib * c.hib, blocks
 
     def blocks(i):
@@ -364,7 +499,7 @@ def _mcu_blocks(fr: _Frame, comps):
         for c in comps:
             for v in range(c.v):
                 row = (my * c.v + v) * c.bw + mx * c.h
-                out.extend((c, (row + h) * 64) for h in range(c.h))
+                out.extend((c, (row + h) * size) for h in range(c.h))
         return out
     return fr.mcux * fr.mcuy, blocks
 
@@ -378,22 +513,30 @@ def _decode_scan(fr: _Frame, comps, ss, se, ah, al, segs, rsts):
     for k, r in enumerate(rsts):
         if r != k % 8:
             fr.fail(f"corrupt JPEG data (RST{r} where RST{k % 8} belongs)")
-    if fr.progressive:
-        if ss == 0:
-            step = _dc_first if not ah else _dc_refine
-        else:
-            step = _ac_first if not ah else _ac_refine
-    else:
-        step = _sequential
-    for s_i in range(n_int):
-        bits = _Bits(segs[s_i])
+    if fr.lossless:
         for c in comps:
-            c.dc_pred = 0
+            c.pt = al
+        _lossless_scan(fr, comps, ss, segs, blocks, n_mcu, ri)
+        return
+    steps = _ARITH_STEPS if fr.arithmetic else _HUFFMAN_STEPS
+    if fr.progressive:
+        step = steps[(ss > 0, ah > 0)]
+    else:
+        step = steps[None]
+    for s_i in range(n_int):
+        if fr.arithmetic:
+            bits = _Arith(segs[s_i])
+            _arith_reset(fr, comps, ss, ah)
+        else:
+            bits = _Bits(segs[s_i])
+        for c in comps:
+            c.dc_pred = c.dc_ctx = 0
         fr.eobrun = 0
         for i in range(s_i * ri, min(n_mcu, (s_i + 1) * ri)):
             for c, off in blocks(i):
                 step(fr, bits, c, off, ss, se, al)
-        bits.check_end(fr)
+        if not fr.arithmetic:
+            bits.check_end(fr)
 
 
 def _sequential(fr, bits, c, off, ss, se, al):
@@ -493,6 +636,194 @@ def _ac_refine(fr, bits, c, off, ss, se, al):
         fr.eobrun -= 1
 
 
+_HUFFMAN_STEPS = {None: _sequential, (False, False): _dc_first, (False, True): _dc_refine,
+                  (True, False): _ac_first, (True, True): _ac_refine}
+
+
+# -- arithmetic-coded blocks (jdarith.c) -------------------------------------------
+
+
+def _arith_reset(fr: _Frame, comps, ss: int, ah: int):
+    """The statistics a scan's start and each restart clear (jdarith.c
+    start_pass, process_restart): DC bins unless a refinement or AC scan, AC
+    bins unless a DC scan."""
+    for c in comps:
+        if not fr.progressive or (ss == 0 and ah == 0):
+            fr.dc_stats[c.td][:] = bytes(DC_STAT_BINS)
+        if not fr.progressive or ss:
+            fr.ac_stats[c.ta][:] = bytes(AC_STAT_BINS)
+
+
+def _arith_dc_diff(fr: _Frame, dec: _Arith, c: _Component) -> int:
+    """Figures F.19-F.24: the DC difference, updating the component's context."""
+    stats = fr.dc_stats[c.td]
+    st = c.dc_ctx
+    if not dec.decode(stats, st):
+        c.dc_ctx = 0
+        return 0
+    sign = dec.decode(stats, st + 1)
+    st += 2 + sign
+    m = dec.decode(stats, st)
+    if m:
+        st = 20
+        while dec.decode(stats, st):
+            m <<= 1
+            if m == 0x8000:
+                fr.fail("corrupt JPEG data (arithmetic-coded magnitude overflow)")
+            st += 1
+    if m < (1 << fr.arith_dc_L[c.td]) >> 1:
+        c.dc_ctx = 0
+    elif m > (1 << fr.arith_dc_U[c.td]) >> 1:
+        c.dc_ctx = 12 + sign * 4
+    else:
+        c.dc_ctx = 4 + sign * 4
+    v = m
+    st += 14
+    while m >> 1:
+        m >>= 1
+        if dec.decode(stats, st):
+            v |= m
+    v += 1
+    return -v if sign else v
+
+
+def _arith_ac_value(fr: _Frame, dec: _Arith, c: _Component, st: int, k: int) -> int:
+    """Figures F.21-F.24 from bin st (at SE's S0 + 1's outcome): an AC value."""
+    stats = fr.ac_stats[c.ta]
+    sign = dec.decode(fr.fixed_bin, 0)
+    st += 2
+    m = dec.decode(stats, st)
+    if m and dec.decode(stats, st):
+        m <<= 1
+        st = 189 if k <= fr.arith_ac_K[c.ta] else 217
+        while dec.decode(stats, st):
+            m <<= 1
+            if m == 0x8000:
+                fr.fail("corrupt JPEG data (arithmetic-coded magnitude overflow)")
+            st += 1
+    v = m
+    st += 14
+    while m >> 1:
+        m >>= 1
+        if dec.decode(stats, st):
+            v |= m
+    v += 1
+    return -v if sign else v
+
+
+def _arith_sequential(fr, dec, c, off, ss, se, al):
+    coef = c.coef
+    c.dc_pred = (c.dc_pred + _arith_dc_diff(fr, dec, c)) & 0xFFFF
+    coef[off] = c.dc_pred - 0x10000 if c.dc_pred & 0x8000 else c.dc_pred
+    stats = fr.ac_stats[c.ta]
+    k = 0
+    while k < 63:
+        st = 3 * k
+        if dec.decode(stats, st):
+            break
+        while True:
+            k += 1
+            if dec.decode(stats, st + 1):
+                break
+            st += 3
+            if k >= 63:
+                fr.fail("corrupt JPEG data (arithmetic-coded run past the block)")
+        coef[off + _ZZ[k]] = _arith_ac_value(fr, dec, c, st, k)
+
+
+def _arith_dc_first(fr, dec, c, off, ss, se, al):
+    c.dc_pred += _arith_dc_diff(fr, dec, c)
+    c.coef[off] = c.dc_pred << al
+
+
+def _arith_dc_refine(fr, dec, c, off, ss, se, al):
+    if dec.decode(fr.fixed_bin, 0):
+        c.coef[off] |= 1 << al
+
+
+def _arith_ac_first(fr, dec, c, off, ss, se, al):
+    coef, stats = c.coef, fr.ac_stats[c.ta]
+    k = ss
+    while k <= se:
+        st = 3 * (k - 1)
+        if dec.decode(stats, st):
+            break
+        while not dec.decode(stats, st + 1):
+            st += 3
+            k += 1
+            if k > se:
+                fr.fail("corrupt JPEG data (arithmetic-coded run past the band)")
+        coef[off + _ZZ[k]] = _arith_ac_value(fr, dec, c, st, k) << al
+        k += 1
+
+
+def _arith_ac_refine(fr, dec, c, off, ss, se, al):
+    coef, stats = c.coef, fr.ac_stats[c.ta]
+    p1, m1 = 1 << al, -1 << al
+    kex = se
+    while kex > 0 and not coef[off + _ZZ[kex]]:
+        kex -= 1
+    k = ss
+    while k <= se:
+        st = 3 * (k - 1)
+        if k > kex and dec.decode(stats, st):
+            break
+        while True:
+            z = off + _ZZ[k]
+            if coef[z]:
+                if dec.decode(stats, st + 2):
+                    coef[z] += m1 if coef[z] < 0 else p1
+                break
+            if dec.decode(stats, st + 1):
+                coef[z] = m1 if dec.decode(fr.fixed_bin, 0) else p1
+                break
+            st += 3
+            k += 1
+            if k > se:
+                fr.fail("corrupt JPEG data (arithmetic-coded run past the band)")
+        k += 1
+
+
+_ARITH_STEPS = {None: _arith_sequential, (False, False): _arith_dc_first,
+                (False, True): _arith_dc_refine, (True, False): _arith_ac_first,
+                (True, True): _arith_ac_refine}
+
+
+# -- lossless samples (jdlhuff.c, jdlossls.c) ------------------------------------------
+
+
+def _lossless_scan(fr: _Frame, comps, predictor: int, segs, blocks, n_mcu: int, ri: int):
+    """Huffman-coded differences undone by T.81 Annex H's predictor. Each
+    restart interval is whole MCU rows (libjpeg-turbo's rule); its first row
+    of each component predicts from the left, the first sample from
+    2^(7 - Pt), every other row's first sample from above."""
+    per_row = comps[0].wib if len(comps) == 1 else fr.mcux
+    if fr.restart and fr.restart % per_row:
+        fr.fail(f"a lossless restart interval of {fr.restart} MCUs is not a whole number of "
+                f"MCU rows ({per_row} MCUs)")
+    for s_i, seg in enumerate(segs):
+        bits = _Bits(seg)
+        first = s_i * ri // per_row     # the interval's first MCU row
+        for i in range(s_i * ri, min(n_mcu, (s_i + 1) * ri)):
+            for c, off in blocks(i):
+                s = bits.huff(fr.dc[c.td], fr)
+                if s > 16:
+                    fr.fail("corrupt JPEG data (difference category above 16)")
+                diff = 32768 if s == 16 else _extend(bits.bits(s), s) if s else 0
+                y, x = divmod(off, c.bw)
+                coef = c.coef
+                if y == first * (1 if len(comps) == 1 else c.v):
+                    pred = coef[off - 1] if x else 1 << (7 - c.pt)
+                elif x == 0:
+                    pred = coef[off - c.bw]
+                else:
+                    ra, rb, rc = coef[off - 1], coef[off - c.bw], coef[off - c.bw - 1]
+                    pred = (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1),
+                            rb + ((ra - rc) >> 1), (ra + rb) >> 1)[predictor - 1]
+                coef[off] = (diff + pred) & 0xFFFF
+        bits.check_end(fr)
+
+
 # -- reconstruction ------------------------------------------------------------
 
 
@@ -542,11 +873,14 @@ def idct_islow(coef: np.ndarray, quant) -> np.ndarray:
     return IDCT_LIMIT[out & RANGE_MASK]
 
 
-def _plane(fr: _Frame, c: _Component) -> np.ndarray:
+def _plane(fr: _Frame, c: _Component, coef=None) -> np.ndarray:
+    """The component's samples: IDCT of `coef` (its coefficients by default)."""
+    if fr.lossless:     # jdlossls.c's scaler: the sample << Pt, cast to 8 bits
+        return ((np.asarray(c.coef, np.int64) << c.pt) & 0xFF).astype(np.uint8).reshape(c.bh, c.bw)
     q = fr.qt.get(c.tq)
     if q is None:
         fr.fail(f"no quantization table {c.tq}")
-    blocks = idct_islow(np.asarray(c.coef, np.int64).reshape(-1, 64), q)
+    blocks = idct_islow(np.asarray(c.coef if coef is None else coef, np.int64).reshape(-1, 64), q)
     return blocks.reshape(c.bh, c.bw, 8, 8).transpose(0, 2, 1, 3).reshape(c.bh * 8, c.bw * 8)
 
 
@@ -585,17 +919,18 @@ def _fancy_h2v2(p: np.ndarray) -> np.ndarray:
 
 
 def upsample(fr_h: int, fr_w: int, hmax: int, vmax: int, c_h: int, c_v: int,
-             plane: np.ndarray, dh: int, dw: int) -> np.ndarray:
+             plane: np.ndarray, dh: int, dw: int, fancy: bool = True) -> np.ndarray:
     """A component's decoded plane -> (fr_h, fr_w) uint8, by the method
-    jinit_upsampler picks at full scale with fancy upsampling on."""
+    jinit_upsampler picks at full scale with fancy upsampling on; a lossless
+    file's (one-sample data units) is replicated (`fancy` False)."""
     if c_h == hmax and c_v == vmax:
         return plane[:fr_h, :fr_w]
     p = plane[:dh, :dw]
-    if 2 * c_h == hmax and c_v == vmax and dw > 2:
+    if fancy and 2 * c_h == hmax and c_v == vmax and dw > 2:
         out = _fancy_h2(p)
-    elif c_h == hmax and 2 * c_v == vmax:
+    elif fancy and c_h == hmax and 2 * c_v == vmax:
         out = _fancy_v2(p)
-    elif 2 * c_h == hmax and 2 * c_v == vmax and dw > 2:
+    elif fancy and 2 * c_h == hmax and 2 * c_v == vmax and dw > 2:
         out = _fancy_h2v2(p)
     elif hmax % c_h == 0 and vmax % c_v == 0:    # int_upsample, h2v1/h2v2_upsample
         out = np.repeat(np.repeat(p, vmax // c_v, 0), hmax // c_h, 1)
@@ -614,31 +949,123 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
 
 
 def _colour_space(fr: _Frame) -> str:
-    """default_decompress_parms (jdapimin.c) for three components."""
+    """default_decompress_parms (jdapimin.c) for three or four components."""
+    if len(fr.comps) == 4:
+        return "YCCK" if fr.adobe is not None and fr.adobe != 0 else "CMYK"
     if fr.jfif:
         return "YCbCr"
     if fr.adobe is not None:
         return "RGB" if fr.adobe == 0 else "YCbCr"
     ids = tuple(c.cid for c in fr.comps)
-    return "RGB" if ids == (82, 71, 66) else "YCbCr"
+    if ids == (82, 71, 66) or (ids == (1, 2, 3) and fr.lossless):
+        return "RGB"
+    return "YCbCr"
 
 
-def _check_smoothing(fr: _Frame):
-    """jdcoefct.c smoothing_ok: libjpeg smooths a progressive file's blocks
-    when a low-frequency coefficient's bits stay partly unknown after every
-    scan; this decoder does not, so such a file is refused."""
+def cmyk_presented(planes, ycck: bool) -> np.ndarray:
+    """Four decoded planes -> (H, W, 4) uint8 as Pillow presents a CMYK JPEG
+    (raw mode CMYK;I, the samples inverted). libjpeg converts YCCK to CMYK
+    (ycck_cmyk_convert: 255 - the YCbCr -> RGB result, clamped; K as it is),
+    so a YCCK file comes out as the clamped RGB of its Y, Cb, Cr and 255 - K."""
+    if ycck:
+        rgb = ycc_to_rgb(*planes[:3])
+        return np.concatenate([rgb, (255 - planes[3])[..., None]], -1).astype(np.uint8)
+    return (255 - np.stack(planes, -1)).astype(np.uint8)
+
+
+# zigzag 1-9's natural positions: the AC coefficients block smoothing estimates
+SMOOTHED_AC = (1, 8, 16, 9, 2, 3, 10, 17, 24)
+# their estimates from the 5x5 window of DC values d[0..24] (row-major) when
+# some AC data is known (jdcoefct.c, K.8 over 5x5; the first five) and when
+# only DC data is (a Gaussian-like kernel; all nine, and the DC itself)
+_AC_KNOWN = (
+    {10: -7, 11: 50, 13: -50, 14: 7},
+    {2: -7, 7: 50, 17: -50, 22: 7},
+    {2: -1, 7: 13, 12: -24, 17: 13, 22: -1},
+    {9: 1, 15: 1, 16: -10, 18: 10, 1: -1, 19: -1, 21: 1, 23: -1, 3: 1, 5: -1, 6: 10, 8: -10},
+    {10: -1, 11: 13, 12: -24, 13: 13, 14: -1},
+)
+_DC_ONLY = (
+    {0: -1, 1: -1, 3: 1, 4: 1, 5: -3, 6: 13, 8: -13, 9: 3, 10: -3, 11: 38, 13: -38, 14: 3,
+     15: -3, 16: 13, 18: -13, 19: 3, 20: -1, 21: -1, 23: 1, 24: 1},
+    {0: -1, 1: -3, 2: -3, 3: -3, 4: -1, 5: -1, 6: 13, 7: 38, 8: 13, 9: -1, 15: 1, 16: -13,
+     17: -38, 18: -13, 19: 1, 20: 1, 21: 3, 22: 3, 23: 3, 24: 1},
+    {2: 1, 6: 2, 7: 7, 8: 2, 11: -5, 12: -14, 13: -5, 16: 2, 17: 7, 18: 2, 22: 1},
+    {0: -1, 4: 1, 6: 9, 8: -9, 16: -9, 18: 9, 20: 1, 24: -1},
+    {6: 2, 7: -5, 8: 2, 10: 1, 11: 7, 12: -14, 13: 7, 14: 1, 16: 2, 17: -5, 18: 2},
+    {6: 1, 8: -1, 11: 2, 13: -2, 16: 1, 18: -1},
+    {6: 1, 7: -3, 8: 1, 16: -1, 17: 3, 18: -1},
+    {6: 1, 8: -1, 11: -3, 13: 3, 16: 1, 18: -1},
+    {6: 1, 7: 2, 8: 1, 16: -1, 17: -2, 18: -1},
+)
+_DC_ESTIMATE = {0: -2, 1: -6, 2: -8, 3: -6, 4: -2, 5: -6, 6: 6, 7: 42, 8: 6, 9: -6,
+                10: -8, 11: 42, 12: 152, 13: 42, 14: -8, 15: -6, 16: 6, 17: 42, 18: 6,
+                19: -6, 20: -2, 21: -6, 22: -8, 23: -6, 24: -2}
+
+
+def _smoothing_ok(fr: _Frame) -> bool:
+    """jdcoefct.c smoothing_ok: a progressive file's blocks are smoothed when
+    every component's DC is at least partly known, its quantizers for the DC
+    and the first nine AC coefficients are nonzero, and some of those AC
+    coefficients' bits stay unknown after every scan."""
     if not fr.progressive:
-        return
+        return False
     useful = False
     for c in fr.comps:
         q = fr.qt.get(c.tq)
-        if q is None or c.coef_bits[0] < 0 or 0 in (q[0], q[1], q[8], q[16], q[9], q[2], q[3],
-                                                     q[10], q[17], q[24]):
-            return
+        if q is None or c.coef_bits[0] < 0 or 0 in (q[0], *(q[p] for p in SMOOTHED_AC)):
+            return False
         useful |= any(b != 0 for b in c.coef_bits[1:SMOOTHING_COEFS])
-    if useful:
-        fr.fail("a progressive file whose scans leave coefficient bits unknown "
-                "(libjpeg's block smoothing) is not decoded")
+    return useful
+
+
+def _estimate(num: np.ndarray, q: int, al: int) -> np.ndarray:
+    """((q << 7) + |num|) // (q << 8) with num's sign, capped below 2^Al when
+    Al > 0 (the coefficient's unknown low bits)."""
+    mag = ((q << 7) + np.abs(num)) // (q << 8)
+    if al > 0:
+        mag = np.minimum(mag, (1 << al) - 1)
+    return np.where(num >= 0, mag, -mag)
+
+
+def _smoothed(fr: _Frame, c: _Component) -> np.ndarray:
+    """jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1 on): the
+    component's coefficients with zero low-frequency AC coefficients whose
+    bits are not all known estimated from the 5x5 window of DC values around
+    each block (the edge blocks repeated), and, when no AC data is known at
+    all, the DC too. The window's rows follow libjpeg's iMCU-row arithmetic."""
+    coef = np.asarray(c.coef, np.int64).reshape(c.bh, c.bw, 64)
+    out = coef.copy()
+    bits, q = c.coef_bits, fr.qt[c.tq]
+    change_dc = all(b == -1 for b in bits[1:SMOOTHING_COEFS])
+    total, v = fr.mcuy, c.v
+    rows = []
+    for imcu in range(total):
+        block_rows = v if imcu < total - 1 else (c.hib % v or v)
+        image_rows = block_rows * total
+        for br in range(block_rows):
+            ibr, cur = imcu * block_rows + br, imcu * v + br
+            prev = cur - 1 if ibr > 0 else cur
+            nxt = cur + 1 if ibr < image_rows - 1 else cur
+            rows.append((cur - 2 if ibr > 1 else prev, prev, cur, nxt,
+                         cur + 2 if ibr < image_rows - 2 else nxt))
+    rows = np.asarray(rows)                                            # (hib, 5)
+    cols = np.clip(np.arange(c.wib)[:, None] + np.arange(-2, 3), 0, c.wib - 1)
+    dc = coef[..., 0][rows[:, :, None, None], cols[None, None]]      # (hib, 5, wib, 5)
+    dc = dc.transpose(0, 2, 1, 3).reshape(len(rows), c.wib, 25)
+    blocks = out[rows[:, 2], :c.wib]                                  # (hib, wib, 64)
+    kernels = _DC_ONLY if change_dc else _AC_KNOWN
+    for k, (pos, taps) in enumerate(zip(SMOOTHED_AC, kernels), start=1):
+        if bits[k] == 0:
+            continue
+        num = q[0] * sum(w * dc[..., i] for i, w in taps.items())
+        zero = blocks[..., pos] == 0
+        blocks[..., pos] = np.where(zero, _estimate(num, q[pos], bits[k]), blocks[..., pos])
+    if change_dc:
+        num = q[0] * sum(w * dc[..., i] for i, w in _DC_ESTIMATE.items())
+        blocks[..., 0] = _estimate(num, q[0], 0)
+    out[rows[:, 2], :c.wib] = blocks
+    return out.reshape(-1)
 
 
 def _read(data: bytes, name: str, header_only: bool) -> _Frame:
@@ -670,7 +1097,7 @@ def _read(data: bytes, name: str, header_only: bool) -> _Frame:
         a, b = p + 2, p + _u16(data, p)
         p = b
         d = data[a:b]
-        if m in SOF_DECODED or (m in SOF_REFUSED and m not in (DAC, 0xDE, 0xDF)):
+        if m in SOF_DECODED or (m in SOF_REFUSED and m not in NOT_FRAMES):
             if header_only:
                 if len(d) < 5:
                     fr.fail(f"truncated frame header (marker 0xFF{m:02X})")
@@ -683,6 +1110,8 @@ def _read(data: bytes, name: str, header_only: bool) -> _Frame:
             _parse_dqt(fr, d)
         elif m == DHT:
             _parse_dht(fr, d)
+        elif m == DAC:
+            _parse_dac(fr, d)
         elif m == DRI:
             if len(d) < 2:
                 fr.fail("truncated restart interval (marker 0xFFDD)")
@@ -716,13 +1145,23 @@ def image_size(data: bytes, name: str = "<bytes>") -> tuple[int, int]:
 
 
 def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """JPEG bytes -> (H, W, 3) uint8 RGB, or (H, W) uint8 for one component."""
+    """JPEG bytes -> what `np.asarray(PIL.Image.open(...))` gives: (H, W)
+    uint8 for one component (mode L), (H, W, 3) RGB for three, (H, W, 4)
+    CMYK for four (`MODES` names them by the channel count)."""
     fr = _read(data, name, header_only=False)
-    _check_smoothing(fr)
-    planes = [upsample(fr.height, fr.width, fr.hmax, fr.vmax, c.h, c.v, _plane(fr, c), c.dh, c.dw)
+    smooth = _smoothing_ok(fr)
+    space = _colour_space(fr) if len(fr.comps) > 1 else "L"
+    if fr.lossless and space in ("YCbCr", "YCCK"):
+        fr.fail(f"lossless coding (SOF3) of {space} colour is not decoded (libjpeg converts "
+                "no colour in lossless mode)")
+    planes = [upsample(fr.height, fr.width, fr.hmax, fr.vmax, c.h, c.v,
+                       _plane(fr, c, _smoothed(fr, c) if smooth else None), c.dh, c.dw,
+                       fancy=not fr.lossless)
               for c in fr.comps]
     if len(planes) == 1:
         return np.ascontiguousarray(planes[0])
-    if _colour_space(fr) == "RGB":
+    if len(planes) == 4:
+        return cmyk_presented(planes, space == "YCCK")
+    if space == "RGB":
         return np.stack(planes, -1)
     return ycc_to_rgb(*planes)

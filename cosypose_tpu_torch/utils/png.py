@@ -175,13 +175,21 @@ def encode(image: np.ndarray, compress_level: int = 6) -> bytes:
             + chunk(b"IDAT", zlib.compress(raw.tobytes(), compress_level)) + chunk(b"IEND", b""))
 
 
-def imread(path) -> np.ndarray:
+def imread(path, with_mode: bool = False):
     """Decode an image file: PNG (`decode`) or JPEG (utils/jpeg_cext.decode,
-    which raises jpeg.JPEGError for a mode it does not decode)."""
+    which raises jpeg.JPEGError for a mode it does not decode). With
+    with_mode, (image, Pillow's mode name): the format says it (a JPEG's four
+    channels are CMYK, a PNG's RGBA), where the array's shape cannot."""
     data = pathlib.Path(path).read_bytes()
     if data[:2] == JPEG_SOI:
-        return jpeg_cext.decode(data, str(path))
-    return decode(data)
+        image = jpeg_cext.decode(data, str(path))
+        mode = jpeg.MODES[1 if image.ndim == 2 else image.shape[2]]
+    else:
+        image = decode(data)
+        channels = 1 if image.ndim == 2 else image.shape[2]
+        mode = "I;16" if image.dtype == np.uint16 and channels == 1 else \
+            {1: "L", 2: "LA", 3: "RGB", 4: "RGBA"}[channels]
+    return (image, mode) if with_mode else image
 
 
 def imwrite(path, image: np.ndarray, compress_level: int = 6) -> None:

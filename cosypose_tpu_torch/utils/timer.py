@@ -16,6 +16,12 @@ class Timer:
         self.elapsed = 0.0
         self.is_running = False
 
+    def reset(self):
+        self.start_time = None
+        self.elapsed = 0.0
+        self.is_running = False
+        return self
+
     def start(self):
         self.elapsed = 0.0
         return self.resume()

@@ -213,7 +213,8 @@ def results(tmp_path_factory):
     )
     ranks = {}
     thread = threading.Thread(target=lambda: ranks.update(
-        out=spawn(rank_checks.suite, WORLD, (cases,), n_threads=1, timeout_s=600)))
+        out=spawn(rank_checks.suite, WORLD, (cases,), device="cpu", n_threads=1,
+                  timeout_s=600)))
     thread.start()
 
     # the JAX package's sharded steps
@@ -703,4 +704,13 @@ def test_init_distributed_mode_is_a_no_op_alone(monkeypatch):
 
 def test_spawned_rank_failure_raises():
     with pytest.raises(Exception, match="KeyError"):
-        spawn(rank_checks.suite, 2, ({"bad": ("batchnorm", {})},), n_threads=1, timeout_s=120)
+        spawn(rank_checks.suite, 2, ({"bad": ("batchnorm", {})},), device="cpu", n_threads=1,
+              timeout_s=120)
+
+
+def test_spawn_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """No device= means the card: without one, resolve_device's error comes
+    before any rank starts, where a CPU default would have run."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="a CUDA device was requested"):
+        spawn(rank_checks.suite, 2, ({"bad": ("batchnorm", {})},), n_threads=1, timeout_s=60)

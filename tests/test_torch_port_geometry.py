@@ -21,7 +21,8 @@ from cosypose_tpu.ops import transforms as jtr
 from cosypose_tpu_torch.ops import camera as tcam
 from cosypose_tpu_torch.ops import cropping as tcrop
 from cosypose_tpu_torch.ops import pose_ops as tpose
-from cosypose_tpu_torch.ops import roi_align as troi
+from cosypose_tpu_torch.ops.roi_align import roi_align as t_roi_align
+from cosypose_tpu_torch.ops.roi_align import roi_align_gather as t_roi_align_gather
 from cosypose_tpu_torch.ops import transforms as ttr
 
 ATOL_GEOM = 1e-5
@@ -171,7 +172,7 @@ def test_roi_align_both_jax_forms(oracle, sampling_ratio):
                       [30.0, 20.0, 55.0, 41.0], [-3.0, 2.5, 43.0, 33.0]], np.float32)
     fn = j_roi_align if oracle == "matmul" else roi_align_gather
     ref = fn(_j(img), _j(boxes), output_size=(12, 16), sampling_ratio=sampling_ratio)
-    out = troi.roi_align(_t(img), _t(boxes), (12, 16), sampling_ratio)
+    out = t_roi_align(_t(img), _t(boxes), (12, 16), sampling_ratio)
     _close(out, ref, ATOL_GEOM)
 
 
@@ -183,10 +184,10 @@ def test_roi_align_gather_matches_jax_and_the_matmul_form(sampling_ratio):
     img = rng.uniform(size=(4, 3, 30, 40)).astype(np.float32)
     boxes = np.array([[5.0, 4.0, 25.5, 20.0], [-8.0, -5.0, 20.0, 12.0],
                       [30.0, 20.0, 55.0, 41.0], [-3.0, 2.5, 43.0, 33.0]], np.float32)
-    out = troi.roi_align_gather(_t(img), _t(boxes), (12, 16), sampling_ratio)
+    out = t_roi_align_gather(_t(img), _t(boxes), (12, 16), sampling_ratio)
     ref = roi_align_gather(_j(img), _j(boxes), output_size=(12, 16),
                            sampling_ratio=sampling_ratio)
     assert out.shape == (4, 3, 12, 16)
     _close(out, ref, ATOL_PIX)
-    _close(out, troi.roi_align(_t(img), _t(boxes), (12, 16), sampling_ratio), ATOL_PIX)
+    _close(out, t_roi_align(_t(img), _t(boxes), (12, 16), sampling_ratio), ATOL_PIX)
     assert float(out[2].abs().max()) < 1.0 and float(out[0].abs().min()) > 0.0

@@ -3,7 +3,10 @@
 VOC background pasting (VOCBackgroundAugmentation, PoseDataset(voc_root=))
 over the committed VOC-layout tree of tests/torch_port_data/jpeg, a BOP
 split whose frames are JPEG files Pillow writes, JPEG textures, and the
-frame-size probe of the dataset registry. The data is the set
+frame-size probe of the dataset registry; then CMYK and YCCK JPEGs through
+the BOP reader (which slices Pillow's raw array, as the JAX package does),
+the texture dataset and the background paste (which convert to RGB as
+Pillow does, from the mode the decoder names). The data is the set
 tests/test_torch_port_data.py records from two cubes at 96x128.
 
 Tolerances: all exact. The JPEG decode equals Pillow's, the resize repeats
@@ -32,7 +35,8 @@ from cosypose_tpu_torch.data.texture_dataset import TextureDataset
 from cosypose_tpu_torch.utils import jpeg
 from tests.test_torch_port_data import (_observation, assert_items_equal, assert_obs_equal,  # noqa: F401
                                         assert_pose_items_equal, data_root, one_torch_thread)
-from tests.torch_port_make_jpeg_fixtures import VOC_ROOT, expected
+from tests import torch_port_make_jpeg_fixtures as fx
+from tests.torch_port_make_jpeg_fixtures import ROOT, VOC_ROOT, expected
 
 
 def test_voc_tree_lists_its_jpegs_and_nothing_where_absent(tmp_path):
@@ -163,3 +167,90 @@ def test_a_broken_voc_image_stops_the_paste(data_root, tmp_path):
     aug = taug.VOCBackgroundAugmentation(tmp_path, p=1.0)
     with pytest.raises(jpeg.JPEGError, match="bad.jpg"):
         aug(_observation(data_root, 0)[1])
+
+
+# -- CMYK JPEGs: the readers carry the decoder's mode ------------------------------
+
+CMYK_FIXTURES = [ROOT / "small_cmyk_q90.jpg", ROOT / "small_ycck_2211.jpg",
+                 ROOT / "frame_cmyk_q90.jpg"]
+
+
+@pytest.fixture(scope="module")
+def cmyk_split(data_root, tmp_path_factory):
+    """The recorded cubes as a BOP 'test' split with JPEG frames: Pillow's
+    CMYK (Adobe), a YCCK one by the fixtures' encoder and an RGB one."""
+    root = tmp_path_factory.mktemp("cmyk_split")
+    scene = root / "ds" / "test" / "000000"
+    shutil.copytree(data_root / "synt_datasets" / "cubes" / "train_synt" / "000000", scene)
+    for i, png_path in enumerate(sorted((scene / "rgb").glob("*.png"))):
+        rgb = np.asarray(Image.open(png_path).convert("RGB"))
+        cmyk = np.concatenate([255 - rgb, rgb[..., :1] // 3], -1)
+        data = [fx.pillow_jpeg(cmyk, quality=90), fx.encode(cmyk, colour="ycck"),
+                fx.pillow_jpeg(rgb, quality=90)][i % 3]
+        png_path.with_suffix(".jpg").write_bytes(data)
+        png_path.unlink()
+    return root / "ds"
+
+
+def test_bop_dataset_over_cmyk_frames_matches_jax(cmyk_split):
+    """The JAX package slices Pillow's raw array: a CMYK frame's first three
+    channels as Pillow presents them."""
+    jds, tds = JBOPDataset(cmyk_split, split="test"), BOPDataset(cmyk_split, split="test")
+    assert len(tds) == len(jds) == 3
+    for i in range(3):
+        assert_items_equal(jds[i], tds[i])
+    frame = cmyk_split / "test" / "000000" / "rgb" / "000000.jpg"
+    assert np.array_equal(tds[0][0], np.asarray(Image.open(frame))[..., :3])
+
+
+def test_texture_dataset_converts_cmyk_and_rgba_as_jax(tmp_path):
+    for path in CMYK_FIXTURES:
+        shutil.copy(path, tmp_path / path.name)
+    rgba = fx.cmyk_content(21, 30, seed=3)     # four channels that are RGBA in a PNG
+    Image.fromarray(rgba, "RGBA").save(tmp_path / "rgba.png")
+    jds, tds = JTextureDataset(tmp_path), TextureDataset(tmp_path)
+    assert len(tds) == len(jds) == 4
+    for i in range(4):
+        assert tds[i].dtype == np.float32 and np.array_equal(jds[i], tds[i]), tds.index[i]
+    with Image.open(tmp_path / "small_cmyk_q90.jpg") as im:
+        assert im.mode == "CMYK"
+        rgb = np.asarray(im.convert("RGB"))
+    assert np.array_equal(tds[tds.index.index(tmp_path / "small_cmyk_q90.jpg")],
+                          rgb.astype(np.float32) / 255.0)
+    assert not np.array_equal(rgb, np.asarray(im)[..., :3])   # not a slice of the channels
+
+
+@pytest.mark.parametrize("p", [1.0, 0.5])
+def test_background_augmentation_over_cmyk_matches_jax(data_root, p):
+    ja = jaug.BackgroundAugmentation(CMYK_FIXTURES, p=p, rng=random.Random(5))
+    ta = taug.BackgroundAugmentation(CMYK_FIXTURES, p=p, rng=random.Random(5))
+    for idx in list(range(9)):
+        j, t = _observation(data_root, idx)
+        assert_obs_equal(ja(j), ta(t))
+
+
+@pytest.fixture(scope="module")
+def gray_split(data_root, tmp_path_factory):
+    """The recorded cubes as a BOP 'test' split with grayscale PNG frames:
+    16-bit (Pillow's mode I;16), 8-bit (L) and one left as it was (RGB)."""
+    root = tmp_path_factory.mktemp("gray_split")
+    scene = root / "ds" / "test" / "000000"
+    shutil.copytree(data_root / "synt_datasets" / "cubes" / "train_synt" / "000000", scene)
+    for i, png_path in enumerate(sorted((scene / "rgb").glob("*.png"))):
+        gray = np.asarray(Image.open(png_path).convert("L"))
+        if i % 3 == 0:
+            Image.fromarray(gray.astype(np.uint16) * 257 + 3).save(png_path)
+        elif i % 3 == 1:
+            Image.fromarray(gray).save(png_path)
+    return root / "ds"
+
+
+def test_bop_dataset_over_grayscale_frames_matches_jax(gray_split):
+    """A 2-D frame, 8- or 16-bit, is repeated to three channels as in JAX."""
+    jds, tds = JBOPDataset(gray_split, split="test"), BOPDataset(gray_split, split="test")
+    assert len(tds) == len(jds) == 3
+    with Image.open(gray_split / "test" / "000000" / "rgb" / "000000.png") as im:
+        assert im.mode == "I;16"
+    for i in range(3):
+        assert_items_equal(jds[i], tds[i])
+    assert tds[0][0].dtype == np.uint16 and tds[0][0].shape == (*tds[0][1].shape, 3)
