@@ -122,7 +122,16 @@ Phases, none of them caught; any failure exits non-zero:
      held to the grouped conv's, each timed by CUDA events; a BOP split of
      JPEG frames read through data/bop.py and run through phase 8's detector
      and refiner; both kernels held to their plain versions at the training
-     step's, the lowerings' and the split's render shapes.
+     step's, the lowerings' and the split's render shapes;
+ 13. the port's headline bench and entry point (bench_phase): `python -m
+     cosypose_tpu_torch.bench` in a fresh process (B3 bf16 and WideResNet-18
+     arms at B=128, 4 iterations, LOD 512; its CPU baseline at B=4), its
+     result line's keys (bench.py's plus device_ms_per_call) and ranges, each
+     arm's launches of both kernels held to (warm-up + REPS + the
+     FLOP-counting call) x N_ITER; items 0-3 of its B=128 card output against
+     bench.build on the CPU over the same inputs; entry() on the card, one
+     launch of each kernel, both kernels against their plain versions at its
+     render shape (full spheres, B=4), its output against entry(device="cpu").
 Wherever kernel A is held to its plain version (setup_vs_plain), its order is
 also held to torch.sort's element for element, and where it is timed
 (setup_timing) so are one block an item and torch.sort of its keys alone.
@@ -131,9 +140,9 @@ Phases 5-6 also log what torch.profiler still records in this process
 limit, one JSON line of kernel numbers (launches while serving, training,
 recording, evaluating, on the detection path, in ICP, data parallel, a call
 of the exported program, bench_stages, the inspection surfaces, the JPEG
-phase's training runs, BOP split and lowerings; the shapes each kernel was
-held to its plain version at; the attribute kernel's
-times at the scene shape), and the contract line
+phase's training runs, BOP split and lowerings, the bench's arms and entry();
+the shapes each kernel was held to its plain version at; the attribute
+kernel's times at the scene shape), and the contract line
 {"ok": true, "device": {...}}. Without a card, or outside the repo, it exits
 non-zero and prints no result. The profiler tables go to
 build/chip_smoke_profile.txt and build/chip_smoke_train_profile.txt.
@@ -296,12 +305,6 @@ EVAL_CPU_COUNTS = {"render mask pixels that differ": 0,
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_identity() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1471,6 +1474,107 @@ def jpeg_phase(tag: str, checked: dict, ctx: dict) -> dict:
     return {"training": launches_train, "dw": launches_dw, "bop": launches_bop}
 
 
+# bench.py's keys, in its order, plus the device time a call
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "tflops", "mfu_pct", "batch", "dtype",
+              "wrn18_crop_it_per_s", "wrn18_tflops", "wrn18_mfu_pct", "baseline_batch",
+              "device_ms_per_call"]
+BENCH_ITEMS = 4             # items of the bench's B=128 output held to the CPU
+
+
+def bench_phase(tag: str, checked: dict) -> dict:
+    """Phase 13, the port's headline bench and entry point: (a) `python -m
+    cosypose_tpu_torch.bench` in a fresh process, its result line's keys and
+    ranges and each arm's launches of both kernels, (warm-up + REPS + the
+    FLOP-counting call) x N_ITER; (b) the bench's B=128 card output, items
+    0-3, against bench.build on the CPU over the same four inputs sliced from
+    the B=128 draw; (c) entry() on the card, one launch of each kernel, both
+    kernels against their plain versions at its render shape, and its output
+    against entry(device="cpu"). Returns the launches of (a) and (c)."""
+    import numpy as np
+    import torch
+
+    from cosypose_tpu_torch import bench, demo
+    from cosypose_tpu_torch.entry import entry
+    from cosypose_tpu_torch.models import pose_predictor
+    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    # (a) the bench in a fresh process
+    out_path = OUT_DIR / "bench_b128_tco.npy"
+    out_path.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "cosypose_tpu_torch.bench", "--save-output",
+                          str(out_path)], cwd=REPO, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"python -m cosypose_tpu_torch.bench exited {run.returncode}:\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-3000:]}")
+    lines = run.stdout.strip().splitlines()
+    for line in lines:
+        log(f"{tag} bench: {line}")
+    result = json.loads(lines[-1])
+    launches = json.loads(next(x for x in lines if x.startswith("launches: ")).split(": ", 1)[1])
+    n_want = (1 + bench.REPS + 1) * bench.N_ITER
+    want = {k: n_want for k in bench.KERNELS}
+    wrn18 = ("wrn18_crop_it_per_s", "wrn18_tflops", "wrn18_mfu_pct")
+    faults = [f for f, bad in [
+        (f"keys {list(result)}", list(result) != BENCH_KEYS),
+        (f"metric {result.get('metric')}",
+         result.get("metric") != "refiner_crop_iterations_per_sec_gpu"),
+        (f"value {result.get('value')}", not (result.get("value") or 0) > 0),
+        (f"mfu_pct {result.get('mfu_pct')}", not 0 < (result.get("mfu_pct") or 0) <= 100),
+        (f"wrn18 {[result.get(k) for k in wrn18]}", any(result.get(k) is None for k in wrn18)),
+        (f"launches {launches} (want {want} an arm)",
+         any(launches.get(arm) != want for arm in bench.ARMS))] if bad]
+    if faults:
+        raise AssertionError("bench: " + "; ".join(faults))
+    log(f"{tag} bench ({wall:.1f} s in a fresh process, baseline cache "
+        f"{bench.CPU_CACHE.relative_to(REPO)}): {result['value']} crop-iterations/s, "
+        f"{result['device_ms_per_call']} device ms a call, mfu {result['mfu_pct']} %, wrn18 "
+        f"{result['wrn18_crop_it_per_s']} crop-iterations/s; launches {launches} (want {want} "
+        f"an arm: (1 + {bench.REPS} + 1) x {bench.N_ITER})")
+
+    # (b) the bench's card output against the CPU on the same four inputs
+    card_out = torch.as_tensor(np.load(out_path))
+    if card_out.shape != (bench.BATCH, 4, 4) or not torch.isfinite(card_out).all():
+        raise AssertionError(f"bench output {tuple(card_out.shape)}, finite "
+                             f"{bool(torch.isfinite(card_out).all())}")
+    fn_c, args_c = bench.build(BENCH_ITEMS, device="cpu")
+    inputs = demo.make_inputs(bench.BATCH)
+    draw = [torch.as_tensor(a[:BENCH_ITEMS]) for a in inputs]
+    t0 = time.perf_counter()
+    cpu_out = fn_c(args_c[0], *draw)
+    t_cpu = time.perf_counter() - t0
+    err = float((card_out[:BENCH_ITEMS] - cpu_out).abs().max())
+    moved = float((card_out - torch.as_tensor(inputs[2])).abs().max())
+    log(f"{tag} bench output, items 0-{BENCH_ITEMS - 1} card vs CPU ({t_cpu:.1f} s on the CPU): "
+        f"TCO_final max |diff| {err:.3g} (<= {ATOL_SLICE}); the zero pose kernel moved the "
+        f"poses by {moved:.3g}")
+    if err > ATOL_SLICE:
+        raise AssertionError(f"bench output card vs CPU {err:.3g} > {ATOL_SLICE}")
+
+    # (c) entry() on the card against the CPU
+    fn, args = entry()
+    kernel = rc.RASTER_KERNEL
+    kernel.launches = {k: 0 for k in kernel.launches}
+    out, calls = captured_renders(lambda: fn(*args), pose_predictor)
+    torch.cuda.synchronize()
+    launches_entry = dict(kernel.launches)
+    want_e = {"raster_setup": 1, "raster_resolve": 1, "raster_resolve_attr": 0}
+    fn_c, args_c = entry(device="cpu")
+    err = float((out.cpu() - fn_c(*args_c)).abs().max())
+    log(f"{tag} entry() (B3 fp32, B=4, 1 iteration, full spheres): launches {launches_entry} "
+        f"(want {want_e}); TCO_final card vs CPU max |diff| {err:.3g} (<= {ATOL_SLICE}); "
+        + kernels_vs_plain_at("entry", calls[0], checked))
+    if launches_entry != want_e or len(calls) != 1 or err > ATOL_SLICE \
+            or not torch.isfinite(out).all():
+        raise AssertionError(f"entry(): launches {launches_entry}, renders {len(calls)}, "
+                             f"card vs CPU {err:.3g}")
+    log(f"phase 13 took {time.perf_counter() - t_phase:.0f} s")
+    return {"bench": launches, "entry": launches_entry}
+
+
 def cmyk_readers(fx, arrays: dict) -> str:
     """The CMYK fixtures through the port's readers, against the stored Pillow
     arrays: data/bop.py keeps the first three channels as Pillow presents
@@ -2083,6 +2187,7 @@ def main() -> int:
     from cosypose_tpu_torch.ops.raster_bounds import resolve_bound, setup_bound
     from cosypose_tpu_torch.ops.rasterizer import camera_corners
     from cosypose_tpu_torch.ops.render import render
+    from cosypose_tpu_torch.utils.card import card_identity
     from cosypose_tpu_torch.utils.tensor_collection import TensorCollection
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3401,6 +3506,10 @@ def main() -> int:
         run_m=run_m, detection_th=BOP_DETECTION_TH, eval_bsz=EVAL_BSZ))
     log(f"phase 12 done at {time.perf_counter() - t_main:.0f} s")
 
+    # -- 13. the port's headline bench and entry point ---------------------------
+    launches_bn = bench_phase(tag, checked)
+    log(f"phase 13 done at {time.perf_counter() - t_main:.0f} s")
+
     # -- results --------------------------------------------------------------
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], launches_training=launches_train[name],
@@ -3418,6 +3527,8 @@ def main() -> int:
                                             launches_jp["training"].items()},
                     launches_jpeg_bop=launches_jp["bop"][name],
                     launches_dw_lowerings=launches_jp["dw"][name],
+                    launches_bench={arm: n.get(name, 0) for arm, n in launches_bn["bench"].items()},
+                    launches_entry=launches_bn["entry"][name],
                     checked_at=checked[name],
                     library_ms=None, **rows_json[name])
                for name in ("raster_setup", "raster_resolve", "raster_resolve_attr")]

@@ -9,11 +9,12 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.card import H100_SXM, PEAK_FLOPS
 from . import rasterizer_cuda as rc
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32 outside the
-# tensor cores, and HBM3 bandwidth
-PEAK_FP32 = 67e12
+# H100 SXM (NVIDIA data sheet, at the 700 W limit): fp32 outside the tensor
+# cores, from the port's one peak table, and HBM3 bandwidth
+PEAK_FP32 = PEAK_FLOPS[H100_SXM][torch.float32]
 PEAK_BYTES = 3.35e12
 # fp32 operations of one (pixel, row) visit of kernel B: 4 planes of 2 mul +
 # 2 add, 3 inside tests and the depth test. A winner's 3 colour planes come on

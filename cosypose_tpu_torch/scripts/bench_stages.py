@@ -11,7 +11,7 @@ ops/raster_bounds.py (an H100's least time for the bytes or fp32 operations
 of these inputs; the share of it is given on the card only), the matmul
 and convolution stages by their FLOPs (torch.utils.flop_counter, which counts
 matmuls and convolutions) as achieved TFLOP/s and a share of the card's peak
-for their type.
+for their type (utils/card.PEAK_FLOPS; null on a card the table lacks).
 
   python -m cosypose_tpu_torch.scripts.bench_stages [--batch 64] [--render-lod 512] \\
       [--reps 20] [--backbone efficientnet-b3] [--json OUT] [--device cuda]
@@ -39,12 +39,10 @@ from ..ops import rasterizer_cuda as rc
 from ..ops.mesh_db import build_mesh_db
 from ..ops.raster_bounds import resolve_bound, setup_bound
 from ..ops.render import render
+from ..utils.card import peak_flops
 from ..utils.device import resolve_device
 
 WARMUP = 2
-# dense peaks of one H100 SXM at 700 W (NVIDIA data sheet): bf16 tensor cores,
-# fp32 outside them (TF32 off)
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 KERNELS = ("raster_setup", "raster_resolve")
 
 
@@ -137,9 +135,9 @@ def main(argv=None):
                 raise RuntimeError(f"{name}: kernel launches {launches} over {calls} calls, "
                                    f"want {want}")
             tflops = fl / ms / 1e9 if fl else 0.0
+            peak = peak_flops(device_name, peak_type) if peak_type is not None else None
             row = dict(stage=name, ms=ms, ms_per_call=ms_call, gflop=fl / 1e9, tflops=tflops,
-                       mfu_pct=(100 * 1e12 * tflops / PEAK_FLOPS[peak_type]
-                                if peak_type is not None and fl and dev.type == "cuda" else None),
+                       mfu_pct=100 * 1e12 * tflops / peak if peak and fl else None,
                        calls=calls, launches=launches,
                        launches_per_call=dict(zip(KERNELS, per_call)), device=device_name)
             if name in bounds:
