@@ -131,7 +131,18 @@ Phases, none of them caught; any failure exits non-zero:
      FLOP-counting call) x N_ITER; items 0-3 of its B=128 card output against
      bench.build on the CPU over the same inputs; entry() on the card, one
      launch of each kernel, both kernels against their plain versions at its
-     render shape (full spheres, B=4), its output against entry(device="cpu").
+     render shape (full spheres, B=4), its output against entry(device="cpu");
+ 14. soups of any row count (large_soups_phase): two items of each of
+     16,392, 65,896, 131,072 and 262,144 rows through render() (launches of
+     kernel A, of its rank kernel where the launcher takes sorted runs, and
+     of the attribute kernel counted), then kernel A against its plain
+     version with the launcher's choice and with runs forced (the order
+     equal to torch.sort's) and kernel B against its plain version bit for
+     bit, on the card, each timed with its bound, and the rank kernel alone;
+     record_dataset at ycbv-1M's sampler settings over eight seeded
+     8,192-face meshes (demo.dense_specs); an 8-object scene with the cage
+     (65,896 rows, 480x640) through both kernels against their plain
+     versions on the card.
 Wherever kernel A is held to its plain version (setup_vs_plain), its order is
 also held to torch.sort's element for element, and where it is timed
 (setup_timing) so are one block an item and torch.sort of its keys alone.
@@ -140,7 +151,8 @@ Phases 5-6 also log what torch.profiler still records in this process
 limit, one JSON line of kernel numbers (launches while serving, training,
 recording, evaluating, on the detection path, in ICP, data parallel, a call
 of the exported program, bench_stages, the inspection surfaces, the JPEG
-phase's training runs, BOP split and lowerings, the bench's arms and entry();
+phase's training runs, BOP split and lowerings, the bench's arms and entry(),
+phase 14's large soups and recording;
 the shapes each kernel was held to its plain version at; the attribute
 kernel's times at the scene shape), and the contract line
 {"ok": true, "device": {...}}. Without a card, or outside the repo, it exits
@@ -171,9 +183,11 @@ TILES = [(8, 32), (16, 16), (16, 32), (32, 32), (8, 64), (16, 64)]  # (32, 32): 
 ATOL_KERNEL = 1e-4   # depth and rgb, kernel B vs plain (same arithmetic: expect 0)
 ATOL_SLICE = 1e-3    # TCO_final, card vs CPU (cuDNN vs oneDNN summation order)
 SOURCES = {"raster_setup": "cosypose_tpu_torch/csrc/raster_setup.cu",
+           "raster_setup_rank": "cosypose_tpu_torch/csrc/raster_setup.cu",
            "raster_resolve": "cosypose_tpu_torch/csrc/raster_resolve.cu",
            "raster_resolve_attr": "cosypose_tpu_torch/csrc/raster_resolve.cu"}
 REPLACES = {"raster_setup": "cosypose_tpu/ops/rasterizer_pallas.py:149",
+            "raster_setup_rank": "cosypose_tpu/ops/rasterizer_pallas.py:200",
             "raster_resolve": "cosypose_tpu/ops/rasterizer_pallas.py:49",
             "raster_resolve_attr": "cosypose_tpu/ops/rasterizer_pallas.py:49"}
 PR1 = "PR 1: prologue 2.433 ms + kernel 0.2628 ms per call, request ~490 ms, idle 0.098"
@@ -684,7 +698,7 @@ def data_parallel_phase(tag: str, checked: dict) -> dict:
         tdist.destroy()
     torch.cuda.empty_cache()
     want = {"raster_setup": DP_STEPS * n_it, "raster_resolve": DP_STEPS * n_it,
-            "raster_resolve_attr": 0}
+            "raster_resolve_attr": 0, "raster_setup_rank": 0}
     if launches_world1 != want:
         raise AssertionError(f"DDP at world 1 launched {launches_world1}, want {want}")
     lines = [check_errors(f"DDP world 1 vs one process, step {i + 1}",
@@ -737,7 +751,7 @@ def data_parallel_phase(tag: str, checked: dict) -> dict:
     t_spawn = time.perf_counter() - t0
     launches_ranks = [r["replicated"]["launches"] for r in ranks]
     want = {"raster_setup": DP_RANK_STEPS * n_it, "raster_resolve": DP_RANK_STEPS * n_it,
-            "raster_resolve_attr": 0}
+            "raster_resolve_attr": 0, "raster_setup_rank": 0}
     for r, got in enumerate(ranks):
         k = got["kernels"]
         if k["setup_error"]["valid_differs"] or k["setup_error"]["plane"] > rc.SETUP_TOL \
@@ -1008,7 +1022,8 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
     want = refiner.predictor.forward(md, *args, n_iterations=N_REFINER)["TCO_final"]
     err = float((got - want).abs().max())
     moved = float((want - args[2]).abs().max())
-    want_l = {"raster_setup": N_REFINER, "raster_resolve": N_REFINER, "raster_resolve_attr": 0}
+    want_l = {"raster_setup": N_REFINER, "raster_resolve": N_REFINER, "raster_resolve_attr": 0,
+              "raster_setup_rank": 0}
     if out["export"] != want_l or not err <= EXPORT_ATOL or moved <= 1e-4 \
             or not torch.isfinite(got).all():
         raise AssertionError(f"export: launches {out['export']} (want {want_l}), max |exported "
@@ -1128,7 +1143,8 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
     want_o = math.ceil(n_obj / EVAL_BSZ) + 2 * N_OVERLAYS
     panels = [png.imread(p) for p in acc["overlays"]]
     if out["overlays"] != {"raster_setup": want_o, "raster_resolve": want_o,
-                           "raster_resolve_attr": 0} or len(panels) != N_OVERLAYS \
+                           "raster_resolve_attr": 0, "raster_setup_rank": 0} \
+            or len(panels) != N_OVERLAYS \
             or not all(p.ndim == 3 and p.std() > 0 for p in panels):
         raise AssertionError(f"overlays: launches {out['overlays']} (want {want_o} each), "
                              f"{len(panels)} panels")
@@ -1148,7 +1164,8 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
     t_scene = time.perf_counter() - t0
     out["scene_renderings"] = dict(kernel.launches)
     if out["scene_renderings"] != {"raster_setup": 1, "raster_resolve": 0,
-                                   "raster_resolve_attr": 1} or len(frames) != 16 \
+                                   "raster_resolve_attr": 1, "raster_setup_rank": 0} \
+            or len(frames) != 16 \
             or not all(f.any() for f in frames):
         raise AssertionError(f"make_scene_renderings: launches {out['scene_renderings']}, "
                              f"{len(frames)} frames")
@@ -1161,7 +1178,7 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
         ["--object-ds", "procedural"]))
     out["test_render_objects"] = dict(kernel.launches)
     if out["test_render_objects"] != {"raster_setup": 1, "raster_resolve": 1,
-                                      "raster_resolve_attr": 0}:
+                                      "raster_resolve_attr": 0, "raster_setup_rank": 0}:
         raise AssertionError(f"test_render_objects: launches {out['test_render_objects']}")
     msg = kernels_vs_plain_at("test_render_objects", calls[0], checked)
     log(f"{tag} test_render_objects --object-ds procedural ({renders.shape[0]} objects): every "
@@ -1348,7 +1365,7 @@ def jpeg_phase(tag: str, checked: dict, ctx: dict) -> dict:
         got = dict(kernel.launches)
         launches_train[workers] = got
         want = {"raster_setup": steps * n_it_p, "raster_resolve": steps * n_it_p,
-                "raster_resolve_attr": 0}
+                "raster_resolve_attr": 0, "raster_setup_rank": 0}
         rec = [json.loads(line) for line in (run_dir / "log.txt").read_text().splitlines()][-1]
         if got != want or trained.step != steps or not math.isfinite(rec["train/loss_total"]):
             raise AssertionError(f"VOC training with {workers} workers: launches {got} (want "
@@ -1392,7 +1409,8 @@ def jpeg_phase(tag: str, checked: dict, ctx: dict) -> dict:
         hook.remove()
         feats[impl], outs[impl], nets[impl] = seen, out, pp
     launches_dw = dict(kernel.launches)
-    if launches_dw != {"raster_setup": 3, "raster_resolve": 3, "raster_resolve_attr": 0}:
+    if launches_dw != {"raster_setup": 3, "raster_resolve": 3, "raster_resolve_attr": 0,
+                       "raster_setup_rank": 0}:
         raise AssertionError(f"lowerings: launches {launches_dw} (want 3, one an iteration)")
     log(f"{tag} kernels at the lowerings' iteration (B={BATCH}, LOD {LOD}): "
         + kernels_vs_plain_at("depthwise lowerings", calls[0], checked))
@@ -1459,7 +1477,7 @@ def jpeg_phase(tag: str, checked: dict, ctx: dict) -> dict:
         per_frame[v] = per_frame.get(v, 0) + 1
     chunks = sum(math.ceil(n / ctx["eval_bsz"]) for n in per_frame.values())
     want = {"raster_setup": chunks * n_ref, "raster_resolve": chunks * n_ref,
-            "raster_resolve_attr": 0}
+            "raster_resolve_attr": 0, "raster_setup_rank": 0}
     if launches_bop != want or not len(poses) or not torch.isfinite(poses.poses).all():
         raise AssertionError(f"JPEG BOP split: launches {launches_bop} (want {want}), "
                              f"{len(poses)} poses")
@@ -1561,7 +1579,8 @@ def bench_phase(tag: str, checked: dict) -> dict:
     out, calls = captured_renders(lambda: fn(*args), pose_predictor)
     torch.cuda.synchronize()
     launches_entry = dict(kernel.launches)
-    want_e = {"raster_setup": 1, "raster_resolve": 1, "raster_resolve_attr": 0}
+    want_e = {"raster_setup": 1, "raster_resolve": 1, "raster_resolve_attr": 0,
+              "raster_setup_rank": 0}
     fn_c, args_c = entry(device="cpu")
     err = float((out.cpu() - fn_c(*args_c)).abs().max())
     log(f"{tag} entry() (B3 fp32, B=4, 1 iteration, full spheres): launches {launches_entry} "
@@ -1573,6 +1592,286 @@ def bench_phase(tag: str, checked: dict) -> dict:
                              f"card vs CPU {err:.3g}")
     log(f"phase 13 took {time.perf_counter() - t_phase:.0f} s")
     return {"bench": launches, "entry": launches_entry}
+
+
+# phase 14: rows an item past one block of kernel A (16,384 on an H100) and
+# one window of kernel B (10,560): just past both, a ycbv-1M scene soup (8
+# objects of 8,192 faces and the cage), 8 full blocks, and past the largest
+# cluster (kernel A's runs and rank kernel); two items each, at the scene's
+# tile and budget on a 240x320 image
+LARGE_ROWS = (16_392, 65_896, 131_072, 262_144)
+LARGE_IMAGE = (240, 320)
+YCBV_FRAMES = 20            # recorded at ycbv-1M's sampler settings
+YCBV_OBJECTS = 8            # dense_specs meshes in the mesh DB (ycbv-1M draws 2-8 a scene)
+YCBV_WINDOWS = (4096, 2048, 1024)  # kernel B's windows timed beside the default at that scene
+
+
+def large_soup(B: int, F: int, image, seed: int = 0, device="cuda"):
+    """Setup inputs (tri_verts, tri_valid, TCO, K, colors) of B items of F
+    small triangles spread over the whole image (centres uniform in pixels,
+    1-3 px wide, depths 0.5-1 m, about a tenth invalid, the second half of
+    each item repeating the first so that keys tie), and attributes (B, F)."""
+    import numpy as np
+    import torch
+
+    H, W = image
+    rng = np.random.RandomState(seed)
+    f = 500.0
+    u, v = rng.uniform(0, W, (B, F, 1)), rng.uniform(0, H, (B, F, 1))
+    z = rng.uniform(0.5, 1.0, (B, F, 1))
+    uv = np.stack([u, v], -1) + rng.uniform(-1.5, 1.5, (B, F, 3, 2))
+    zc = np.repeat(z, 3, axis=-1)[..., None] + rng.uniform(-0.01, 0.01, (B, F, 3, 1))
+    xy = (uv - np.array([W / 2, H / 2])) * zc / f
+    tv = np.concatenate([xy, zc], -1)
+    tv[:, F // 2:] = tv[:, :F - F // 2].copy()
+    valid = rng.uniform(size=(B, F)) > 0.1
+    K = np.tile(np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]]), (B, 1, 1))
+    TCO = np.tile(np.eye(4), (B, 1, 1))
+    colors = rng.uniform(0, 1, (B, F, 3, 3))
+    attr = rng.randint(1, 9, (B, F))
+    out = [torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()
+           for a in (tv, valid, TCO, K, colors, attr)]
+    out[1] = out[1].bool()
+    return tuple(out[:5]), out[5]
+
+
+def rank_launch(rows_args, run_rows):
+    """Kernel A's second launch alone (the rank kernel), on the runs of
+    run_rows rows that kernel A writes for rows_args (tri_verts, tri_valid,
+    TCO, K, image size, colors, attributes): (a call of it, the keys, the
+    order it writes)."""
+    import torch
+
+    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
+
+    kernel = rc.RASTER_KERNEL
+    tv, valid, TCO, K, image, colors, attr = rows_args
+    B, F = valid.shape
+    Fp = rc.padded_rows(F)
+    dev = tv.device
+    runs = torch.empty(B, Fp, dtype=torch.int64, device=dev)
+    order = torch.empty(B, Fp, dtype=torch.int64, device=dev)
+    rows = torch.empty(B, Fp, rc.ROW, device=dev)
+    key = torch.empty(B, Fp, device=dev)
+    fns, stream = kernel.load(), torch.cuda.current_stream(dev).cuda_stream
+    err = fns["setup"](tv.data_ptr(), valid.data_ptr(), TCO.data_ptr(), K.data_ptr(),
+                       colors.data_ptr(), attr.data_ptr(), rows.data_ptr(), key.data_ptr(),
+                       order.data_ptr(), runs.data_ptr(), B, F, Fp, image[0], image[1], 0.05, 0,
+                       run_rows, dev.index or 0, stream)
+    if err:
+        raise RuntimeError(f"raster_setup (runs) failed: cudaError {err}")
+
+    def call():
+        e = fns["setup_rank"](runs.data_ptr(), order.data_ptr(), B, Fp, run_rows,
+                              dev.index or 0, stream)
+        if e:
+            raise RuntimeError(f"raster_setup_rank failed: cudaError {e}")
+
+    return call, key, order
+
+
+def large_soups_phase(tag: str, checked: dict) -> dict:
+    """Phase 14, soups of any row count: (a) two items of each of LARGE_ROWS
+    rows through render() (the entry point), counts zeroed before and read
+    after, then kernel A against its plain version (its order against
+    torch.sort's, with the launcher's choice and with runs forced) and kernel
+    B against resolve_plain_binned, bit for bit, on the same rows, each
+    timed, with its bound and plain time, and the rank kernel alone at the
+    largest; (b) record_dataset at ycbv-1M's sampler settings (480x640, focal
+    1060-1080, 2-8 objects, one view, cage p 0.9) over a mesh DB of
+    YCBV_OBJECTS seeded 8,192-face meshes (demo.dense_specs, build_mesh_db's
+    defaults): frames/s, launches held to the sampler's render calls; (c) a
+    scene of all 8 objects and the cage (65,896 rows, one camera) through
+    both kernels against their plain versions on the card, bit for bit, with
+    device ms and bounds, and kernel B at smaller windows. Returns {"launches": of (a), "rows": the kernel
+    line's numbers of the rank kernel, "recording": launches of (b)}."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cosypose_tpu_torch import demo
+    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
+    from cosypose_tpu_torch.ops.mesh_db import build_mesh_db
+    from cosypose_tpu_torch.ops.raster_bounds import rank_bound, resolve_bound, setup_bound
+    from cosypose_tpu_torch.ops.render import render
+    from cosypose_tpu_torch.ops.transforms import invert_T
+    from cosypose_tpu_torch.recording import RecordingSceneSampler, record_dataset
+    from cosypose_tpu_torch.recording.textures import TextureSampler
+    from cosypose_tpu_torch.rendering.scene_renderer import SCENE_BUDGET, SCENE_TILE
+    from cosypose_tpu_torch.scripts.run_dataset_recording import CONFIGS
+
+    t_phase = time.perf_counter()
+    kernel = rc.RASTER_KERNEL
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    block, window = kernel.sort_block_rows(dev), kernel.window_rows(dev)
+    log(f"{tag} phase 14: one block of kernel A sorts {block} rows, one window of kernel B "
+        f"holds {window}")
+
+    # (a) the entry point at each size, then each kernel against its plain version
+    soups = {F: large_soup(2, F, LARGE_IMAGE, seed=F, device=dev) for F in LARGE_ROWS}
+    budget = SCENE_BUDGET
+    kernel.launches = {k: 0 for k in kernel.launches}
+    for F, (args, attr) in soups.items():
+        render(*args[:4], image_size=LARGE_IMAGE, colors=args[4], tile=SCENE_TILE,
+               max_tris_per_tile=budget, tri_attr=attr)
+    torch.cuda.synchronize()
+    launches = dict(kernel.launches)
+    runs_sizes = [F for F in LARGE_ROWS if kernel.setup_plan(2, F, dev) < 0]
+    want = {"raster_setup": len(LARGE_ROWS), "raster_setup_rank": len(runs_sizes),
+            "raster_resolve": 0, "raster_resolve_attr": len(LARGE_ROWS)}
+    log(f"{tag} render() of 2 items at each of {LARGE_ROWS} rows ({LARGE_IMAGE}, tile "
+        f"{SCENE_TILE}, budget {budget}): launches {launches} (want {want}; runs and the rank "
+        f"kernel at {runs_sizes}, clusters at the others: "
+        f"{ {F: kernel.setup_plan(2, F, dev) for F in LARGE_ROWS} })")
+    if launches != want or 262_144 not in runs_sizes:
+        raise AssertionError(f"render() at large soups launched {launches}, want {want}")
+
+    for F, (args, attr) in soups.items():
+        setup_args = (*args[:4], LARGE_IMAGE, args[4])
+        rows, key, order, _, err, abs_err = setup_vs_plain(setup_args, attr)
+        forced = kernel.setup(*args[:4], LARGE_IMAGE, args[4], tri_attr=attr, cluster=-1)
+        if not all(torch.equal(a, b) for a, b in zip(forced, (rows, key, order))):
+            raise AssertionError(f"raster_setup at {F} rows: runs forced differ from the "
+                                 f"launcher's choice")
+        checked["raster_setup"].append(f"large soup: 2 x {F} rows (the launcher's choice and "
+                                       f"runs forced)")
+        ms_a = queued_ms(lambda: rc.setup(*setup_args, tri_attr=attr), 20)
+        ms_runs = queued_ms(lambda: kernel.setup(*args[:4], LARGE_IMAGE, args[4], tri_attr=attr,
+                                                 cluster=-1), 20)
+        plain_a = time_cuda_ms(lambda: rc.sort_order(rc.setup_plain(*setup_args,
+                                                                    tri_attr=attr)[1]), 2)
+        b_a, by_a = setup_bound(args[0], args[1], args[4], attr, rows, key)[:2]
+        out_k = kernel.resolve(rows, order, LARGE_IMAGE, SCENE_TILE, budget, True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_p = rc.resolve_plain_binned(rows, order, LARGE_IMAGE, SCENE_TILE, budget, True)
+        torch.cuda.synchronize()
+        plain_b = 1e3 * (time.perf_counter() - t0)
+        if not all(torch.equal(k, p) for k, p in zip(out_k, out_p)) or not (out_k[1] > 0).any():
+            raise AssertionError(f"raster_resolve_attr at {F} rows: kernel vs plain not equal")
+        checked["raster_resolve_attr"].append(f"large soup: 2 x {F} rows, {LARGE_IMAGE}, tile "
+                                              f"{SCENE_TILE}, budget {budget}")
+        ms_b = queued_ms(lambda: kernel.resolve(rows, order, LARGE_IMAGE, SCENE_TILE, budget,
+                                                True), 20)
+        b_b, by_b = resolve_bound(rows, order, LARGE_IMAGE, SCENE_TILE, budget, True)[:2]
+        counts = rc.bin_chunks(rows, order, LARGE_IMAGE, SCENE_TILE, 1 << 30)[2]
+        log(f"{tag} 2 x {F} rows: raster_setup (plan {kernel.setup_plan(2, F, dev)}) vs plain: "
+            f"plane rel err {err['plane']:.3g}, bbox/key {err['bbox_key']:.3g} "
+            f"(<= {rc.SETUP_TOL}), max abs err {abs_err:.3g}, order equal to torch.sort's, the "
+            f"same with runs forced; {ms_a:.4f} ms (runs forced {ms_runs:.4f} ms), bound "
+            f"{b_a:.4f} ms by {by_a}, plain {plain_a:.2f} ms; raster_resolve_attr equal to "
+            f"plain (most chunks a tile touches {int(counts.max())}, budget "
+            f"{rc.chunk_budget(budget, F)}, {-(-F // window)} windows) {ms_b:.4f} ms, bound "
+            f"{b_b:.4f} ms by {by_b}, plain {plain_b:.1f} ms (one call, host clock)")
+        del rows, key, order, out_k, out_p, forced
+
+    # the rank kernel alone, at the largest soup
+    F = LARGE_ROWS[-1]
+    args, attr = soups[F]
+    run_rows = -(-F // -(-F // block))
+    call, key_r, order_r = rank_launch((*args[:4], LARGE_IMAGE, args[4], attr), run_rows)
+    call()
+    torch.cuda.synchronize()
+    e_rank = float((order_r - torch.sort(key_r, dim=1, stable=True).indices).abs().max())
+    ms_rank = queued_ms(call, 20)
+    lib_rank = queued_ms(lambda: torch.sort(key_r, dim=1, stable=True), 20)
+    plain_rank = time_cuda_ms(lambda: rc.rank_runs(key_r, run_rows), 2)
+    b_r, by_r = rank_bound(2, F)
+    log(f"{tag} raster_setup_rank alone at 2 x {F} rows ({-(-F // run_rows)} runs of "
+        f"{run_rows}): order vs torch.sort max abs err {e_rank:g}; {ms_rank:.4f} ms, bound "
+        f"{b_r:.4f} ms by {by_r}, plain (rank_runs) {plain_rank:.2f} ms, library (torch.sort of "
+        f"the keys) {lib_rank:.4f} ms")
+    if e_rank != 0:
+        raise AssertionError("raster_setup_rank: the order differs from torch.sort's")
+    checked["raster_setup_rank"].append(f"large soup: 2 x {F} rows, {-(-F // run_rows)} runs")
+    rank_row = dict(max_abs_err=e_rank, ms=ms_rank, plain_ms=plain_rank, bound_ms=b_r,
+                    bound_by=by_r, library_ms=lib_rank)
+    del soups, call, key_r, order_r
+
+    # (b) recording at ycbv-1M's sampler settings over seeded 8,192-face meshes
+    cfg = CONFIGS["ycbv-1M"]
+    db = build_mesh_db(demo.dense_specs(YCBV_OBJECTS), device=dev)
+
+    def sampler(**kw):
+        return RecordingSceneSampler(db, resolution=cfg["resolution"],
+                                     focal_interval=cfg["focal"],
+                                     texture_sampler=TextureSampler(p_textured=0.8), **kw)
+
+    out_dir = DATA_ROOT / "ycbv_sized"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    record_dataset(sampler(), out_dir / "warm-up", n_chunks=1, n_frames_per_chunk=2)
+    rec = sampler()
+    kernel.launches = {k: 0 for k in kernel.launches}
+    t0 = time.perf_counter()
+    record_dataset(rec, out_dir / "recorded", n_chunks=1, n_frames_per_chunk=YCBV_FRAMES)
+    wall = time.perf_counter() - t0
+    got = dict(kernel.launches)
+    n_scene, n_amodal = rec.counts["scene_renders"], rec.counts["amodal_renders"]
+    if got["raster_setup"] != n_scene + n_amodal or got["raster_resolve"] != n_amodal \
+            or got["raster_resolve_attr"] != n_scene:
+        raise AssertionError(f"ycbv-sized recording launched {got} for {n_scene} scene and "
+                             f"{n_amodal} amodal renders")
+    t = rec.times
+    log(f"{tag} record_dataset at ycbv-1M's settings ({cfg['resolution']}, focal {cfg['focal']},"
+        f" 2-8 of {YCBV_OBJECTS} objects of 8,192 faces, cage p 0.9, one view): {YCBV_FRAMES} "
+        f"frames in {wall:.2f} s, {YCBV_FRAMES / wall:.2f} frames/s; a frame: scene render "
+        f"{1e3 * t['scene_render'] / YCBV_FRAMES:.1f} ms, amodal render "
+        f"{1e3 * t['amodal_render'] / YCBV_FRAMES:.1f} ms, PNG encode + write "
+        f"{1e3 * t['write'] / YCBV_FRAMES:.1f} ms; launches {got} for {n_scene} scene and "
+        f"{n_amodal} amodal render calls")
+
+    # (c) the largest ycbv-1M scene: 8 objects and the cage, one camera
+    full = sampler(n_objects_interval=(YCBV_OBJECTS, YCBV_OBJECTS + 1), p_cage=1.0)
+    rng = np.random.RandomState(0)
+    scene = full._sample_objects(rng) + full._cage_geometry(rng)
+    cam = full._sample_camera(rng)
+    tv, valid, colors, ids = full.renderer.soup(scene)
+    on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)[None]  # noqa: E731
+    res = cfg["resolution"]
+    setup_args = (on(tv), on(valid, torch.bool), invert_T(on(cam["TWC"])), on(cam["K"]), res,
+                  on(colors))
+    attr = on(ids)
+    rows, key, order, _, err, abs_err = setup_vs_plain(setup_args, attr)
+    Fp = rows.shape[1]
+    budget_s = min(Fp, SCENE_BUDGET)
+    out_k = kernel.resolve(rows, order, res, SCENE_TILE, budget_s, True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p = rc.resolve_plain_binned(rows, order, res, SCENE_TILE, budget_s, True)
+    torch.cuda.synchronize()
+    plain_b = 1e3 * (time.perf_counter() - t0)
+    if not all(torch.equal(k, p) for k, p in zip(out_k, out_p)) or Fp != 65_896:
+        raise AssertionError(f"the ycbv-sized scene ({Fp} rows): kernel vs plain not equal")
+    checked["raster_setup"].append(f"ycbv-1M-sized scene: 1 x {Fp} rows, {res}")
+    checked["raster_resolve_attr"].append(f"ycbv-1M-sized scene: 1 x {Fp} rows, {res}, tile "
+                                          f"{SCENE_TILE}, budget {budget_s}")
+    ms_a = queued_ms(lambda: rc.setup(*setup_args, tri_attr=attr), 20)
+    ms_b = queued_ms(lambda: kernel.resolve(rows, order, res, SCENE_TILE, budget_s, True), 20)
+    b_a, by_a = setup_bound(setup_args[0], setup_args[1], setup_args[5], attr, rows, key)[:2]
+    b_b, by_b = resolve_bound(rows, order, res, SCENE_TILE, budget_s, True)[:2]
+    counts = rc.bin_chunks(rows, order, res, SCENE_TILE, 1 << 30)[2]
+    # smaller windows than the largest that fits: more blocks an SM, more windows
+    by_window = {}
+    for w in YCBV_WINDOWS:
+        out_w = kernel.resolve(rows, order, res, SCENE_TILE, budget_s, True, window=w)
+        if not all(torch.equal(k, p) for k, p in zip(out_w, out_k)):
+            raise AssertionError(f"the ycbv-sized scene: windows of {w} rows change the image")
+        by_window[w] = queued_ms(lambda: kernel.resolve(rows, order, res, SCENE_TILE, budget_s,
+                                                        True, window=w), 20)
+    log(f"{tag} ycbv-1M-sized scene, kernel B by window (rows: ms, the same image): "
+        f"{ {window: ms_b, **by_window} }")
+    log(f"{tag} ycbv-1M-sized scene (1 camera x {Fp} rows, {res[0]}x{res[1]}, tile {SCENE_TILE},"
+        f" budget {budget_s}; most chunks a tile touches {int(counts.max())}, "
+        f"{int((out_k[1] > 0).sum())} pixels drawn, ids {sorted(out_k[2].unique().tolist())}): "
+        f"raster_setup (plan {kernel.setup_plan(1, Fp, dev)}) vs plain plane rel err "
+        f"{err['plane']:.3g}, bbox/key {err['bbox_key']:.3g}, order equal to torch.sort's, "
+        f"{ms_a:.4f} ms, bound {b_a:.4f} ms by {by_a}; raster_resolve_attr equal to plain on "
+        f"the card, {ms_b:.4f} ms, bound {b_b:.4f} ms by {by_b}, plain {plain_b:.1f} ms")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"phase 14 took {time.perf_counter() - t_phase:.0f} s")
+    return {"launches": launches, "rank": rank_row, "recording": got}
 
 
 def cmyk_readers(fx, arrays: dict) -> str:
@@ -2641,7 +2940,8 @@ def main() -> int:
                                                            budget_s, True), 1, warmup=1)
     log(f"{tag} raster_resolve_attr at the scene shape ({SCENE_CAMERAS} cameras x {Fp_s} rows "
         f"of {SCENE_OBJECTS} procedural objects and the cage, {res_s[0]}x{res_s[1]}, tile "
-        f"{SCENE_TILE}, budget {budget_s}; the card takes up to {kernel.max_rows(dev)} rows): "
+        f"{SCENE_TILE}, budget {budget_s}; a window of kernel B holds {kernel.window_rows(dev)} "
+        f"rows): "
         f"equal to the plain version on the CPU (rgb, depth, attr; {cpu_plain_s:.1f} s there); "
         f"most chunks a tile lists {int(counts_s.max())} of {rc.chunk_budget(budget_s, Fp_s)}; "
         f"kernel {ms_s:.4f} ms on the device, bound {b_s:.4f} ms by {by_s} ({visits_s:.4g} "
@@ -2733,7 +3033,7 @@ def main() -> int:
         got = dict(kernel.launches)
         n_scene, n_amodal = sampler.counts["scene_renders"], sampler.counts["amodal_renders"]
         want = {"raster_setup": n_scene + n_amodal, "raster_resolve": n_amodal,
-                "raster_resolve_attr": n_scene}
+                "raster_resolve_attr": n_scene, "raster_setup_rank": 0}
         if got != want:
             raise AssertionError(f"recording {name} launched {got}, want {want} (one attribute "
                                  f"launch a scene render, one plain launch an amodal render)")
@@ -2822,7 +3122,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
         got = dict(kernel.launches)
         want = {"raster_setup": steps * n_it_p, "raster_resolve": steps * n_it_p,
-                "raster_resolve_attr": 0}
+                "raster_resolve_attr": 0, "raster_setup_rank": 0}
         rec = [json.loads(line) for line in (run_dir_p / "log.txt").read_text().splitlines()][-1]
         losses = [rec[k] for k in rec if k.startswith("train/loss")]
         if got != want or trained_p.step != 1 + steps or not all(
@@ -2876,7 +3176,7 @@ def main() -> int:
     n_eval = len(acc["TCO_init"])
     chunks_e = math.ceil(n_eval / EVAL_BSZ)
     want = {"raster_setup": chunks_e * EVAL_ITERATIONS, "raster_resolve": chunks_e * EVAL_ITERATIONS,
-            "raster_resolve_attr": 0}
+            "raster_resolve_attr": 0, "raster_setup_rank": 0}
     per_pair = acc["per_pair"]
     final_e = acc["predictions"][f"iteration={EVAL_ITERATIONS}"]
     if launches_acc != want or not all(math.isfinite(v) for e in per_pair.values()
@@ -2903,7 +3203,8 @@ def main() -> int:
     kernel.launches = {k: 0 for k in kernel.launches}
     ar, ar_t, renders, _ = bop19_ar_timed(final_e, val_depth, db_p, EVAL_FRAMES)
     launches_ar = dict(kernel.launches)
-    want = {"raster_setup": len(groups), "raster_resolve": len(groups), "raster_resolve_attr": 0}
+    want = {"raster_setup": len(groups), "raster_resolve": len(groups), "raster_resolve_attr": 0,
+            "raster_setup_rank": 0}
     if launches_ar != want or len(renders) != len(groups) or ar["n_gt"] <= 0 \
             or not all(0.0 <= ar[k] <= 1.0 for k in ("AR", "AR_vsd", "AR_mssd", "AR_mspd")):
         raise AssertionError(f"compute_bop19_ar: launches {launches_ar} (want {want}), "
@@ -3122,7 +3423,7 @@ def main() -> int:
     wall = time.perf_counter() - t0
     got = dict(kernel.launches)
     want = {"raster_setup": MINI_STEPS * n_it_m, "raster_resolve": MINI_STEPS * n_it_m,
-            "raster_resolve_attr": 0}
+            "raster_resolve_attr": 0, "raster_setup_rank": 0}
     rec = [json.loads(line) for line in (run_dir_m / "log.txt").read_text().splitlines()][-1]
     if got != want or state_m.step != 1 + MINI_STEPS or not (run_dir_m / "config.yaml").exists() \
             or not math.isfinite(rec["train/loss_total"]):
@@ -3186,7 +3487,8 @@ def main() -> int:
     ar_groups = sum(len({o["label"] for o in val_b[i][2]["objects"]}) for i in range(n_frames_b))
     n_ref = 4
     want = {"raster_setup": chunks_b * n_ref + ar_groups,
-            "raster_resolve": chunks_b * n_ref + ar_groups, "raster_resolve_attr": 0}
+            "raster_resolve": chunks_b * n_ref + ar_groups, "raster_resolve_attr": 0,
+            "raster_setup_rank": 0}
     ar_b, meter_b = bop["metrics"]["bop19_ar"], bop["metrics"]["pose"]
     csv_rows = len(bop["csv_paths"]["pose"].read_text().splitlines()) - 1
     if launches_det != want or csv_rows != len(preds_b) or not torch.isfinite(preds_b.poses).all() \
@@ -3263,7 +3565,8 @@ def main() -> int:
         torch.cuda.synchronize()
         t_groups.append(time.perf_counter() - t0)
     launches_icp = dict(kernel.launches)
-    want = {"raster_setup": len(icp_in), "raster_resolve": len(icp_in), "raster_resolve_attr": 0}
+    want = {"raster_setup": len(icp_in), "raster_resolve": len(icp_in), "raster_resolve_attr": 0,
+            "raster_setup_rank": 0}
     t_host, t_render, t_loop = [], [], []
     for x in icp_in:   # the same groups again, refine_poses' steps timed apart
         t0 = time.perf_counter()
@@ -3442,7 +3745,7 @@ def main() -> int:
     chunks_i = sum(math.ceil(n / EVAL_BSZ) for n in per_frame_i.values())
     want = {"raster_setup": chunks_i * n_ref + len(frames_i) + ar_groups,
             "raster_resolve": chunks_i * n_ref + len(frames_i) + ar_groups,
-            "raster_resolve_attr": 0}
+            "raster_resolve_attr": 0, "raster_setup_rank": 0}
     sec_i = bop_i["seconds"]
     log(f"{tag} run_bop_inference --dataset procedural --icp ({n_frames_b} val frames, "
         f"{len(preds_i['icp'])} detections): {wall_bi:.2f} s with set-up and metrics, "
@@ -3510,6 +3813,11 @@ def main() -> int:
     launches_bn = bench_phase(tag, checked)
     log(f"phase 13 done at {time.perf_counter() - t_main:.0f} s")
 
+    # -- 14. soups of any row count -------------------------------------------------
+    large = large_soups_phase(tag, checked)
+    rows_json["raster_setup_rank"] = large["rank"]
+    log(f"phase 14 done at {time.perf_counter() - t_main:.0f} s")
+
     # -- results --------------------------------------------------------------
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], launches_training=launches_train[name],
@@ -3529,9 +3837,12 @@ def main() -> int:
                     launches_dw_lowerings=launches_jp["dw"][name],
                     launches_bench={arm: n.get(name, 0) for arm, n in launches_bn["bench"].items()},
                     launches_entry=launches_bn["entry"][name],
+                    launches_large_soups=large["launches"][name],
+                    launches_ycbv_recording=large["recording"][name],
                     checked_at=checked[name],
-                    library_ms=None, **rows_json[name])
-               for name in ("raster_setup", "raster_resolve", "raster_resolve_attr")]
+                    **{"library_ms": None, **rows_json[name]})
+               for name in ("raster_setup", "raster_setup_rank", "raster_resolve",
+                            "raster_resolve_attr")]
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -24,16 +24,16 @@ from .ops import rasterizer_cuda as rc
 VARIANTS = {
     "full": None,
     # every listed row evaluated at every pixel: no cull
-    "no cull": ("may = row_may_cover(rows_b + r * kRow, covers[s], wx0, wx1, wy0, wy1);",
+    "no cull": ("may = row_may_cover(row_at<WINDOWED>(rows_b, r), covers[s], wx0, wx1, wy0, wy1);",
                 "may = true;"),
     # binning and cull as they are, no row evaluated
-    "no evaluation": ("          unsigned keep = __ballot_sync(kAll, may);\n",
-                      "          unsigned keep = __ballot_sync(kAll, may);\n"
-                      "          if (keep == 0x7fffffffu && lane == 31) iz = 2.f;\n"
-                      "          keep = 0u;\n"),
+    "no evaluation": ("            unsigned keep = __ballot_sync(kAll, may);\n",
+                      "            unsigned keep = __ballot_sync(kAll, may);\n"
+                      "            if (keep == 0x7fffffffu && lane == 31) iz = 2.f;\n"
+                      "            keep = 0u;\n"),
     # the block prologue and the stores of empty pixels only
-    "prologue and stores": ("for (int cb = 0; cb < C && listed < Kc; cb += 32) {",
-                            "for (int cb = 0; cb < 0; cb += 32) {"),
+    "prologue and stores": ("for (int cb = c0; cb < c1 && listed < Kc; cb += 32) {",
+                            "for (int cb = c0; cb < c0; cb += 32) {"),
 }
 BATCH, IMAGE, RENDER, LOD = 128, (480, 640), (240, 320), 512
 
@@ -80,12 +80,12 @@ def main(tiles=((16, 32), (8, 64), (32, 32))) -> int:
         nty, ntx = rc.tile_grid(RENDER, tile)
         for name, lib in libs.items():
             fn = ctypes.CDLL(str(lib)).cosypose_raster_resolve
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 
             def launch():
                 err = fn(rows.data_ptr(), order.data_ptr(), rgb.data_ptr(), depth.data_ptr(), None,
-                         B, Fp, rc.chunk_budget(1024, Fp), H, W, *tile, nty, ntx, 0, dev.index or 0,
-                         torch.cuda.current_stream(dev).cuda_stream)
+                         None, None, None, B, Fp, rc.chunk_budget(1024, Fp), H, W, *tile, nty,
+                         ntx, 0, Fp, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
                 if err:
                     raise RuntimeError(f"variant {name!r}: cudaError {err}")
 

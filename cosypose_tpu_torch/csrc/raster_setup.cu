@@ -1,5 +1,6 @@
 // Triangle setup and y-sort of the binned rasterizer, for Hopper (sm_90a):
-// kernel A of the raster path (raster_setup -> raster_resolve, two launches).
+// kernel A of the raster path (raster_setup -> raster_resolve, two launches;
+// above 8 blocks' rows an item, raster_setup -> raster_rank -> raster_resolve).
 //
 // Replaces the XLA plane setup and packing that feed the Pallas TPU kernel
 // cosypose_tpu/ops/rasterizer_pallas.py: camera transform (:149-155),
@@ -47,24 +48,50 @@
 // and the keys' round trip through device memory, each costing more than the
 // setup itself.
 //
-// Design. A cluster of C blocks per item (C chosen by the launcher: 1 when
-// the items alone fill the SMs, up to 8 when few items would leave most SMs
-// idle, and no more than lets every cluster be resident at once), each block
-// a slice of at most ceil(Fp / C) rows:
+// Design. Three regimes, chosen by shape (and the occupancy query) before
+// any launch; a block sorts at most S rows in shared memory (S the largest
+// power of two whose 8 B composites fit the shared memory a block may opt in
+// to: 16,384 on an H100, cosypose_raster_setup_block_rows).
+//  1. Fp <= S: a cluster of C blocks per item (C chosen by the launcher: 1
+//     when the items alone fill the SMs, up to 8 when few items would leave
+//     most SMs idle, and no more than lets every cluster be resident at
+//     once), each block a slice of at most ceil(Fp / C) rows.
+//  2. S < Fp <= 8 S: the same kernel in clusters of at least ceil(Fp / S)
+//     blocks, so that every slice fits one block, where
+//     cudaOccupancyMaxActiveClusters says such a cluster can be resident (a
+//     block then fills an SM's shared memory, and a cluster must fit one GPC).
+//  3. Above that, or where no such cluster can be resident: blocks of one
+//     slice each (at most S rows, no cluster), each writing its sorted run of
+//     composites to a scratch the wrapper allocates (8 B a row), then a
+//     second kernel, raster_rank_kernel, that ranks each composite among the
+//     item's other runs by the same binary searches, in device memory. The
+//     one case where a render takes three launches.
+// In each block:
 //  1. Its threads stride over the slice's rows; each row is computed and
 //     written as eight 16-byte stores, and its composite key goes to shared
 //     memory: the high 32 bits an order-preserving map of the float key
 //     (-0.0 as +0.0, as torch.sort orders on the card), the low 32 bits f.
-//     Composites are unique, so sorting them is stable by construction.
+//     Composites are unique, so sorting them is stable by construction, and
+//     the row index bounds Fp at 2^32 rows (device memory bounds it first).
 //  2. A bitonic sort of the slice's composites in shared memory, padded to a
-//     power of two with all-ones composites (8 B a row: 128 KB at 16,384
-//     rows, the cap, within the 227 KB a block may opt in to).
-//  3. With C = 1 the sorted low halves are the order. Otherwise each block
-//     ranks its own composites among the other slices by binary searches in
-//     their shared memory (distributed shared memory of the cluster), the
-//     C - 1 searches of a composite interleaved so that their loads overlap,
-//     and writes order[b, rank] = f: no merge buffer, no second pass.
-// The keys never leave the SM: only the permutation is written.
+//     power of two with all-ones composites (8 B a row: 128 KB at S = 16,384
+//     rows, within the 227 KB a block may opt in to).
+//  3. With one slice an item the sorted low halves are the order. In a
+//     cluster each block ranks its own composites among the other slices by
+//     binary searches in their shared memory (distributed shared memory of
+//     the cluster), the searches of a composite in up to 8 slices interleaved
+//     so that their loads overlap (rank_in_runs), and writes
+//     order[b, rank] = f: no merge buffer, no second pass. In regime 3 the
+//     rank kernel does the same over the runs in device memory, 8 runs a
+//     step.
+// In regimes 1 and 2 the keys never leave the SM: only the permutation is
+// written.
+//
+// Times on an H100: PERF.md §6. In regime 2 a block of 512 threads ranks up
+// to 16,384 composites, each by ~15 dependent probes of the other slices'
+// distributed shared memory: at 65,896 and 131,072 rows an item that took
+// longer than regime 3's runs and rank kernel (its probes, in L2, spread
+// over the whole card), a lead for a later change of the launcher.
 //
 // Exactness: the arithmetic follows the association of the plain version's
 // ops (corners as ((r0 v0 + r1 v1) + r2 v2) + t, sums of three in order) with
@@ -272,18 +299,53 @@ __device__ void bitonic_sort(unsigned long long* keys, int n) {
   }
 }
 
+// The sum of the lower bounds of k in up to kMaxCluster sorted runs (run[r]
+// holds size[r] composites; a size of 0 leaves run r out), one probe of every
+// run a step so that the loads overlap; `longest` bounds every size. The
+// runs lie in a cluster's shared memory or in device memory.
+__device__ __forceinline__ int rank_in_runs(unsigned long long k,
+                                            const unsigned long long* const (&run)[kMaxCluster],
+                                            const int (&size)[kMaxCluster], int longest) {
+  int base[kMaxCluster], len[kMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) {
+    base[r] = 0;
+    len[r] = size[r];
+  }
+  for (int s = longest; s > 0; s >>= 1) {
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      if (len[r] > 0) {
+        const int half = len[r] >> 1;
+        if (run[r][base[r] + half] < k) {
+          base[r] += half + 1;
+          len[r] -= half + 1;
+        } else {
+          len[r] = half;
+        }
+      }
+    }
+  }
+  int pos = 0;
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) pos += base[r];
+  return pos;
+}
+
+// One block a slice of `slice` rows, n_slices slices an item (in clusters of
+// n_slices blocks, or, with `runs`, blocks without a cluster that write their
+// sorted slices to runs for raster_rank_kernel).
 __global__ void __launch_bounds__(kThreads, 1) raster_setup_kernel(
     const float* __restrict__ tri_verts, const unsigned char* __restrict__ tri_valid,
     const float* __restrict__ TCO, const float* __restrict__ K,
     const float* __restrict__ colors, const float* __restrict__ tri_attr,
-    float* __restrict__ rows, float* __restrict__ ykey, long long* __restrict__ order, int F,
-    int Fp, int H, int W, float z_near, int slice, int slice_pow2) {
+    float* __restrict__ rows, float* __restrict__ ykey, long long* __restrict__ order,
+    unsigned long long* __restrict__ runs, int F, int Fp, int H, int W, float z_near, int slice,
+    int slice_pow2, int n_slices) {
   extern __shared__ unsigned long long keys[];  // this block's slice, sorted in place
-  const cg::cluster_group cluster = cg::this_cluster();
-  const int n_blocks = static_cast<int>(cluster.dim_blocks().x);
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int b = static_cast<int>(blockIdx.x) / n_blocks;
-  const int lo = rank * slice;
+  const int b = static_cast<int>(blockIdx.x) / n_slices;
+  const int part = static_cast<int>(blockIdx.x) - b * n_slices;  // the cluster rank, in a cluster
+  const int lo = part * slice;
   const int n = max(0, min(slice, Fp - lo));  // rows of this slice
 
   for (int i = threadIdx.x; i < slice_pow2; i += blockDim.x) {
@@ -300,59 +362,104 @@ __global__ void __launch_bounds__(kThreads, 1) raster_setup_kernel(
   __syncthreads();
   bitonic_sort(keys, slice_pow2);
 
+  if (runs) {  // regime 3: the sorted run, for raster_rank_kernel
+    unsigned long long* run = runs + static_cast<long long>(b) * Fp + lo;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) run[i] = keys[i];
+    return;
+  }
   long long* out = order + static_cast<long long>(b) * Fp;
-  if (n_blocks == 1) {
+  if (n_slices == 1) {
     for (int i = threadIdx.x; i < n; i += blockDim.x)
       out[i] = static_cast<long long>(static_cast<unsigned>(keys[i]));
     return;
   }
 
+  const cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();  // every slice of the item sorted
   const unsigned long long* other[kMaxCluster];
   int size[kMaxCluster];
 #pragma unroll
   for (int r = 0; r < kMaxCluster; ++r) {
-    other[r] = r < n_blocks ? cluster.map_shared_rank(keys, r) : keys;
-    size[r] = r < n_blocks && r != rank ? max(0, min(slice, Fp - r * slice)) : 0;
+    other[r] = r < n_slices ? cluster.map_shared_rank(keys, r) : keys;
+    size[r] = r < n_slices && r != part ? max(0, min(slice, Fp - r * slice)) : 0;
   }
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const unsigned long long k = keys[i];
-    int base[kMaxCluster], len[kMaxCluster];
-#pragma unroll
-    for (int r = 0; r < kMaxCluster; ++r) {
-      base[r] = 0;
-      len[r] = size[r];
-    }
-    // lower bounds of k in every other slice, one probe of each per step
-    for (int s = slice; s > 0; s >>= 1) {
-#pragma unroll
-      for (int r = 0; r < kMaxCluster; ++r) {
-        if (len[r] > 0) {
-          const int half = len[r] >> 1;
-          if (other[r][base[r] + half] < k) {
-            base[r] += half + 1;
-            len[r] -= half + 1;
-          } else {
-            len[r] = half;
-          }
-        }
-      }
-    }
-    int pos = i;
-#pragma unroll
-    for (int r = 0; r < kMaxCluster; ++r) pos += base[r];
-    out[pos] = static_cast<long long>(static_cast<unsigned>(k));
+    out[i + rank_in_runs(k, other, size, slice)] = static_cast<long long>(static_cast<unsigned>(k));
   }
   cluster.sync();  // no block leaves while another still reads its slice
 }
 
-}  // namespace
+// Regime 3's second kernel: each composite of runs (B, Fp), sorted in slices
+// of `slice` rows, ranked among the other slices of its item, and
+// order[b, rank] = f.
+__global__ void __launch_bounds__(256) raster_rank_kernel(
+    const unsigned long long* __restrict__ runs, long long* __restrict__ order, int B, int Fp,
+    int slice) {
+  const int n_slices = (Fp + slice - 1) / slice;
+  const long long total = static_cast<long long>(B) * Fp;
+  for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; p < total;
+       p += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int b = static_cast<int>(p / Fp);
+    const int s = static_cast<int>(p - static_cast<long long>(b) * Fp);
+    const int part = s / slice;
+    const unsigned long long* item = runs + static_cast<long long>(b) * Fp;
+    const unsigned long long k = item[s];
+    int pos = s - part * slice;
+    for (int r0 = 0; r0 < n_slices; r0 += kMaxCluster) {
+      const unsigned long long* run[kMaxCluster];
+      int size[kMaxCluster];
+#pragma unroll
+      for (int j = 0; j < kMaxCluster; ++j) {
+        const int r = r0 + j;
+        run[j] = r < n_slices ? item + static_cast<long long>(r) * slice : item;
+        size[j] = r < n_slices && r != part ? min(slice, Fp - r * slice) : 0;
+      }
+      pos += rank_in_runs(k, run, size, slice);
+    }
+    order[static_cast<long long>(b) * Fp + pos] = static_cast<long long>(static_cast<unsigned>(k));
+  }
+}
 
-// The most rows an item may have in this kernel on `device`: the largest
-// power of two whose composites (8 B a row) fit the shared memory a block may
-// opt in to (16,384 on an H100), or -1 with the CUDA error negated where the
-// attribute cannot be read.
-extern "C" int cosypose_raster_setup_max_rows(int device) {
+// Grid, cluster and shared memory of raster_setup_kernel for B items of Fp
+// rows, n_slices slices an item, in clusters of `cluster` blocks (n_slices, or
+// 1 for regime 3).
+struct SetupLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t config = {};
+  int slice = 0, slice_pow2 = 1, n_slices = 1;
+
+  cudaError_t configure(int B, int Fp, int slices, int cluster, cudaStream_t stream) {
+    n_slices = slices;
+    slice = (Fp + slices - 1) / slices;
+    slice_pow2 = 1;
+    while (slice_pow2 < slice) slice_pow2 <<= 1;
+    const size_t smem = static_cast<size_t>(slice_pow2) * sizeof(unsigned long long);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.blockDim = dim3(kThreads);
+    config.stream = stream;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    config.gridDim = dim3(static_cast<unsigned>(B) * static_cast<unsigned>(slices));
+    config.dynamicSmemBytes = smem;
+    if (smem <= 48 * 1024) return cudaSuccess;  // above 48 KB only by opt-in
+    return cudaFuncSetAttribute(raster_setup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem));
+  }
+
+  // B clusters of c blocks: how many can be resident at once
+  cudaError_t resident(int B, int Fp, int c, int* out) {
+    const cudaError_t err = configure(B, Fp, c, c, nullptr);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveClusters(out, raster_setup_kernel, &config);
+  }
+};
+
+// S, the rows one block sorts, or the CUDA error negated
+static int block_rows(int device) {
   int optin = 0;
   const cudaError_t err =
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -363,64 +470,102 @@ extern "C" int cosypose_raster_setup_max_rows(int device) {
   return rows;
 }
 
+}  // namespace
+
+// S on `device`: the largest power of two whose composites (8 B a row) fit
+// the shared memory a block may opt in to (16,384 on an H100), the rows one
+// block sorts; or -1 with the CUDA error negated where the attribute cannot
+// be read.
+extern "C" int cosypose_raster_setup_block_rows(int device) { return block_rows(device); }
+
+// The launcher's choice for B items of Fp rows on `device`: the blocks a
+// cluster (regime 1: 1 to 8, the most, up to 8, that the SMs hold for B
+// items, that leave kMinSlice rows a block, and for which all B clusters are
+// resident at once, since a cluster lives within one GPC and B x C blocks
+// below the SM count may still need a second wave; regime 2: the same choice
+// raised to ceil(Fp / S), kept where at least one such cluster can be
+// resident), or 0 for regime 3 (sorted runs in device memory and
+// raster_rank_kernel). A negative value is a CUDA error negated.
+extern "C" int cosypose_raster_setup_plan(int B, int Fp, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const int S = block_rows(device);
+  if (S <= 0) return S;
+  const long long need_ll = (static_cast<long long>(Fp) + S - 1) / S;
+  if (need_ll > kMaxCluster) return 0;
+  const int need = max(1, static_cast<int>(need_ll));
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int cluster = max(need, min(min(kMaxCluster, sms / max(B, 1)), (Fp + kMinSlice - 1) / kMinSlice));
+  SetupLaunch launch;
+  for (; cluster > need; --cluster) {
+    int resident = 0;
+    err = launch.resident(B, Fp, cluster, &resident);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    if (resident >= B) return cluster;
+  }
+  if (need == 1) return 1;
+  int resident = 0;
+  err = launch.resident(B, Fp, need, &resident);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return resident > 0 ? need : 0;
+}
+
 // Plain C entry point, loaded with ctypes. `colors` and `tri_attr` may be
-// null (flat 0.7 albedo, zero attribute). `cluster` is the number of blocks an
-// item (1 to 8), or 0 to let the launcher choose: the most, up to 8, that the
-// SMs hold for B items, that leave kMinSlice rows a block, and for which all
-// B clusters are resident at once (cudaOccupancyMaxActiveClusters: a cluster
-// lives within one GPC, so B x C blocks below the SM count may still need a
-// second wave). The caller keeps Fp within cosypose_raster_setup_max_rows.
+// null (flat 0.7 albedo, zero attribute). With `runs` null: `cluster` is the
+// number of blocks an item (1 to 8, each slice at most S rows), or 0 to let
+// the launcher choose as cosypose_raster_setup_plan does (an error where
+// that choice is regime 3). With `runs` (B x Fp composites, 8 B each):
+// regime 3, blocks of `run_rows` rows each (at most S) writing their sorted
+// runs there, and order untouched until cosypose_raster_setup_rank.
 // Launches on `stream` and returns the launch's error (0 when it was
 // accepted).
 extern "C" int cosypose_raster_setup(
     const float* tri_verts, const unsigned char* tri_valid, const float* TCO, const float* K,
     const float* colors, const float* tri_attr, float* rows, float* ykey, long long* order,
-    int B, int F, int Fp, int H, int W, float z_near, int cluster, int device, void* stream) {
+    unsigned long long* runs, int B, int F, int Fp, int H, int W, float z_near, int cluster,
+    int run_rows, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || Fp == 0) return 0;
-  if (cluster > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  cudaLaunchConfig_t config = {};
-  config.blockDim = dim3(kThreads);
-  config.stream = static_cast<cudaStream_t>(stream);
-  config.attrs = attr;
-  config.numAttrs = 1;
-  int slice = 0, slice_pow2 = 1;
-  // grid, cluster and shared memory of a launch in clusters of c
-  auto configure = [&](int c) -> cudaError_t {
-    slice = (Fp + c - 1) / c;
-    slice_pow2 = 1;
-    while (slice_pow2 < slice) slice_pow2 <<= 1;
-    const size_t smem = static_cast<size_t>(slice_pow2) * sizeof(unsigned long long);
-    attr[0].val.clusterDim.x = static_cast<unsigned>(c);
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    config.gridDim = dim3(static_cast<unsigned>(B) * static_cast<unsigned>(c));
-    config.dynamicSmemBytes = smem;
-    if (smem <= 48 * 1024) return cudaSuccess;  // above 48 KB only by opt-in
-    return cudaFuncSetAttribute(raster_setup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem));
-  };
-  if (cluster <= 0) {
-    int sms = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cluster = max(1, min(min(kMaxCluster, sms / B), (Fp + kMinSlice - 1) / kMinSlice));
-    for (; cluster > 1; --cluster) {
-      err = configure(cluster);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      int resident = 0;
-      err = cudaOccupancyMaxActiveClusters(&resident, raster_setup_kernel, &config);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      if (resident >= B) break;
+  SetupLaunch launch;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (runs) {
+    if (run_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    err = launch.configure(B, Fp, (Fp + run_rows - 1) / run_rows, 1, s);
+  } else {
+    if (cluster > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+    if (cluster <= 0) {
+      cluster = cosypose_raster_setup_plan(B, Fp, device);
+      if (cluster < 0) return -cluster;
+      if (cluster == 0) return static_cast<int>(cudaErrorInvalidValue);  // regime 3 needs runs
     }
+    err = launch.configure(B, Fp, cluster, cluster, s);
   }
-  err = configure(cluster);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaLaunchKernelEx(&config, raster_setup_kernel, tri_verts, tri_valid, TCO, K, colors,
-                           tri_attr, rows, ykey, order, F, Fp, H, W, z_near, slice, slice_pow2);
+  err = cudaLaunchKernelEx(&launch.config, raster_setup_kernel, tri_verts, tri_valid, TCO, K,
+                           colors, tri_attr, rows, ykey, order, runs, F, Fp, H, W, z_near,
+                           launch.slice, launch.slice_pow2, launch.n_slices);
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Regime 3's second launch: order (B, Fp) from the runs that
+// cosypose_raster_setup wrote with the same run_rows, on `stream`.
+extern "C" int cosypose_raster_setup_rank(const unsigned long long* runs, long long* order, int B,
+                                          int Fp, int run_rows, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B == 0 || Fp == 0) return 0;
+  if (run_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a grid-stride loop over the B x Fp composites
+  const long long blocks = (static_cast<long long>(B) * Fp + 255) / 256;
+  const unsigned grid = static_cast<unsigned>(blocks < 32LL * sms ? blocks : 32LL * sms);
+  raster_rank_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(runs, order, B, Fp,
+                                                                          run_rows);
   return static_cast<int>(cudaGetLastError());
 }

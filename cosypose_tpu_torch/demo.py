@@ -4,8 +4,9 @@
 Two UV-spheres (5 cm and 7.5 cm radius, the second with a continuous
 symmetry) and seeded random images/intrinsics/poses, as numpy arrays, so the
 JAX package and the port can be fed identical inputs; `DemoPoseDataset`,
-an in-memory training set of PoseDataset-shaped items made the same way; and
-`cube_specs`, two cubes for small recorded scenes.
+an in-memory training set of PoseDataset-shaped items made the same way;
+`cube_specs`, two cubes for small recorded scenes; and `dense_specs`, closed
+meshes of 8,192 faces for scene soups of ycbv-1M's size.
 """
 
 from __future__ import annotations
@@ -60,6 +61,27 @@ def cube_specs() -> list[MeshSpec]:
         tris += [(a, b, c), (a, c, d)]
     return [MeshSpec(label="obj_000001", vertices=verts, faces=np.asarray(tris)),
             MeshSpec(label="obj_000002", vertices=verts * 1.5, faces=np.asarray(tris))]
+
+
+# 65 x 64 vertices, 2 x 64 x 64 triangles: 8,192 faces a mesh, what
+# build_mesh_db's default max_faces keeps (a YCB-V or T-LESS mesh decimated to it)
+DENSE_GRID = (65, 64)
+
+
+def dense_specs(n_objects: int = 8, seed: int = 0) -> list[MeshSpec]:
+    """n_objects closed superellipsoids of 8,192 faces each, with two-tone
+    albedo (data/procedural_objects.py's shapes and colours at a 65 x 64
+    vertex grid): scene soups of the size ycbv-1M and tless-1M record (up to
+    8 x 8,192 rows and the cage) without the YCB-V or T-LESS meshes."""
+    from .data.procedural_objects import _superellipsoid, _vertex_colors
+
+    specs = []
+    for i in range(n_objects):
+        rng = np.random.RandomState(seed * 1000 + i)
+        verts, faces = _superellipsoid(rng, *DENSE_GRID)
+        specs.append(MeshSpec(label=f"obj_{i + 1:06d}", vertices=verts, faces=faces,
+                              colors=_vertex_colors(verts, rng)))
+    return specs
 
 
 @torch.no_grad()

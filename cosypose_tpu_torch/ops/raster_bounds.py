@@ -75,3 +75,10 @@ def setup_bound(tri_verts, tri_valid, colors, tri_attr, rows, ykey):
                + (4 * tri_attr.numel() if tri_attr is not None else 0)
                + 4 * (rows.numel() + ykey.numel()) + 8 * ykey.numel())
     return (*bound(B * F * FLOPS_PER_TRIANGLE, n_bytes), n_bytes)
+
+
+def rank_bound(B: int, Fp: int):
+    """(bound_ms, by) of kernel A's rank kernel (its regime of sorted runs in
+    device memory): the runs (8 B a row) read once and the order (8 B a row)
+    written once. Its binary searches compare integers: no fp32 operations."""
+    return bound(0.0, 16 * B * Fp)

@@ -6,24 +6,32 @@ headlight shading baked into the colour planes). A call is
 
   setup    kernel A (csrc/raster_setup.cu): one packed 32-float row per
            triangle, its y-sort key, and the rows' stable order by key
-           (sorted inside the kernel, where the JAX package argsorts);
+           (sorted inside the kernel, where the JAX package argsorts): in
+           one block an item, in a cluster of blocks, or, for the largest
+           items, in runs that a second kernel (raster_setup_rank) ranks;
   resolve  kernel B (csrc/raster_resolve.cu): per (tile, item) block, bins
            the sorted chunks itself, culls rows per warp and resolves depth,
-           reading the rows through that permutation.
+           reading the rows through that permutation, an item's rows staged
+           in shared memory a window at a time.
 
-`setup` and `resolve` call the kernels as registered PyTorch operators,
-`cosypose::raster_setup` and `cosypose::raster_resolve` (torch.library), so
-that torch.export can trace a render as two opaque calls. Each operator's
-CUDA implementation launches the kernel, its CPU implementation runs the
-plain version, and no other device has one. The plain versions:
+Both take any number of items and rows an item: device memory is the only
+limit. `setup` and `resolve` call the kernels as registered PyTorch
+operators, `cosypose::raster_setup` and `cosypose::raster_resolve`
+(torch.library), so that torch.export can trace a render as two opaque
+calls. Each operator's CUDA implementation launches the kernels, its CPU
+implementation runs the plain version, and no other device has one. The
+plain versions:
 
   setup_plain     camera_corners + triangle_planes + packing, in PyTorch ops;
   sort_order      the stable sort of the keys (torch.sort), which with
                   setup_plain makes kernel A's function;
-  sort_composite_keys  the kernel's own sort key in PyTorch (its float map
-                  and composites), held to sort_order by the tests;
+  composite_keys, sort_composite_keys  the kernel's own sort key in PyTorch
+                  (its float map and composites), held to sort_order by the
+                  tests; rank_runs, its sort as clusters and the rank kernel
+                  do it, slice by slice;
   bin_chunks      the chunk binning of the JAX package (chunk AABBs, overlap,
-                  first_k_true), on the sorted rows;
+                  first_k_true), on the sorted rows; bin_chunks_windowed, the
+                  same as kernel B computes it window by window;
   resolve_plain   the per-pixel resolve with the kernel's exact arithmetic,
                   vectorised over all pixels, one chunk slot at a time;
   resolve_plain_binned  bin_chunks composed with resolve_plain: kernel B's
@@ -213,30 +221,49 @@ def sort_order(ykey: torch.Tensor) -> torch.Tensor:
     return torch.sort(ykey, dim=1, stable=True).indices
 
 
-def sort_composite_keys(ykey: torch.Tensor) -> torch.Tensor:
-    """(B, Fp) int64: kernel A's sort in PyTorch. Each key becomes a unique
-    composite, an order-preserving integer map of the float in the high 32
-    bits and the row index f in the low 32; the sorted composites' low halves
-    are the order. The map orders as torch.sort does on the card: -0.0 tied
-    with +0.0, denormals by value, a NaN by its bits (a positive one above
-    +inf, a negative one below -inf; on the CPU torch.sort puts every NaN
-    last). Here the map is the signed one (non-negative floats as their
-    bits, negative ones with all but the sign bit flipped), which orders as
-    the kernel's unsigned map does."""
+def composite_keys(ykey: torch.Tensor) -> torch.Tensor:
+    """(B, Fp) int64: kernel A's unique sort key of each row, an
+    order-preserving integer map of the float key in the high 32 bits and
+    the row index f in the low 32. The map orders as torch.sort does on the
+    card: -0.0 tied with +0.0, denormals by value, a NaN by its bits (a
+    positive one above +inf, a negative one below -inf; on the CPU
+    torch.sort puts every NaN last). Here the map is the signed one
+    (non-negative floats as their bits, negative ones with all but the sign
+    bit flipped), which orders as the kernel's unsigned map does."""
     bits = torch.where(ykey == 0, 0, ykey.float().contiguous().view(torch.int32).long())
     mapped = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
-    f = torch.arange(ykey.shape[1], device=ykey.device)
-    return torch.sort(mapped * 2 ** 32 + f, dim=1).values & 0xFFFFFFFF
+    return mapped * 2 ** 32 + torch.arange(ykey.shape[1], device=ykey.device)
 
 
-def bin_chunks(rows: torch.Tensor, order: torch.Tensor, image_size: tuple[int, int],
-               tile: tuple[int, int], max_tris_per_tile: int):
-    """The JAX package's chunk binning on the sorted rows: (sorted rows
-    (B,Fp,32), chunk_idx (B,n_tiles,Kc) int32, counts (B,n_tiles) int32).
+def sort_composite_keys(ykey: torch.Tensor) -> torch.Tensor:
+    """(B, Fp) int64: kernel A's sort in PyTorch, over the whole list: the
+    sorted composite keys' low halves are the order."""
+    return torch.sort(composite_keys(ykey), dim=1).values & 0xFFFFFFFF
 
-    Each tile lists the ascending ids of the chunks whose AABB (over their
-    valid rows) touches it; a tile that touches more than Kc drops the highest.
-    """
+
+def rank_runs(ykey: torch.Tensor, run_rows: int) -> torch.Tensor:
+    """(B, Fp) int64: kernel A's order as its clusters (distributed shared
+    memory) and its rank kernel (device memory) build it, in PyTorch. The
+    composite keys are cut into runs of run_rows rows (the last one
+    shorter), each run sorted on its own; a composite's rank is its place in
+    its run plus its lower bound in each other run, and order[rank] = f.
+    Equal to sort_composite_keys for any run_rows >= 1: the tests hold it so."""
+    B, Fp = ykey.shape
+    keys = composite_keys(ykey)
+    runs = [torch.sort(keys[:, lo:lo + run_rows], dim=1).values for lo in range(0, Fp, run_rows)]
+    order = torch.empty_like(keys)
+    for j, run in enumerate(runs):
+        rank = torch.arange(run.shape[1], device=ykey.device).expand_as(run).clone()
+        for other in (r for i, r in enumerate(runs) if i != j):
+            rank += torch.searchsorted(other, run, side="left")
+        order.scatter_(1, rank, run & 0xFFFFFFFF)
+    return order
+
+
+def _chunk_overlap(rows: torch.Tensor, order: torch.Tensor, image_size: tuple[int, int],
+                   tile: tuple[int, int]):
+    """(sorted rows (B,Fp,32), overlap (B, n_tiles, C) bool): which chunks'
+    AABBs (over their valid rows) touch which tiles."""
     th, tw = tile
     nty, ntx = tile_grid(image_size, tile)
     B, Fp, _ = rows.shape
@@ -254,9 +281,42 @@ def bin_chunks(rows: torch.Tensor, order: torch.Tensor, image_size: tuple[int, i
     by1 = chunk_extreme(LANE_BBOX + 3, -big, torch.amax)
     cvalid = valid.reshape(B, C, CHUNK).any(-1)
     tile_x0, tile_y0 = tile_origins(nty, ntx, th, tw, rows.device)
-    ov = overlap(bx0, by0, bx1, by1, cvalid, tile_x0, tile_y0, tw, th)  # (B, n_tiles, C)
-    chunk_idx, counts = first_k_true(ov, chunk_budget(max_tris_per_tile, Fp))
+    return srt, overlap(bx0, by0, bx1, by1, cvalid, tile_x0, tile_y0, tw, th)
+
+
+def bin_chunks(rows: torch.Tensor, order: torch.Tensor, image_size: tuple[int, int],
+               tile: tuple[int, int], max_tris_per_tile: int):
+    """The JAX package's chunk binning on the sorted rows: (sorted rows
+    (B,Fp,32), chunk_idx (B,n_tiles,Kc) int32, counts (B,n_tiles) int32).
+
+    Each tile lists the ascending ids of the chunks whose AABB (over their
+    valid rows) touches it; a tile that touches more than Kc drops the highest.
+    """
+    srt, ov = _chunk_overlap(rows, order, image_size, tile)
+    chunk_idx, counts = first_k_true(ov, chunk_budget(max_tris_per_tile, rows.shape[1]))
     return srt, chunk_idx.int(), counts.int()
+
+
+def bin_chunks_windowed(rows: torch.Tensor, order: torch.Tensor, image_size: tuple[int, int],
+                        tile: tuple[int, int], max_tris_per_tile: int, window: int):
+    """bin_chunks as kernel B computes it when it streams the sorted rows
+    through shared memory, `window` rows (whole chunks) at a time: each
+    window's chunks are listed after those of the windows before it, from a
+    per-tile count carried across windows, and none once a tile has listed
+    Kc. The same outputs as bin_chunks for any window: the tests hold it so."""
+    srt, ov = _chunk_overlap(rows, order, image_size, tile)
+    B, T, C = ov.shape
+    Kc = chunk_budget(max_tris_per_tile, rows.shape[1])
+    chunk_idx = torch.zeros(B, T, Kc + 1, dtype=torch.long, device=rows.device)
+    listed = torch.zeros(B, T, dtype=torch.long, device=rows.device)
+    for c0 in range(0, C, window // CHUNK):
+        ov_w = ov[..., c0:c0 + window // CHUNK]
+        pos = listed[..., None] + ov_w.long().cumsum(-1) - 1
+        keep = ov_w & (pos < Kc)
+        ids = torch.arange(c0, c0 + ov_w.shape[-1], device=rows.device).expand_as(ov_w)
+        chunk_idx.scatter_(-1, torch.where(keep, pos, Kc), ids)
+        listed += keep.sum(-1)
+    return srt, chunk_idx[..., :Kc].int(), listed.int()
 
 
 def row_may_cover(rows: torch.Tensor, x0, x1, y0, y1) -> torch.Tensor:
@@ -430,125 +490,195 @@ def _check(name, x, device, dtype, shape):
                          f"{device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
+def check_setup_args(tri_verts, tri_valid, TCO, K, colors=None, tri_attr=None) -> int:
+    """Kernel A's checks, on any device: dtypes, shapes and contiguity. Any
+    number of items and rows. Returns Fp, the rows an item (padded to whole
+    chunks)."""
+    dev = tri_verts.device
+    B, Fn = tri_verts.shape[:2]
+    _check("tri_verts", tri_verts, dev, torch.float32, (B, Fn, 3, 3))
+    _check("tri_valid", tri_valid, dev, torch.bool, (B, Fn))
+    _check("TCO", TCO, dev, torch.float32, (B, 4, 4))
+    _check("K", K, dev, torch.float32, (B, 3, 3))
+    if colors is not None:
+        _check("colors", colors, dev, torch.float32, (B, Fn, 3, 3))
+    if tri_attr is not None:
+        _check("tri_attr", tri_attr, dev, torch.float32, (B, Fn))
+    return padded_rows(Fn)
+
+
+def check_resolve_args(rows, order, tile) -> None:
+    """Kernel B's checks, on any device: rows (B, Fp, 32) float32 in whole
+    chunks, 16-byte aligned, order (B, Fp) int64, a tile of whole warps
+    (th*tw a positive multiple of 64). Any number of items and rows."""
+    th, tw = tile
+    B, Fp = rows.shape[:2]
+    _check("rows", rows, rows.device, torch.float32, (B, Fp, ROW))
+    _check("order", order, rows.device, torch.int64, (B, Fp))
+    if Fp % CHUNK or th * tw <= 0 or th * tw % WARP_PIXELS \
+            or (rows.device.type != "meta" and rows.data_ptr() % 16):
+        raise ValueError(f"raster_resolve does not take rows {tuple(rows.shape)} (whole chunks "
+                         f"of {CHUNK}, 16-byte aligned) with tile {tile} (th*tw a multiple of "
+                         f"{WARP_PIXELS})")
+
+
 class RasterKernels:
     """ctypes bindings of csrc/raster_setup.cu and csrc/raster_resolve.cu, with
     a count of launches of each kernel and variant: 'raster_setup',
-    'raster_resolve' and 'raster_resolve_attr' (WITH_ATTR)."""
+    'raster_setup_rank' (kernel A's second launch where an item's rows are
+    sorted in runs in device memory), 'raster_resolve' and
+    'raster_resolve_attr' (WITH_ATTR)."""
 
     def __init__(self):
-        self.launches = {"raster_setup": 0, "raster_resolve": 0, "raster_resolve_attr": 0}
+        self.launches = {"raster_setup": 0, "raster_setup_rank": 0, "raster_resolve": 0,
+                         "raster_resolve_attr": 0}
         self._fns = None
-        self._max_rows = {}
+        self._rows = {}
 
     def load(self):
         if self._fns is None:
             libs = build_libraries()
             setup_lib = ctypes.CDLL(str(libs["setup"][0]))
             setup = setup_lib.cosypose_raster_setup
-            setup.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            setup.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            rank = setup_lib.cosypose_raster_setup_rank
+            rank.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            plan = setup_lib.cosypose_raster_setup_plan
+            plan.argtypes = [ctypes.c_int] * 3
             lib = ctypes.CDLL(str(libs["resolve"][0]))
             resolve = lib.cosypose_raster_resolve
-            resolve.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-            fns = {"setup": setup, "resolve": resolve,
-                   "setup_max_rows": setup_lib.cosypose_raster_setup_max_rows,
-                   "max_rows": lib.cosypose_raster_resolve_max_rows}
-            for name in ("setup_max_rows", "max_rows"):
+            resolve.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+            fns = {"setup": setup, "setup_rank": rank, "setup_plan": plan, "resolve": resolve,
+                   "sort_block_rows": setup_lib.cosypose_raster_setup_block_rows,
+                   "window_rows": lib.cosypose_raster_resolve_window_rows}
+            for name in ("sort_block_rows", "window_rows"):
                 fns[name].argtypes = [ctypes.c_int]
             for fn in fns.values():
                 fn.restype = ctypes.c_int
             self._fns = fns
         return self._fns
 
-    def _cap(self, which: str, device: torch.device) -> int:
+    def _shared_rows(self, which: str, device: torch.device) -> int:
         index = device.index or 0
-        if (which, index) not in self._max_rows:
+        if (which, index) not in self._rows:
             n = self.load()[which](index)
             if n <= 0:
                 raise RuntimeError(f"{which}: cannot read the shared memory limit "
                                    f"(cudaError {-n})")
-            self._max_rows[which, index] = n
-        return self._max_rows[which, index]
+            self._rows[which, index] = n
+        return self._rows[which, index]
 
-    def max_rows(self, device: torch.device) -> int:
-        """The most rows an item may have in kernel B on `device`: kernel B
-        stages 22 B a row in shared memory, so whole chunks within the shared
-        memory a block may opt in to (10,560 on an H100)."""
-        return self._cap("max_rows", device)
+    def window_rows(self, device: torch.device) -> int:
+        """The rows of one window of kernel B on `device`: it stages 22 B a
+        sorted row in shared memory, so whole chunks within the shared memory
+        a block may opt in to (10,560 on an H100). An item of more rows is
+        streamed through shared memory window by window."""
+        return self._shared_rows("window_rows", device)
 
-    def setup_max_rows(self, device: torch.device) -> int:
-        """The most rows an item may have in kernel A on `device`: it sorts
-        8 B a row in shared memory, padded to a power of two, within the
-        shared memory a block may opt in to (16,384 on an H100, above
-        max_rows, so that kernel A refuses no shape that kernel B takes)."""
-        return self._cap("setup_max_rows", device)
+    def sort_block_rows(self, device: torch.device) -> int:
+        """The rows one block of kernel A sorts on `device`: 8 B a row in
+        shared memory, padded to a power of two, within the shared memory a
+        block may opt in to (16,384 on an H100). An item of more rows is
+        sorted by a cluster of blocks, or in runs ranked by a second kernel."""
+        return self._shared_rows("sort_block_rows", device)
+
+    def setup_plan(self, B: int, Fp: int, device: torch.device) -> int:
+        """The launcher's choice for B items of Fp rows: the blocks of a
+        cluster an item (1 to 8), or -1 for runs in device memory and the
+        rank kernel. Read from the card (its occupancy query) before any
+        launch."""
+        c = self.load()["setup_plan"](B, Fp, device.index or 0)
+        if c < 0:
+            raise RuntimeError(f"raster_setup: cannot plan the launch (cudaError {-c})")
+        return c if c > 0 else -1
 
     def setup(self, tri_verts, tri_valid, TCO, K, image_size, colors=None, z_near=0.05,
               tri_attr=None, cluster=0):
         """Kernel A on CUDA tensors: (rows (B,Fp,32), ykey (B,Fp), order
-        (B,Fp) int64). `cluster` is the number of blocks an item (1 to 8), or
-        0, which every render passes, to let the launcher choose; the outputs
-        are the same for every choice (tests and measurements set it)."""
+        (B,Fp) int64), for any number of items and rows. `cluster` is the
+        number of blocks an item (1 to 8, enough that no block sorts more
+        than sort_block_rows()), -1 for runs in device memory ranked by a
+        second kernel (raster_setup_rank, three launches a render), or 0,
+        which every render passes, to let the launcher choose by shape and
+        by the card's occupancy query (setup_plan); the outputs are the same
+        for every choice (tests and measurements set it)."""
         if not tri_verts.is_cuda:
             raise ValueError("the raster kernels take CUDA tensors")
         dev = tri_verts.device
         B, Fn = tri_verts.shape[:2]
-        _check("tri_verts", tri_verts, dev, torch.float32, (B, Fn, 3, 3))
-        _check("tri_valid", tri_valid, dev, torch.bool, (B, Fn))
-        _check("TCO", TCO, dev, torch.float32, (B, 4, 4))
-        _check("K", K, dev, torch.float32, (B, 3, 3))
-        if colors is not None:
-            _check("colors", colors, dev, torch.float32, (B, Fn, 3, 3))
-        if tri_attr is not None:
-            _check("tri_attr", tri_attr, dev, torch.float32, (B, Fn))
-        Fp = padded_rows(Fn)
-        cap = self.setup_max_rows(dev)
-        if Fp > cap or not 0 <= cluster <= 8:
-            raise ValueError(f"raster_setup does not take {B} items of {Fp} rows in clusters of "
-                             f"{cluster} (at most {cap} rows an item, clusters of 0 to 8)")
+        Fp = check_setup_args(tri_verts, tri_valid, TCO, K, colors, tri_attr)
+        block = self.sort_block_rows(dev)
+        if cluster == 0 and Fp > block:
+            cluster = self.setup_plan(B, Fp, dev)
+        if not -1 <= cluster <= 8 or cluster > 0 and -(-Fp // cluster) > block:
+            raise ValueError(f"raster_setup: clusters of {cluster} blocks do not hold {Fp} rows "
+                             f"an item ({block} a block, clusters of 1 to 8, -1 for runs, 0 "
+                             f"to choose)")
         rows = torch.empty(B, Fp, ROW, device=dev)
         ykey = torch.empty(B, Fp, device=dev)
         order = torch.empty(B, Fp, dtype=torch.int64, device=dev)
-        err = self.load()["setup"](
+        runs = torch.empty(B, Fp, dtype=torch.int64, device=dev) if cluster < 0 else None
+        run_rows = -(-Fp // -(-Fp // block)) if Fp else 1  # even runs of at most `block` rows
+        fns, stream = self.load(), torch.cuda.current_stream(dev).cuda_stream
+        err = fns["setup"](
             tri_verts.data_ptr(), tri_valid.data_ptr(), TCO.data_ptr(), K.data_ptr(),
             None if colors is None else colors.data_ptr(),
             None if tri_attr is None else tri_attr.data_ptr(), rows.data_ptr(),
-            ykey.data_ptr(), order.data_ptr(), B, Fn, Fp, int(image_size[0]),
-            int(image_size[1]), float(z_near), int(cluster), dev.index or 0,
-            torch.cuda.current_stream(dev).cuda_stream)
+            ykey.data_ptr(), order.data_ptr(), None if runs is None else runs.data_ptr(), B, Fn,
+            Fp, int(image_size[0]), int(image_size[1]), float(z_near), max(cluster, 0), run_rows,
+            dev.index or 0, stream)
         if err != 0:
             raise RuntimeError(f"raster_setup launch failed: cudaError {err}")
         self.launches["raster_setup"] += 1
+        if runs is not None:
+            err = fns["setup_rank"](runs.data_ptr(), order.data_ptr(), B, Fp, run_rows,
+                                    dev.index or 0, stream)
+            if err != 0:
+                raise RuntimeError(f"raster_setup_rank launch failed: cudaError {err}")
+            self.launches["raster_setup_rank"] += 1
         return rows, ykey, order
 
-    def resolve(self, rows, order, image_size, tile, max_tris_per_tile=1024, with_attr=False):
-        """Kernel B on CUDA tensors: (rgb (B,3,H,W), depth (B,H,W), attr or None)."""
+    def resolve(self, rows, order, image_size, tile, max_tris_per_tile=1024, with_attr=False,
+                window=None):
+        """Kernel B on CUDA tensors: (rgb (B,3,H,W), depth (B,H,W), attr or
+        None), for any number of items (a launch for each 65,535) and rows
+        an item. An item of more rows than `window` (whole chunks, at most
+        window_rows(), which it defaults to) streams through shared memory in
+        windows of that many, carrying its state in device memory (8 B a
+        pixel of the tiles); tests and measurements set it smaller."""
         H, W = image_size
         th, tw = tile
         nty, ntx = tile_grid(image_size, tile)
         if not rows.is_cuda:
             raise ValueError("the raster kernels take CUDA tensors")
+        check_resolve_args(rows, order, tile)
+        dev = rows.device
         B, Fp = rows.shape[:2]
-        _check("rows", rows, rows.device, torch.float32, (B, Fp, ROW))
-        _check("order", order, rows.device, torch.int64, (B, Fp))
         Kc = chunk_budget(max_tris_per_tile, Fp)
-        max_rows = self.max_rows(rows.device)
-        if Fp % CHUNK or Fp > max_rows or th * tw <= 0 or th * tw % WARP_PIXELS or B > 65535 \
-                or rows.data_ptr() % 16:
-            raise ValueError(f"raster_resolve does not take rows {tuple(rows.shape)} (at most "
-                             f"{max_rows} per item) with tile {tile} (th*tw a multiple of "
-                             f"{WARP_PIXELS})")
-        fn = self.load()["resolve"]
-        rgb = torch.empty(B, 3, H, W, device=rows.device)
-        depth = torch.empty(B, H, W, device=rows.device)
-        attr = torch.empty(B, H, W, device=rows.device) if with_attr else None
-        err = fn(rows.data_ptr(), order.data_ptr(), rgb.data_ptr(), depth.data_ptr(),
-                 attr.data_ptr() if with_attr else None, B, Fp, Kc, H, W, th, tw, nty, ntx,
-                 int(with_attr), rows.device.index or 0,
-                 torch.cuda.current_stream(rows.device).cuda_stream)
+        most = self.window_rows(dev)
+        window = most if window is None else int(window)
+        if not 0 < window <= most or window % CHUNK:
+            raise ValueError(f"raster_resolve: a window of {window} rows (whole chunks of "
+                             f"{CHUNK}, at most {most})")
+        rgb = torch.empty(B, 3, H, W, device=dev)
+        depth = torch.empty(B, H, W, device=dev)
+        attr = torch.empty(B, H, W, device=dev) if with_attr else None
+        state = [None] * 3
+        if Fp > window:  # the z-buffer, winning row and listed count across windows
+            pixels = B * nty * ntx * th * tw
+            state = [torch.empty(pixels, device=dev),
+                     torch.empty(pixels, dtype=torch.int32, device=dev),
+                     torch.empty(pixels // WARP_PIXELS, dtype=torch.int32, device=dev)]
+        err = self.load()["resolve"](
+            rows.data_ptr(), order.data_ptr(), rgb.data_ptr(), depth.data_ptr(),
+            attr.data_ptr() if with_attr else None,
+            *[None if x is None else x.data_ptr() for x in state], B, Fp, Kc, H, W, th, tw, nty,
+            ntx, int(with_attr), window, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"raster_resolve launch failed: cudaError {err}")
-        self.launches["raster_resolve_attr" if with_attr else "raster_resolve"] += 1
+        # one launch for each 65,535 items (grid.y)
+        self.launches["raster_resolve_attr" if with_attr else "raster_resolve"] += -(-B // 65535)
         return rgb, depth, attr
 
 

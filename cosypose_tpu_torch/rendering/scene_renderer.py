@@ -15,8 +15,10 @@ cosypose_tpu/rendering/scene_renderer.py).
 
 The soup is padded to whole chunks of 8 rows only: the JAX package's
 power-of-two buckets exist to spare XLA recompiles, which PyTorch does not
-have. The resolve kernel takes up to RASTER_KERNEL.max_rows(device) rows a
-scene (10,560 on an H100) and raises on more.
+have. A soup may hold any number of rows (a ycbv-1M scene of 8 objects of
+8,192 faces and the cage: 65,896): kernel A sorts it with a cluster of
+blocks or in runs, kernel B streams it through shared memory in windows
+(ops/rasterizer_cuda.py).
 """
 
 from __future__ import annotations

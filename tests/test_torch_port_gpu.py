@@ -152,9 +152,10 @@ def test_kernels_refuse_bad_inputs(cuda):
         kernels.resolve(rows, order.int(), (64, 64), (16, 16))
     with pytest.raises(ValueError):
         kernels.resolve(rows, order, (64, 64), (4, 8))    # not whole warps
-    big = torch.zeros(1, kernels.max_rows(cuda) + 8, rasterizer_cuda.ROW, device=cuda)
     with pytest.raises(ValueError):
-        kernels.resolve(big, torch.arange(big.shape[1], device=cuda)[None], (64, 64), (16, 16))
+        kernels.resolve(rows, order, (64, 64), (16, 16), window=12)   # not whole chunks
+    with pytest.raises(ValueError):
+        kernels.setup(tv, valid, TCO, K, (64, 64), cluster=9)
 
 
 def test_render_card_matches_cpu(cuda):
@@ -291,23 +292,90 @@ def test_resolve_at_the_amodal_shape(cuda):
     assert (out[1] > 0).any()
 
 
-def test_resolve_row_cap(cuda):
-    """Kernel B stages 22 B a row in shared memory: it takes max_rows() rows an
-    item (whole chunks within the card's opt-in shared memory; 10,560 on an
-    H100) and refuses more with a clear error."""
+# rows an item past one block of kernel A (16,384) and one window of kernel B
+# (10,560) on an H100: just past both, a ycbv-1M scene soup (8 x 8,192 + the
+# cage), 8 full blocks, and past the largest cluster
+LARGE_ROWS = (16_392, 65_896, 131_072, 262_144)
+
+
+@pytest.mark.parametrize("F", LARGE_ROWS)
+def test_resolve_takes_any_row_count(cuda, F):
+    """Kernel B on two items of F rows (chip_smoke.large_soup: small
+    triangles over the whole image) streams them through shared memory in
+    windows: bit-equal to resolve_plain_binned on the attribute variant at
+    the default window (10,560 rows) and at windows of 2,048, with the
+    budget reached at once (40 rows) and at the scene's 6,144 (reached
+    part-way down the lists from 131,072 rows) at 240x320, and not at all
+    (every row) on a 2048x64 image that
+    spreads the rows over 128 tile rows; the plain variant at the default
+    window; one launch a call."""
+    import chip_smoke
+
     kernels = rasterizer_cuda.RASTER_KERNEL
-    cap = kernels.max_rows(cuda)
-    assert cap >= 8872 and cap % rasterizer_cuda.CHUNK == 0
-    optin = getattr(torch.cuda.get_device_properties(cuda), "shared_memory_per_block_optin", None)
-    assert optin is None or 22 * cap <= optin < 22 * (cap + 8)
-    rows = torch.zeros(1, cap, rasterizer_cuda.ROW, device=cuda)
-    order = torch.arange(cap, device=cuda)[None]
-    rgb, depth, attr = kernels.resolve(rows, order, (64, 64), (16, 16), with_attr=True)
+    assert F > kernels.window_rows(cuda)
+    for image, tile, budgets in (((240, 320), (8, 320), (40, 6144)), ((2048, 64), (16, 32), (F,))):
+        args, attr = chip_smoke.large_soup(2, F, image, seed=F, device=cuda)
+        rows, _, order = kernels.setup(*args[:4], image, args[4], tri_attr=attr)
+        for budget in budgets:
+            plain = rasterizer_cuda.resolve_plain_binned(rows, order, image, tile, budget, True)
+            for window in (None, 2048):
+                before = dict(kernels.launches)
+                out = kernels.resolve(rows, order, image, tile, budget, True, window=window)
+                torch.cuda.synchronize()
+                assert kernels.launches == dict(
+                    before, raster_resolve_attr=before["raster_resolve_attr"] + 1)
+                assert all(torch.equal(a, b) for a, b in zip(out, plain)), (image, budget, window)
+            out = kernels.resolve(rows, order, image, tile, budget)
+            assert torch.equal(out[0], plain[0]) and torch.equal(out[1], plain[1])
+            assert (out[1] > 0).any()
+        counts = rasterizer_cuda.bin_chunks(rows, order, image, tile, 1 << 30)[2]
+        assert int(counts.max()) > rasterizer_cuda.chunk_budget(budgets[0], F) or budgets[0] == F
+
+
+def test_resolve_windows_down_to_one_chunk(cuda):
+    """Windows of 8, 64 and 256 rows on a small item, every tile's list cut
+    in a different window: bit-equal to the one-window path."""
+    kernels = rasterizer_cuda.RASTER_KERNEL
+    tv, valid, TCO, K, colors = tie_soup(3, 1203, seed=1, device=cuda, image=(48, 64))
+    rows, _, order = kernels.setup(tv, valid, TCO, K, (48, 64), colors)
+    for budget in (24, 200, 1208):
+        one = kernels.resolve(rows, order, (48, 64), (8, 32), budget)
+        for window in (8, 64, 256):
+            out = kernels.resolve(rows, order, (48, 64), (8, 32), budget, window=window)
+            torch.cuda.synchronize()
+            assert torch.equal(out[0], one[0]) and torch.equal(out[1], one[1]), (budget, window)
+
+
+def test_kernels_take_more_than_65535_items(cuda):
+    """70,000 items of 8 rows at 8x8: kernel B takes 65,535 items a launch
+    (grid.y) and launches again for the rest, so the batch has no limit (as
+    the JAX package takes any batch); both kernels against their plain
+    versions, two launches of kernel B counted."""
+    kernels = rasterizer_cuda.RASTER_KERNEL
+    tv, valid, TCO, K, colors = tie_soup(70_000, 8, seed=3, device=cuda, image=(8, 8))
+    rows, key, order = kernels.setup(tv, valid, TCO, K, (8, 8), colors)
+    assert torch.equal(order, torch.sort(key, dim=1, stable=True).indices)
+    before = kernels.launches["raster_resolve"]
+    out = kernels.resolve(rows, order, (8, 8), (8, 8))
+    assert kernels.launches["raster_resolve"] == before + 2
     torch.cuda.synchronize()
-    assert not depth.any() and not attr.any()
-    big = torch.zeros(1, cap + 8, rasterizer_cuda.ROW, device=cuda)
-    with pytest.raises(ValueError, match=f"at most {cap}"):
-        kernels.resolve(big, torch.arange(cap + 8, device=cuda)[None], (64, 64), (16, 16))
+    plain = rasterizer_cuda.resolve_plain_binned(rows, order, (8, 8), (8, 8))
+    assert torch.equal(out[0], plain[0]) and torch.equal(out[1], plain[1])
+    assert (out[1] > 0).any(dim=(1, 2)).sum() > 1000
+
+
+def test_main_path_render_is_two_launches(cuda):
+    """render() at the main path's B=128 x 176 rows (demo spheres, LOD 512,
+    240x320) launches kernel A and kernel B once each and no rank kernel."""
+    first = demo.first_render_inputs(128, (480, 640), (240, 320), 512, cuda)
+    assert first["tri_verts"].shape[:2] == (128, 176)
+    kernels = rasterizer_cuda.RASTER_KERNEL
+    before = dict(kernels.launches)
+    render(first["tri_verts"], first["tri_valid"], first["TCO"], first["K_crop"],
+           image_size=(240, 320), colors=first["colors"])
+    torch.cuda.synchronize()
+    assert {k: kernels.launches[k] - before[k] for k in before} == {
+        "raster_setup": 1, "raster_setup_rank": 0, "raster_resolve": 1, "raster_resolve_attr": 0}
 
 
 def test_recorded_frame_card_matches_cpu(cuda, tmp_path):
@@ -515,7 +583,7 @@ def test_two_gloo_ranks_on_the_card_match_one_process(cuda):
     errs = chip_smoke.step_errors(chip_smoke.rank_snapshot(ranks[0]["steps"][0]), ref, cfg)
     assert not {k: v for k, v in errs.items() if not v[0] <= v[1]}, errs
     want = {"raster_setup": cfg.n_iterations, "raster_resolve": cfg.n_iterations,
-            "raster_resolve_attr": 0}
+            "raster_resolve_attr": 0, "raster_setup_rank": 0}
     assert [r["launches"] for r in ranks] == [want, want]
 
 
@@ -603,7 +671,8 @@ def test_exported_refiner_matches_eager_on_the_card(cuda):
     got = fn(images, K, TCO, labels)
     torch.cuda.synchronize()
     launched = {k: rasterizer_cuda.RASTER_KERNEL.launches[k] - before[k] for k in before}
-    assert launched == {"raster_setup": n_it, "raster_resolve": n_it, "raster_resolve_attr": 0}
+    assert launched == {"raster_setup": n_it, "raster_resolve": n_it, "raster_resolve_attr": 0,
+                        "raster_setup_rank": 0}
     want = pp.forward(md, *args, n_iterations=n_it)["TCO_final"]
     assert (got - want).abs().max().item() <= 1e-5
     assert (want - args[2]).abs().max().item() > 1e-4
@@ -703,7 +772,7 @@ SETUP_SHAPES = {"main path": (128, None, (240, 320)), "VSD": (8, 1216, (240, 320
                 "scene": (10, 10088, (240, 320)), "ties": (5, 45, (48, 64))}
 
 
-@pytest.mark.parametrize("shape", [*SETUP_SHAPES, "kernel B's row cap"])
+@pytest.mark.parametrize("shape", [*SETUP_SHAPES, "one window of kernel B"])
 def test_setup_order_equals_torch_sort(cuda, shape):
     """Kernel A's order against torch.sort(ykey, dim=1, stable=True).indices
     on the card, element for element, for every cluster size (the launcher's
@@ -718,7 +787,7 @@ def test_setup_order_equals_torch_sort(cuda, shape):
                 first["colors"])
         image = (240, 320)
     else:
-        B, F, image = SETUP_SHAPES.get(shape, (2, kernels.max_rows(cuda), (240, 320)))
+        B, F, image = SETUP_SHAPES.get(shape, (2, kernels.window_rows(cuda), (240, 320)))
         args = tie_soup(B, F, seed=F + B, device=cuda, image=image)
     first_out = None
     for cluster in (0, 1, 2, 8):
@@ -735,24 +804,42 @@ def test_setup_order_equals_torch_sort(cuda, shape):
     assert err["bbox_key"] <= rasterizer_cuda.SETUP_TOL, err
 
 
-def test_setup_row_cap(cuda):
-    """Kernel A sorts 8 B a row in shared memory, padded to a power of two:
-    it takes setup_max_rows() rows an item (16,384 on an H100), at least
-    kernel B's max_rows(), and refuses more with a ValueError naming the
-    cap; nothing falls back to torch.sort."""
+@pytest.mark.parametrize("F", LARGE_ROWS)
+def test_setup_takes_any_row_count(cuda, F):
+    """Kernel A on two items of F rows, more than one block sorts
+    (sort_block_rows(), 16,384 on an H100): the launcher's choice (a cluster
+    of ceil(F / 16,384) to 8 blocks where one can be resident, else sorted
+    runs and the rank kernel), every cluster size that holds F, and the runs
+    forced, each giving the same rows, keys and order, the order equal to
+    torch.sort(key, dim=1, stable=True) element for element, the rows within
+    SETUP_TOL of setup_plain; the rank kernel launched only with runs."""
     kernels = rasterizer_cuda.RASTER_KERNEL
-    cap = kernels.setup_max_rows(cuda)
-    assert cap >= kernels.max_rows(cuda) and cap & (cap - 1) == 0
-    optin = getattr(torch.cuda.get_device_properties(cuda), "shared_memory_per_block_optin", None)
-    assert optin is None or 8 * cap <= optin < 16 * cap
-    args = tie_soup(2, cap, device=cuda, image=(240, 320))
-    rows, key, order = kernels.setup(*args[:4], (240, 320), args[4], cluster=1)
-    assert torch.equal(order, torch.sort(key, dim=1, stable=True).indices)
-    big = tie_soup(1, cap + 8, device=cuda, image=(240, 320))
-    launches = dict(kernels.launches)
-    with pytest.raises(ValueError, match=f"at most {cap} rows"):
-        rasterizer_cuda.setup(*big[:4], (240, 320), big[4])
-    assert kernels.launches == launches
+    block = kernels.sort_block_rows(cuda)
+    assert block == 16_384 and F > block
+    args = tie_soup(2, F, seed=F, device=cuda, image=(240, 320))
+    need = -(-F // block)
+    plan = kernels.setup_plan(2, F, cuda)
+    assert plan == -1 or need <= plan <= 8
+    first = None
+    for cluster in (0, *range(need, 9), -1):
+        before = dict(kernels.launches)
+        out = kernels.setup(*args[:4], (240, 320), args[4], cluster=cluster)
+        torch.cuda.synchronize()
+        runs = cluster == -1 or cluster == 0 and plan == -1
+        assert {k: kernels.launches[k] - before[k] for k in before} == {
+            "raster_setup": 1, "raster_setup_rank": int(runs), "raster_resolve": 0,
+            "raster_resolve_attr": 0}, cluster
+        rows, key, order = out
+        assert torch.equal(order, torch.sort(key, dim=1, stable=True).indices), cluster
+        first = first or out
+        assert all(torch.equal(a, b) for a, b in zip(out, first)), cluster
+    err = rasterizer_cuda.setup_error(rows, key, *rasterizer_cuda.setup_plain(
+        *args[:4], (240, 320), args[4]), (240, 320), K=args[3])
+    assert err["valid_differs"] == 0 and err["plane"] <= rasterizer_cuda.SETUP_TOL, err
+    assert err["bbox_key"] <= rasterizer_cuda.SETUP_TOL, err
+    if need > 1:
+        with pytest.raises(ValueError, match="do not hold"):
+            kernels.setup(*args[:4], (240, 320), args[4], cluster=need - 1)
 
 
 def test_composite_keys_order_as_torch_sort_on_the_card(cuda):
