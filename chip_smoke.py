@@ -134,15 +134,17 @@ Phases, none of them caught; any failure exits non-zero:
      render shape (full spheres, B=4), its output against entry(device="cpu");
  14. soups of any row count (large_soups_phase): two items of each of
      16,392, 65,896, 131,072 and 262,144 rows through render() (launches of
-     kernel A, of its rank kernel where the launcher takes sorted runs, and
-     of the attribute kernel counted), then kernel A against its plain
-     version with the launcher's choice and with runs forced (the order
-     equal to torch.sort's) and kernel B against its plain version bit for
-     bit, on the card, each timed with its bound, and the rank kernel alone;
-     record_dataset at ycbv-1M's sampler settings over eight seeded
-     8,192-face meshes (demo.dense_specs); an 8-object scene with the cage
-     (65,896 rows, 480x640) through both kernels against their plain
-     versions on the card.
+     kernel A, of its merge passes, of the binning launch and of the
+     attribute kernel counted), then kernel A against its plain version
+     with the launcher's choice (sorted runs and their merge), clusters of 8
+     and runs of every length from 256 to 16,384 rows (the order equal to
+     torch.sort's), each timed, with its runs launch and its merge alone
+     beside torch.sort of the keys, and kernel B's binning launch and listed
+     resolve against bin_chunks and resolve_plain bit for bit, each timed
+     alone and together with its bound; record_dataset at ycbv-1M's sampler
+     settings over eight seeded 8,192-face meshes (demo.dense_specs); an
+     8-object scene with the cage (65,896 rows, 480x640) through both
+     kernels against their plain versions on the card, timed as above.
 Wherever kernel A is held to its plain version (setup_vs_plain), its order is
 also held to torch.sort's element for element, and where it is timed
 (setup_timing) so are one block an item and torch.sort of its keys alone.
@@ -183,13 +185,17 @@ TILES = [(8, 32), (16, 16), (16, 32), (32, 32), (8, 64), (16, 64)]  # (32, 32): 
 ATOL_KERNEL = 1e-4   # depth and rgb, kernel B vs plain (same arithmetic: expect 0)
 ATOL_SLICE = 1e-3    # TCO_final, card vs CPU (cuDNN vs oneDNN summation order)
 SOURCES = {"raster_setup": "cosypose_tpu_torch/csrc/raster_setup.cu",
-           "raster_setup_rank": "cosypose_tpu_torch/csrc/raster_setup.cu",
+           "raster_setup_merge": "cosypose_tpu_torch/csrc/raster_setup.cu",
            "raster_resolve": "cosypose_tpu_torch/csrc/raster_resolve.cu",
-           "raster_resolve_attr": "cosypose_tpu_torch/csrc/raster_resolve.cu"}
+           "raster_resolve_attr": "cosypose_tpu_torch/csrc/raster_resolve.cu",
+           "raster_resolve_bin": "cosypose_tpu_torch/csrc/raster_resolve.cu",
+           "raster_resolve_listed": "cosypose_tpu_torch/csrc/raster_resolve.cu"}
 REPLACES = {"raster_setup": "cosypose_tpu/ops/rasterizer_pallas.py:149",
-            "raster_setup_rank": "cosypose_tpu/ops/rasterizer_pallas.py:200",
+            "raster_setup_merge": "cosypose_tpu/ops/rasterizer_pallas.py:200",
             "raster_resolve": "cosypose_tpu/ops/rasterizer_pallas.py:49",
-            "raster_resolve_attr": "cosypose_tpu/ops/rasterizer_pallas.py:49"}
+            "raster_resolve_attr": "cosypose_tpu/ops/rasterizer_pallas.py:49",
+            "raster_resolve_bin": "cosypose_tpu/ops/rasterizer_pallas.py:202",
+            "raster_resolve_listed": "cosypose_tpu/ops/rasterizer_pallas.py:49"}
 PR1 = "PR 1: prologue 2.433 ms + kernel 0.2628 ms per call, request ~490 ms, idle 0.098"
 # training: the small card-vs-CPU step, and the full-width trainer's run
 SMALL_B, SMALL_RENDER, SMALL_IMAGE = 8, (48, 64), (240, 320)
@@ -698,7 +704,8 @@ def data_parallel_phase(tag: str, checked: dict) -> dict:
         tdist.destroy()
     torch.cuda.empty_cache()
     want = {"raster_setup": DP_STEPS * n_it, "raster_resolve": DP_STEPS * n_it,
-            "raster_resolve_attr": 0, "raster_setup_rank": 0}
+            "raster_resolve_attr": 0, "raster_setup_merge": 0,
+            "raster_resolve_bin": 0, "raster_resolve_listed": 0}
     if launches_world1 != want:
         raise AssertionError(f"DDP at world 1 launched {launches_world1}, want {want}")
     lines = [check_errors(f"DDP world 1 vs one process, step {i + 1}",
@@ -751,7 +758,8 @@ def data_parallel_phase(tag: str, checked: dict) -> dict:
     t_spawn = time.perf_counter() - t0
     launches_ranks = [r["replicated"]["launches"] for r in ranks]
     want = {"raster_setup": DP_RANK_STEPS * n_it, "raster_resolve": DP_RANK_STEPS * n_it,
-            "raster_resolve_attr": 0, "raster_setup_rank": 0}
+            "raster_resolve_attr": 0, "raster_setup_merge": 0,
+            "raster_resolve_bin": 0, "raster_resolve_listed": 0}
     for r, got in enumerate(ranks):
         k = got["kernels"]
         if k["setup_error"]["valid_differs"] or k["setup_error"]["plane"] > rc.SETUP_TOL \
@@ -910,8 +918,10 @@ def kernels_vs_plain_at(what: str, call, checked: dict) -> str:
         raise AssertionError(f"{what}: the resolve kernel differs from its plain version")
     shape = f"{what}: {rows.shape[0]} x {rows.shape[1]} rows"
     checked["raster_setup"].append(shape)
-    checked["raster_resolve_attr" if with_attr else "raster_resolve"].append(
-        f"{shape}, {tuple(size)}, tile {tuple(tile)}, budget {budget}")
+    listed = rows.shape[1] > rc.RASTER_KERNEL.window_rows(rows.device)
+    checked["raster_resolve_listed" if listed else "raster_resolve_attr" if with_attr
+            else "raster_resolve"].append(f"{shape}, {tuple(size)}, tile {tuple(tile)}, "
+                                          f"budget {budget}")
     return (f"{shape} at {size[0]}x{size[1]}, tile {tuple(tile)}, budget {budget}: setup plane "
             f"rel err {err['plane']:.3g}, max abs err {abs_err:.3g}, order equal to torch.sort's; "
             f"resolve"
@@ -1023,7 +1033,7 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
     err = float((got - want).abs().max())
     moved = float((want - args[2]).abs().max())
     want_l = {"raster_setup": N_REFINER, "raster_resolve": N_REFINER, "raster_resolve_attr": 0,
-              "raster_setup_rank": 0}
+              "raster_setup_merge": 0, "raster_resolve_bin": 0, "raster_resolve_listed": 0}
     if out["export"] != want_l or not err <= EXPORT_ATOL or moved <= 1e-4 \
             or not torch.isfinite(got).all():
         raise AssertionError(f"export: launches {out['export']} (want {want_l}), max |exported "
@@ -1143,7 +1153,8 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
     want_o = math.ceil(n_obj / EVAL_BSZ) + 2 * N_OVERLAYS
     panels = [png.imread(p) for p in acc["overlays"]]
     if out["overlays"] != {"raster_setup": want_o, "raster_resolve": want_o,
-                           "raster_resolve_attr": 0, "raster_setup_rank": 0} \
+                           "raster_resolve_attr": 0, "raster_setup_merge": 0,
+                           "raster_resolve_bin": 0, "raster_resolve_listed": 0} \
             or len(panels) != N_OVERLAYS \
             or not all(p.ndim == 3 and p.std() > 0 for p in panels):
         raise AssertionError(f"overlays: launches {out['overlays']} (want {want_o} each), "
@@ -1164,7 +1175,8 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
     t_scene = time.perf_counter() - t0
     out["scene_renderings"] = dict(kernel.launches)
     if out["scene_renderings"] != {"raster_setup": 1, "raster_resolve": 0,
-                                   "raster_resolve_attr": 1, "raster_setup_rank": 0} \
+                                   "raster_resolve_attr": 1, "raster_setup_merge": 0,
+                                   "raster_resolve_bin": 0, "raster_resolve_listed": 0} \
             or len(frames) != 16 \
             or not all(f.any() for f in frames):
         raise AssertionError(f"make_scene_renderings: launches {out['scene_renderings']}, "
@@ -1178,7 +1190,8 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
         ["--object-ds", "procedural"]))
     out["test_render_objects"] = dict(kernel.launches)
     if out["test_render_objects"] != {"raster_setup": 1, "raster_resolve": 1,
-                                      "raster_resolve_attr": 0, "raster_setup_rank": 0}:
+                                      "raster_resolve_attr": 0, "raster_setup_merge": 0,
+                                      "raster_resolve_bin": 0, "raster_resolve_listed": 0}:
         raise AssertionError(f"test_render_objects: launches {out['test_render_objects']}")
     msg = kernels_vs_plain_at("test_render_objects", calls[0], checked)
     log(f"{tag} test_render_objects --object-ds procedural ({renders.shape[0]} objects): every "
@@ -1365,7 +1378,8 @@ def jpeg_phase(tag: str, checked: dict, ctx: dict) -> dict:
         got = dict(kernel.launches)
         launches_train[workers] = got
         want = {"raster_setup": steps * n_it_p, "raster_resolve": steps * n_it_p,
-                "raster_resolve_attr": 0, "raster_setup_rank": 0}
+                "raster_resolve_attr": 0, "raster_setup_merge": 0,
+                "raster_resolve_bin": 0, "raster_resolve_listed": 0}
         rec = [json.loads(line) for line in (run_dir / "log.txt").read_text().splitlines()][-1]
         if got != want or trained.step != steps or not math.isfinite(rec["train/loss_total"]):
             raise AssertionError(f"VOC training with {workers} workers: launches {got} (want "
@@ -1410,7 +1424,8 @@ def jpeg_phase(tag: str, checked: dict, ctx: dict) -> dict:
         feats[impl], outs[impl], nets[impl] = seen, out, pp
     launches_dw = dict(kernel.launches)
     if launches_dw != {"raster_setup": 3, "raster_resolve": 3, "raster_resolve_attr": 0,
-                       "raster_setup_rank": 0}:
+                       "raster_setup_merge": 0,
+                       "raster_resolve_bin": 0, "raster_resolve_listed": 0}:
         raise AssertionError(f"lowerings: launches {launches_dw} (want 3, one an iteration)")
     log(f"{tag} kernels at the lowerings' iteration (B={BATCH}, LOD {LOD}): "
         + kernels_vs_plain_at("depthwise lowerings", calls[0], checked))
@@ -1477,7 +1492,8 @@ def jpeg_phase(tag: str, checked: dict, ctx: dict) -> dict:
         per_frame[v] = per_frame.get(v, 0) + 1
     chunks = sum(math.ceil(n / ctx["eval_bsz"]) for n in per_frame.values())
     want = {"raster_setup": chunks * n_ref, "raster_resolve": chunks * n_ref,
-            "raster_resolve_attr": 0, "raster_setup_rank": 0}
+            "raster_resolve_attr": 0, "raster_setup_merge": 0,
+            "raster_resolve_bin": 0, "raster_resolve_listed": 0}
     if launches_bop != want or not len(poses) or not torch.isfinite(poses.poses).all():
         raise AssertionError(f"JPEG BOP split: launches {launches_bop} (want {want}), "
                              f"{len(poses)} poses")
@@ -1580,7 +1596,7 @@ def bench_phase(tag: str, checked: dict) -> dict:
     torch.cuda.synchronize()
     launches_entry = dict(kernel.launches)
     want_e = {"raster_setup": 1, "raster_resolve": 1, "raster_resolve_attr": 0,
-              "raster_setup_rank": 0}
+              "raster_setup_merge": 0, "raster_resolve_bin": 0, "raster_resolve_listed": 0}
     fn_c, args_c = entry(device="cpu")
     err = float((out.cpu() - fn_c(*args_c)).abs().max())
     log(f"{tag} entry() (B3 fp32, B=4, 1 iteration, full spheres): launches {launches_entry} "
@@ -1597,13 +1613,14 @@ def bench_phase(tag: str, checked: dict) -> dict:
 # phase 14: rows an item past one block of kernel A (16,384 on an H100) and
 # one window of kernel B (10,560): just past both, a ycbv-1M scene soup (8
 # objects of 8,192 faces and the cage), 8 full blocks, and past the largest
-# cluster (kernel A's runs and rank kernel); two items each, at the scene's
-# tile and budget on a 240x320 image
+# cluster; two items each, at the scene's tile and budget on a 240x320 image.
+# Above one block kernel A takes sorted runs and their merge; above one window
+# kernel B takes its binning launch and the listed resolve.
 LARGE_ROWS = (16_392, 65_896, 131_072, 262_144)
 LARGE_IMAGE = (240, 320)
+RUN_ROWS = (256, 512, 1024, 2048, 4096, 8192, 16384)  # kernel A's run lengths, each timed
 YCBV_FRAMES = 20            # recorded at ycbv-1M's sampler settings
 YCBV_OBJECTS = 8            # dense_specs meshes in the mesh DB (ycbv-1M draws 2-8 a scene)
-YCBV_WINDOWS = (4096, 2048, 1024)  # kernel B's windows timed beside the default at that scene
 
 
 def large_soup(B: int, F: int, image, seed: int = 0, device="cuda"):
@@ -1635,11 +1652,13 @@ def large_soup(B: int, F: int, image, seed: int = 0, device="cuda"):
     return tuple(out[:5]), out[5]
 
 
-def rank_launch(rows_args, run_rows):
-    """Kernel A's second launch alone (the rank kernel), on the runs of
-    run_rows rows that kernel A writes for rows_args (tri_verts, tri_valid,
-    TCO, K, image size, colors, attributes): (a call of it, the keys, the
-    order it writes)."""
+def merge_launch(rows_args, run_rows):
+    """Kernel A's two parts alone, on rows_args (tri_verts, tri_valid, TCO,
+    K, image size, colors, attributes) in runs of run_rows rows: (the runs
+    launch, which writes the sorted runs; a call that restores the runs
+    it wrote and merges them; the restore alone; the keys; the order the
+    merge writes). The merge passes overwrite the runs, so the merge alone
+    is timed as (restore + merge) - restore."""
     import torch
 
     from cosypose_tpu_torch.ops import rasterizer_cuda as rc
@@ -1649,42 +1668,167 @@ def rank_launch(rows_args, run_rows):
     B, F = valid.shape
     Fp = rc.padded_rows(F)
     dev = tv.device
-    runs = torch.empty(B, Fp, dtype=torch.int64, device=dev)
+    scratch = torch.empty(B, Fp, dtype=torch.int64, device=dev)
     order = torch.empty(B, Fp, dtype=torch.int64, device=dev)
+    runs = scratch if kernel.merge_passes(Fp, run_rows) % 2 else order
     rows = torch.empty(B, Fp, rc.ROW, device=dev)
     key = torch.empty(B, Fp, device=dev)
     fns, stream = kernel.load(), torch.cuda.current_stream(dev).cuda_stream
-    err = fns["setup"](tv.data_ptr(), valid.data_ptr(), TCO.data_ptr(), K.data_ptr(),
-                       colors.data_ptr(), attr.data_ptr(), rows.data_ptr(), key.data_ptr(),
-                       order.data_ptr(), runs.data_ptr(), B, F, Fp, image[0], image[1], 0.05, 0,
-                       run_rows, dev.index or 0, stream)
-    if err:
-        raise RuntimeError(f"raster_setup (runs) failed: cudaError {err}")
 
-    def call():
-        e = fns["setup_rank"](runs.data_ptr(), order.data_ptr(), B, Fp, run_rows,
-                              dev.index or 0, stream)
-        if e:
-            raise RuntimeError(f"raster_setup_rank failed: cudaError {e}")
+    def sort_runs():
+        err = fns["setup"](tv.data_ptr(), valid.data_ptr(), TCO.data_ptr(), K.data_ptr(),
+                           colors.data_ptr(), attr.data_ptr(), rows.data_ptr(), key.data_ptr(),
+                           order.data_ptr(), runs.data_ptr(), B, F, Fp, image[0], image[1], 0.05,
+                           0, run_rows, dev.index or 0, stream)
+        if err:
+            raise RuntimeError(f"raster_setup (runs) failed: cudaError {err}")
 
-    return call, key, order
+    sort_runs()
+    saved = runs.clone()
+
+    def restore():
+        runs.copy_(saved)
+
+    def merge():
+        restore()
+        err = fns["setup_merge"](scratch.data_ptr(), order.data_ptr(), B, Fp, run_rows,
+                                 dev.index or 0, stream)
+        if err:
+            raise RuntimeError(f"raster_setup_merge failed: cudaError {err}")
+
+    return sort_runs, merge, restore, key, order
+
+
+def regime_timing(setup_args, attr, key) -> dict:
+    """Kernel A's regimes on one soup of more rows than a block sorts, each
+    giving the launcher's rows, keys and order: {"runs": {run_rows: (total,
+    runs launch, merge alone) ms}, "merge_ok": {run_rows: order equal to
+    torch.sort's}, "clusters_ms": clusters of 8 (where they hold the item)
+    or None, "torch_sort_ms": torch.sort of the keys}, by CUDA events behind
+    a spin kernel."""
+    import torch
+
+    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
+
+    kernel = rc.RASTER_KERNEL
+    tv, valid, TCO, K, image, colors = setup_args
+    B, Fp = key.shape
+    want = torch.sort(key, dim=1, stable=True).indices
+    out = {"runs": {}, "merge_ok": {}, "clusters_ms": None,
+           "torch_sort_ms": queued_ms(lambda: torch.sort(key, dim=1, stable=True), 20)}
+    for run in RUN_ROWS:
+        got = kernel.setup(*setup_args[:4], image, colors, tri_attr=attr, cluster=-1,
+                           run_rows=run)[2]
+        sort_runs, merge, restore, _, order = merge_launch((*setup_args, attr), run)
+        merge()
+        torch.cuda.synchronize()
+        out["merge_ok"][run] = torch.equal(got, want) and torch.equal(order, want)
+        total = queued_ms(lambda: kernel.setup(*setup_args[:4], image, colors, tri_attr=attr,
+                                               cluster=-1, run_rows=run), 20)
+        out["runs"][run] = (total, queued_ms(sort_runs, 20),
+                            queued_ms(merge, 20) - queued_ms(restore, 20))
+    if Fp <= 8 * kernel.sort_block_rows(key.device):
+        got = kernel.setup(*setup_args[:4], image, colors, tri_attr=attr, cluster=8)[2]
+        if not torch.equal(got, want):
+            raise AssertionError(f"raster_setup at {Fp} rows: clusters of 8 differ")
+        out["clusters_ms"] = queued_ms(lambda: kernel.setup(*setup_args[:4], image, colors,
+                                                            tri_attr=attr, cluster=8), 20)
+    if not all(out["merge_ok"].values()):
+        raise AssertionError(f"raster_setup_merge at {Fp} rows: the order differs from "
+                             f"torch.sort's at runs of {out['merge_ok']}")
+    return out
+
+
+def binned_resolve_timing(rows, order, image, tile, budget) -> dict:
+    """Kernel B above one window on these rows: the binning launch equal to
+    bin_chunks and the listed resolve (with and without the attribute)
+    bit-equal to resolve_plain on bin_chunks' lists, then each timed alone
+    and together (resolve) by CUDA events behind a spin kernel, with their
+    bounds and plain times: {"bin_ms", "listed_ms", "ms", "bin_bound",
+    "listed_bound", "bound", "bin_plain_ms", "listed_plain_ms", "plain_ms",
+    "bin_err", "listed_err", "most_listed", "Kc"}."""
+    import torch
+
+    from cosypose_tpu_torch.ops import rasterizer_cuda as rc
+    from cosypose_tpu_torch.ops.raster_bounds import bin_bound, listed_bound, resolve_bound
+
+    kernel = rc.RASTER_KERNEL
+    lists = kernel.bin_chunks(rows, order, image, tile, budget)
+    out_k = kernel.resolve(rows, order, image, tile, budget, True)
+    out_n = kernel.resolve(rows, order, image, tile, budget, False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srt, idx, counts = rc.bin_chunks(rows, order, image, tile, budget)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out_p = rc.resolve_plain(srt, idx, counts, image, tile, True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    listed_err = max(float((k - p).abs().max()) for k, p in
+                     [*zip(out_k, out_p), *zip(out_n[:2], out_p[:2])])
+    bin_err = max(float((lists[0] - idx).abs().max()), float((lists[1] - counts).abs().max()))
+    if bin_err:
+        raise AssertionError(f"raster_resolve_bin at {tuple(rows.shape[:2])}: lists differ from "
+                             f"bin_chunks'")
+    if not all(torch.equal(k, p) for k, p in zip(out_k, out_p)) \
+            or not all(torch.equal(k, p) for k, p in zip(out_n[:2], out_p[:2])) \
+            or not (out_k[1] > 0).any():
+        raise AssertionError(f"raster_resolve at {tuple(rows.shape[:2])}: kernel vs plain not "
+                             f"equal")
+    return dict(
+        bin_ms=queued_ms(lambda: kernel.bin_chunks(rows, order, image, tile, budget), 20),
+        listed_ms=queued_ms(lambda: kernel.resolve_listed(rows, order, *lists, image, tile,
+                                                          True), 20),
+        ms=queued_ms(lambda: kernel.resolve(rows, order, image, tile, budget, True), 20),
+        bin_bound=bin_bound(rows, order, image, tile, budget)[:2],
+        listed_bound=listed_bound(rows, order, image, tile, budget, True)[:2],
+        bound=resolve_bound(rows, order, image, tile, budget, True)[:2],
+        bin_plain_ms=time_cuda_ms(lambda: rc.bin_chunks(rows, order, image, tile, budget), 2),
+        listed_plain_ms=1e3 * (t2 - t1), plain_ms=1e3 * (t2 - t0), bin_err=bin_err,
+        listed_err=listed_err,
+        most_listed=int(rc.bin_chunks(rows, order, image, tile, 1 << 30)[2].max()),
+        Kc=rc.chunk_budget(budget, rows.shape[1]), out=out_k)
+
+
+def regime_text(t: dict, run: int) -> str:
+    runs = "; ".join(f"{r}: {a:.4f} ({b:.4f} + {c:.4f})" for r, (a, b, c) in t["runs"].items())
+    clusters = "n/a" if t["clusters_ms"] is None else f"{t['clusters_ms']:.4f} ms"
+    return (f"regime 3 by run length (rows: total ms (runs launch + merge alone)) {runs}; the "
+            f"launcher's {run}; clusters of 8 {clusters}; torch.sort of the keys "
+            f"{t['torch_sort_ms']:.4f} ms")
+
+
+def binned_text(t: dict) -> str:
+    (bb, bby), (lb, lby), (b, by) = t["bin_bound"], t["listed_bound"], t["bound"]
+    return (f"kernel B above one window: binning launch {t['bin_ms']:.4f} ms (bound {bb:.4f} ms "
+            f"by {bby}, plain bin_chunks {t['bin_plain_ms']:.2f} ms), listed resolve "
+            f"{t['listed_ms']:.4f} ms (bound {lb:.4f} ms by {lby}, "
+            f"{100 * lb / t['listed_ms']:.2f} %, plain resolve_plain {t['listed_plain_ms']:.1f} ms,"
+            f" one call, host clock), together {t['ms']:.4f} ms (bound {b:.4f} ms by {by}, "
+            f"{100 * b / t['ms']:.2f} %), plain {t['plain_ms']:.1f} ms (one call, host clock); "
+            f"most chunks a tile touches {t['most_listed']}, budget {t['Kc']}; lists equal to "
+            f"bin_chunks', images bit-equal with and without the attribute")
 
 
 def large_soups_phase(tag: str, checked: dict) -> dict:
     """Phase 14, soups of any row count: (a) two items of each of LARGE_ROWS
     rows through render() (the entry point), counts zeroed before and read
-    after, then kernel A against its plain version (its order against
-    torch.sort's, with the launcher's choice and with runs forced) and kernel
-    B against resolve_plain_binned, bit for bit, on the same rows, each
-    timed, with its bound and plain time, and the rank kernel alone at the
-    largest; (b) record_dataset at ycbv-1M's sampler settings (480x640, focal
-    1060-1080, 2-8 objects, one view, cage p 0.9) over a mesh DB of
-    YCBV_OBJECTS seeded 8,192-face meshes (demo.dense_specs, build_mesh_db's
-    defaults): frames/s, launches held to the sampler's render calls; (c) a
-    scene of all 8 objects and the cage (65,896 rows, one camera) through
-    both kernels against their plain versions on the card, bit for bit, with
-    device ms and bounds, and kernel B at smaller windows. Returns {"launches": of (a), "rows": the kernel
-    line's numbers of the rank kernel, "recording": launches of (b)}."""
+    after (runs and their merge, the binning launch and the listed resolve at
+    every size), then kernel A against its plain version (its order against
+    torch.sort's) with the launcher's choice, clusters of 8 forced and runs
+    of every length in RUN_ROWS, each timed with its runs launch and its
+    merge alone beside torch.sort of the keys, and kernel B's binning launch
+    and listed resolve against bin_chunks and resolve_plain, bit for bit,
+    each timed with its bound and plain time; (b) record_dataset at
+    ycbv-1M's sampler settings (480x640, focal 1060-1080, 2-8 objects, one
+    view, cage p 0.9) over a mesh DB of YCBV_OBJECTS seeded 8,192-face
+    meshes (demo.dense_specs, build_mesh_db's defaults): frames/s, launches
+    held to the sampler's render calls; (c) a scene of all 8 objects and the
+    cage (65,896 rows, one camera) through both kernels against their plain
+    versions on the card, bit for bit, timed as in (a). Returns {"launches":
+    of (a), "rows": the kernel line's numbers of the merge, the binning
+    launch and the listed resolve (at the scene), "recording": launches of
+    (b)}."""
     import shutil
 
     import numpy as np
@@ -1693,7 +1837,7 @@ def large_soups_phase(tag: str, checked: dict) -> dict:
     from cosypose_tpu_torch import demo
     from cosypose_tpu_torch.ops import rasterizer_cuda as rc
     from cosypose_tpu_torch.ops.mesh_db import build_mesh_db
-    from cosypose_tpu_torch.ops.raster_bounds import rank_bound, resolve_bound, setup_bound
+    from cosypose_tpu_torch.ops.raster_bounds import rank_bound, setup_bound
     from cosypose_tpu_torch.ops.render import render
     from cosypose_tpu_torch.ops.transforms import invert_T
     from cosypose_tpu_torch.recording import RecordingSceneSampler, record_dataset
@@ -1718,77 +1862,41 @@ def large_soups_phase(tag: str, checked: dict) -> dict:
                max_tris_per_tile=budget, tri_attr=attr)
     torch.cuda.synchronize()
     launches = dict(kernel.launches)
-    runs_sizes = [F for F in LARGE_ROWS if kernel.setup_plan(2, F, dev) < 0]
-    want = {"raster_setup": len(LARGE_ROWS), "raster_setup_rank": len(runs_sizes),
-            "raster_resolve": 0, "raster_resolve_attr": len(LARGE_ROWS)}
+    plans = {F: kernel.setup_plan(2, F, dev) for F in LARGE_ROWS}
+    runs = {F: kernel.run_rows(2, F, dev) for F in LARGE_ROWS}
+    want = {"raster_setup": len(LARGE_ROWS),
+            "raster_setup_merge": sum(kernel.merge_passes(F, runs[F]) for F in LARGE_ROWS),
+            "raster_resolve": 0, "raster_resolve_attr": 0,
+            "raster_resolve_bin": len(LARGE_ROWS), "raster_resolve_listed": len(LARGE_ROWS)}
     log(f"{tag} render() of 2 items at each of {LARGE_ROWS} rows ({LARGE_IMAGE}, tile "
-        f"{SCENE_TILE}, budget {budget}): launches {launches} (want {want}; runs and the rank "
-        f"kernel at {runs_sizes}, clusters at the others: "
-        f"{ {F: kernel.setup_plan(2, F, dev) for F in LARGE_ROWS} })")
-    if launches != want or 262_144 not in runs_sizes:
+        f"{SCENE_TILE}, budget {budget}): launches {launches} (want {want}; the launcher's "
+        f"plans {plans}, runs of {runs} rows, merge passes "
+        f"{ {F: kernel.merge_passes(F, runs[F]) for F in LARGE_ROWS} })")
+    if launches != want or any(p != -1 for p in plans.values()):
         raise AssertionError(f"render() at large soups launched {launches}, want {want}")
 
     for F, (args, attr) in soups.items():
         setup_args = (*args[:4], LARGE_IMAGE, args[4])
         rows, key, order, _, err, abs_err = setup_vs_plain(setup_args, attr)
-        forced = kernel.setup(*args[:4], LARGE_IMAGE, args[4], tri_attr=attr, cluster=-1)
-        if not all(torch.equal(a, b) for a, b in zip(forced, (rows, key, order))):
-            raise AssertionError(f"raster_setup at {F} rows: runs forced differ from the "
-                                 f"launcher's choice")
-        checked["raster_setup"].append(f"large soup: 2 x {F} rows (the launcher's choice and "
-                                       f"runs forced)")
+        checked["raster_setup"].append(f"large soup: 2 x {F} rows (runs of {runs[F]})")
+        checked["raster_setup_merge"].append(f"large soup: 2 x {F} rows, runs of {RUN_ROWS}")
+        regimes = regime_timing(setup_args, attr, key)
         ms_a = queued_ms(lambda: rc.setup(*setup_args, tri_attr=attr), 20)
-        ms_runs = queued_ms(lambda: kernel.setup(*args[:4], LARGE_IMAGE, args[4], tri_attr=attr,
-                                                 cluster=-1), 20)
         plain_a = time_cuda_ms(lambda: rc.sort_order(rc.setup_plain(*setup_args,
                                                                     tri_attr=attr)[1]), 2)
         b_a, by_a = setup_bound(args[0], args[1], args[4], attr, rows, key)[:2]
-        out_k = kernel.resolve(rows, order, LARGE_IMAGE, SCENE_TILE, budget, True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out_p = rc.resolve_plain_binned(rows, order, LARGE_IMAGE, SCENE_TILE, budget, True)
-        torch.cuda.synchronize()
-        plain_b = 1e3 * (time.perf_counter() - t0)
-        if not all(torch.equal(k, p) for k, p in zip(out_k, out_p)) or not (out_k[1] > 0).any():
-            raise AssertionError(f"raster_resolve_attr at {F} rows: kernel vs plain not equal")
-        checked["raster_resolve_attr"].append(f"large soup: 2 x {F} rows, {LARGE_IMAGE}, tile "
-                                              f"{SCENE_TILE}, budget {budget}")
-        ms_b = queued_ms(lambda: kernel.resolve(rows, order, LARGE_IMAGE, SCENE_TILE, budget,
-                                                True), 20)
-        b_b, by_b = resolve_bound(rows, order, LARGE_IMAGE, SCENE_TILE, budget, True)[:2]
-        counts = rc.bin_chunks(rows, order, LARGE_IMAGE, SCENE_TILE, 1 << 30)[2]
-        log(f"{tag} 2 x {F} rows: raster_setup (plan {kernel.setup_plan(2, F, dev)}) vs plain: "
-            f"plane rel err {err['plane']:.3g}, bbox/key {err['bbox_key']:.3g} "
-            f"(<= {rc.SETUP_TOL}), max abs err {abs_err:.3g}, order equal to torch.sort's, the "
-            f"same with runs forced; {ms_a:.4f} ms (runs forced {ms_runs:.4f} ms), bound "
-            f"{b_a:.4f} ms by {by_a}, plain {plain_a:.2f} ms; raster_resolve_attr equal to "
-            f"plain (most chunks a tile touches {int(counts.max())}, budget "
-            f"{rc.chunk_budget(budget, F)}, {-(-F // window)} windows) {ms_b:.4f} ms, bound "
-            f"{b_b:.4f} ms by {by_b}, plain {plain_b:.1f} ms (one call, host clock)")
-        del rows, key, order, out_k, out_p, forced
-
-    # the rank kernel alone, at the largest soup
-    F = LARGE_ROWS[-1]
-    args, attr = soups[F]
-    run_rows = -(-F // -(-F // block))
-    call, key_r, order_r = rank_launch((*args[:4], LARGE_IMAGE, args[4], attr), run_rows)
-    call()
-    torch.cuda.synchronize()
-    e_rank = float((order_r - torch.sort(key_r, dim=1, stable=True).indices).abs().max())
-    ms_rank = queued_ms(call, 20)
-    lib_rank = queued_ms(lambda: torch.sort(key_r, dim=1, stable=True), 20)
-    plain_rank = time_cuda_ms(lambda: rc.rank_runs(key_r, run_rows), 2)
-    b_r, by_r = rank_bound(2, F)
-    log(f"{tag} raster_setup_rank alone at 2 x {F} rows ({-(-F // run_rows)} runs of "
-        f"{run_rows}): order vs torch.sort max abs err {e_rank:g}; {ms_rank:.4f} ms, bound "
-        f"{b_r:.4f} ms by {by_r}, plain (rank_runs) {plain_rank:.2f} ms, library (torch.sort of "
-        f"the keys) {lib_rank:.4f} ms")
-    if e_rank != 0:
-        raise AssertionError("raster_setup_rank: the order differs from torch.sort's")
-    checked["raster_setup_rank"].append(f"large soup: 2 x {F} rows, {-(-F // run_rows)} runs")
-    rank_row = dict(max_abs_err=e_rank, ms=ms_rank, plain_ms=plain_rank, bound_ms=b_r,
-                    bound_by=by_r, library_ms=lib_rank)
-    del soups, call, key_r, order_r
+        b_m, by_m = rank_bound(2, F)
+        b = binned_resolve_timing(rows, order, LARGE_IMAGE, SCENE_TILE, budget)
+        for name in ("raster_resolve_listed", "raster_resolve_bin"):
+            checked[name].append(f"large soup: 2 x {F} rows, {LARGE_IMAGE}, tile {SCENE_TILE}, "
+                                 f"budget {budget}")
+        log(f"{tag} 2 x {F} rows: raster_setup (runs of {runs[F]}) vs plain: plane rel err "
+            f"{err['plane']:.3g}, bbox/key {err['bbox_key']:.3g} (<= {rc.SETUP_TOL}), max abs "
+            f"err {abs_err:.3g}, order equal to torch.sort's; {ms_a:.4f} ms, bound {b_a:.4f} ms "
+            f"by {by_a}, plain {plain_a:.2f} ms; {regime_text(regimes, runs[F])}; the merge's "
+            f"bound {b_m:.4f} ms by {by_m}; {binned_text(b)}")
+        del rows, key, order, b
+    del soups
 
     # (b) recording at ycbv-1M's sampler settings over seeded 8,192-face meshes
     cfg = CONFIGS["ycbv-1M"]
@@ -1810,7 +1918,8 @@ def large_soups_phase(tag: str, checked: dict) -> dict:
     got = dict(kernel.launches)
     n_scene, n_amodal = rec.counts["scene_renders"], rec.counts["amodal_renders"]
     if got["raster_setup"] != n_scene + n_amodal or got["raster_resolve"] != n_amodal \
-            or got["raster_resolve_attr"] != n_scene:
+            or got["raster_resolve_attr"] + got["raster_resolve_listed"] != n_scene \
+            or got["raster_resolve_bin"] != got["raster_resolve_listed"]:
         raise AssertionError(f"ycbv-sized recording launched {got} for {n_scene} scene and "
                              f"{n_amodal} amodal renders")
     t = rec.times
@@ -1835,43 +1944,53 @@ def large_soups_phase(tag: str, checked: dict) -> dict:
     attr = on(ids)
     rows, key, order, _, err, abs_err = setup_vs_plain(setup_args, attr)
     Fp = rows.shape[1]
+    if Fp != 65_896:
+        raise AssertionError(f"the ycbv-sized scene has {Fp} rows, want 65,896")
     budget_s = min(Fp, SCENE_BUDGET)
-    out_k = kernel.resolve(rows, order, res, SCENE_TILE, budget_s, True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out_p = rc.resolve_plain_binned(rows, order, res, SCENE_TILE, budget_s, True)
-    torch.cuda.synchronize()
-    plain_b = 1e3 * (time.perf_counter() - t0)
-    if not all(torch.equal(k, p) for k, p in zip(out_k, out_p)) or Fp != 65_896:
-        raise AssertionError(f"the ycbv-sized scene ({Fp} rows): kernel vs plain not equal")
+    run = kernel.run_rows(1, Fp, dev)
+    regimes = regime_timing(setup_args, attr, key)
+    b = binned_resolve_timing(rows, order, res, SCENE_TILE, budget_s)
     checked["raster_setup"].append(f"ycbv-1M-sized scene: 1 x {Fp} rows, {res}")
-    checked["raster_resolve_attr"].append(f"ycbv-1M-sized scene: 1 x {Fp} rows, {res}, tile "
-                                          f"{SCENE_TILE}, budget {budget_s}")
+    checked["raster_setup_merge"].append(f"ycbv-1M-sized scene: 1 x {Fp} rows, runs of "
+                                         f"{RUN_ROWS}")
+    for name in ("raster_resolve_listed", "raster_resolve_bin"):
+        checked[name].append(f"ycbv-1M-sized scene: 1 x {Fp} rows, {res}, tile {SCENE_TILE}, "
+                             f"budget {budget_s}")
     ms_a = queued_ms(lambda: rc.setup(*setup_args, tri_attr=attr), 20)
-    ms_b = queued_ms(lambda: kernel.resolve(rows, order, res, SCENE_TILE, budget_s, True), 20)
     b_a, by_a = setup_bound(setup_args[0], setup_args[1], setup_args[5], attr, rows, key)[:2]
-    b_b, by_b = resolve_bound(rows, order, res, SCENE_TILE, budget_s, True)[:2]
-    counts = rc.bin_chunks(rows, order, res, SCENE_TILE, 1 << 30)[2]
-    # smaller windows than the largest that fits: more blocks an SM, more windows
-    by_window = {}
-    for w in YCBV_WINDOWS:
-        out_w = kernel.resolve(rows, order, res, SCENE_TILE, budget_s, True, window=w)
-        if not all(torch.equal(k, p) for k, p in zip(out_w, out_k)):
-            raise AssertionError(f"the ycbv-sized scene: windows of {w} rows change the image")
-        by_window[w] = queued_ms(lambda: kernel.resolve(rows, order, res, SCENE_TILE, budget_s,
-                                                        True, window=w), 20)
-    log(f"{tag} ycbv-1M-sized scene, kernel B by window (rows: ms, the same image): "
-        f"{ {window: ms_b, **by_window} }")
+    b_m, by_m = rank_bound(1, Fp)
+    _, merge, _, key_m, order_m = merge_launch((*setup_args, attr), run)
+    merge()
+    torch.cuda.synchronize()
+    e_merge = float((order_m - torch.sort(key_m, dim=1, stable=True).indices).abs().max())
+    plain_m = time_cuda_ms(lambda: rc.merge_runs(key_m, run), 1, warmup=0)
     log(f"{tag} ycbv-1M-sized scene (1 camera x {Fp} rows, {res[0]}x{res[1]}, tile {SCENE_TILE},"
-        f" budget {budget_s}; most chunks a tile touches {int(counts.max())}, "
-        f"{int((out_k[1] > 0).sum())} pixels drawn, ids {sorted(out_k[2].unique().tolist())}): "
-        f"raster_setup (plan {kernel.setup_plan(1, Fp, dev)}) vs plain plane rel err "
+        f" budget {budget_s}; {int((b['out'][1] > 0).sum())} pixels drawn, ids "
+        f"{sorted(b['out'][2].unique().tolist())}): raster_setup (plan "
+        f"{kernel.setup_plan(1, Fp, dev)}, runs of {run}) vs plain plane rel err "
         f"{err['plane']:.3g}, bbox/key {err['bbox_key']:.3g}, order equal to torch.sort's, "
-        f"{ms_a:.4f} ms, bound {b_a:.4f} ms by {by_a}; raster_resolve_attr equal to plain on "
-        f"the card, {ms_b:.4f} ms, bound {b_b:.4f} ms by {by_b}, plain {plain_b:.1f} ms")
+        f"{ms_a:.4f} ms, bound {b_a:.4f} ms by {by_a}; {regime_text(regimes, run)}; the merge's "
+        f"bound {b_m:.4f} ms by {by_m}, plain (merge_runs) {plain_m:.1f} ms, its order vs "
+        f"torch.sort's max abs err {e_merge:g}; {binned_text(b)}")
+    if e_merge:
+        raise AssertionError("raster_setup_merge at the ycbv-sized scene: the order differs")
+    merge_ms = regimes["runs"][run][2]
+    rows_out = {
+        "raster_setup_merge": dict(max_abs_err=e_merge, ms=merge_ms, plain_ms=plain_m,
+                                   bound_ms=b_m, bound_by=by_m,
+                                   library_ms=regimes["torch_sort_ms"]),
+        "raster_resolve_bin": dict(max_abs_err=b["bin_err"], ms=b["bin_ms"],
+                                   plain_ms=b["bin_plain_ms"],
+                                   bound_ms=b["bin_bound"][0], bound_by=b["bin_bound"][1],
+                                   library_ms=None),
+        "raster_resolve_listed": dict(max_abs_err=b["listed_err"], ms=b["listed_ms"],
+                                      plain_ms=b["listed_plain_ms"],
+                                      bound_ms=b["listed_bound"][0],
+                                      bound_by=b["listed_bound"][1], library_ms=None)}
+    del merge, key_m, order_m
     shutil.rmtree(out_dir, ignore_errors=True)
     log(f"phase 14 took {time.perf_counter() - t_phase:.0f} s")
-    return {"launches": launches, "rank": rank_row, "recording": got}
+    return {"launches": launches, "rows": rows_out, "recording": got}
 
 
 def cmyk_readers(fx, arrays: dict) -> str:
@@ -3033,7 +3152,8 @@ def main() -> int:
         got = dict(kernel.launches)
         n_scene, n_amodal = sampler.counts["scene_renders"], sampler.counts["amodal_renders"]
         want = {"raster_setup": n_scene + n_amodal, "raster_resolve": n_amodal,
-                "raster_resolve_attr": n_scene, "raster_setup_rank": 0}
+                "raster_resolve_attr": n_scene, "raster_setup_merge": 0,
+                "raster_resolve_bin": 0, "raster_resolve_listed": 0}
         if got != want:
             raise AssertionError(f"recording {name} launched {got}, want {want} (one attribute "
                                  f"launch a scene render, one plain launch an amodal render)")
@@ -3122,7 +3242,8 @@ def main() -> int:
         wall = time.perf_counter() - t0
         got = dict(kernel.launches)
         want = {"raster_setup": steps * n_it_p, "raster_resolve": steps * n_it_p,
-                "raster_resolve_attr": 0, "raster_setup_rank": 0}
+                "raster_resolve_attr": 0, "raster_setup_merge": 0,
+                "raster_resolve_bin": 0, "raster_resolve_listed": 0}
         rec = [json.loads(line) for line in (run_dir_p / "log.txt").read_text().splitlines()][-1]
         losses = [rec[k] for k in rec if k.startswith("train/loss")]
         if got != want or trained_p.step != 1 + steps or not all(
@@ -3176,7 +3297,8 @@ def main() -> int:
     n_eval = len(acc["TCO_init"])
     chunks_e = math.ceil(n_eval / EVAL_BSZ)
     want = {"raster_setup": chunks_e * EVAL_ITERATIONS, "raster_resolve": chunks_e * EVAL_ITERATIONS,
-            "raster_resolve_attr": 0, "raster_setup_rank": 0}
+            "raster_resolve_attr": 0, "raster_setup_merge": 0,
+            "raster_resolve_bin": 0, "raster_resolve_listed": 0}
     per_pair = acc["per_pair"]
     final_e = acc["predictions"][f"iteration={EVAL_ITERATIONS}"]
     if launches_acc != want or not all(math.isfinite(v) for e in per_pair.values()
@@ -3204,7 +3326,7 @@ def main() -> int:
     ar, ar_t, renders, _ = bop19_ar_timed(final_e, val_depth, db_p, EVAL_FRAMES)
     launches_ar = dict(kernel.launches)
     want = {"raster_setup": len(groups), "raster_resolve": len(groups), "raster_resolve_attr": 0,
-            "raster_setup_rank": 0}
+            "raster_setup_merge": 0, "raster_resolve_bin": 0, "raster_resolve_listed": 0}
     if launches_ar != want or len(renders) != len(groups) or ar["n_gt"] <= 0 \
             or not all(0.0 <= ar[k] <= 1.0 for k in ("AR", "AR_vsd", "AR_mssd", "AR_mspd")):
         raise AssertionError(f"compute_bop19_ar: launches {launches_ar} (want {want}), "
@@ -3423,7 +3545,8 @@ def main() -> int:
     wall = time.perf_counter() - t0
     got = dict(kernel.launches)
     want = {"raster_setup": MINI_STEPS * n_it_m, "raster_resolve": MINI_STEPS * n_it_m,
-            "raster_resolve_attr": 0, "raster_setup_rank": 0}
+            "raster_resolve_attr": 0, "raster_setup_merge": 0,
+            "raster_resolve_bin": 0, "raster_resolve_listed": 0}
     rec = [json.loads(line) for line in (run_dir_m / "log.txt").read_text().splitlines()][-1]
     if got != want or state_m.step != 1 + MINI_STEPS or not (run_dir_m / "config.yaml").exists() \
             or not math.isfinite(rec["train/loss_total"]):
@@ -3488,7 +3611,7 @@ def main() -> int:
     n_ref = 4
     want = {"raster_setup": chunks_b * n_ref + ar_groups,
             "raster_resolve": chunks_b * n_ref + ar_groups, "raster_resolve_attr": 0,
-            "raster_setup_rank": 0}
+            "raster_setup_merge": 0, "raster_resolve_bin": 0, "raster_resolve_listed": 0}
     ar_b, meter_b = bop["metrics"]["bop19_ar"], bop["metrics"]["pose"]
     csv_rows = len(bop["csv_paths"]["pose"].read_text().splitlines()) - 1
     if launches_det != want or csv_rows != len(preds_b) or not torch.isfinite(preds_b.poses).all() \
@@ -3566,7 +3689,7 @@ def main() -> int:
         t_groups.append(time.perf_counter() - t0)
     launches_icp = dict(kernel.launches)
     want = {"raster_setup": len(icp_in), "raster_resolve": len(icp_in), "raster_resolve_attr": 0,
-            "raster_setup_rank": 0}
+            "raster_setup_merge": 0, "raster_resolve_bin": 0, "raster_resolve_listed": 0}
     t_host, t_render, t_loop = [], [], []
     for x in icp_in:   # the same groups again, refine_poses' steps timed apart
         t0 = time.perf_counter()
@@ -3745,7 +3868,8 @@ def main() -> int:
     chunks_i = sum(math.ceil(n / EVAL_BSZ) for n in per_frame_i.values())
     want = {"raster_setup": chunks_i * n_ref + len(frames_i) + ar_groups,
             "raster_resolve": chunks_i * n_ref + len(frames_i) + ar_groups,
-            "raster_resolve_attr": 0, "raster_setup_rank": 0}
+            "raster_resolve_attr": 0, "raster_setup_merge": 0,
+            "raster_resolve_bin": 0, "raster_resolve_listed": 0}
     sec_i = bop_i["seconds"]
     log(f"{tag} run_bop_inference --dataset procedural --icp ({n_frames_b} val frames, "
         f"{len(preds_i['icp'])} detections): {wall_bi:.2f} s with set-up and metrics, "
@@ -3815,7 +3939,7 @@ def main() -> int:
 
     # -- 14. soups of any row count -------------------------------------------------
     large = large_soups_phase(tag, checked)
-    rows_json["raster_setup_rank"] = large["rank"]
+    rows_json.update(large["rows"])
     log(f"phase 14 done at {time.perf_counter() - t_main:.0f} s")
 
     # -- results --------------------------------------------------------------
@@ -3841,8 +3965,7 @@ def main() -> int:
                     launches_ycbv_recording=large["recording"][name],
                     checked_at=checked[name],
                     **{"library_ms": None, **rows_json[name]})
-               for name in ("raster_setup", "raster_setup_rank", "raster_resolve",
-                            "raster_resolve_attr")]
+               for name in SOURCES]
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -80,12 +80,12 @@ def main(tiles=((16, 32), (8, 64), (32, 32))) -> int:
         nty, ntx = rc.tile_grid(RENDER, tile)
         for name, lib in libs.items():
             fn = ctypes.CDLL(str(lib)).cosypose_raster_resolve
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
             def launch():
                 err = fn(rows.data_ptr(), order.data_ptr(), rgb.data_ptr(), depth.data_ptr(), None,
-                         None, None, None, B, Fp, rc.chunk_budget(1024, Fp), H, W, *tile, nty,
-                         ntx, 0, Fp, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+                         B, Fp, rc.chunk_budget(1024, Fp), H, W, *tile, nty, ntx, 0,
+                         dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
                 if err:
                     raise RuntimeError(f"variant {name!r}: cudaError {err}")
 

@@ -1,6 +1,7 @@
 // Triangle setup and y-sort of the binned rasterizer, for Hopper (sm_90a):
 // kernel A of the raster path (raster_setup -> raster_resolve, two launches;
-// above 8 blocks' rows an item, raster_setup -> raster_rank -> raster_resolve).
+// above one block's rows an item, raster_setup, then raster_merge once a
+// pass, then raster_resolve).
 //
 // Replaces the XLA plane setup and packing that feed the Pallas TPU kernel
 // cosypose_tpu/ops/rasterizer_pallas.py: camera transform (:149-155),
@@ -56,17 +57,16 @@
 //     when the items alone fill the SMs, up to 8 when few items would leave
 //     most SMs idle, and no more than lets every cluster be resident at
 //     once), each block a slice of at most ceil(Fp / C) rows.
-//  2. S < Fp <= 8 S: the same kernel in clusters of at least ceil(Fp / S)
-//     blocks, so that every slice fits one block, where
-//     cudaOccupancyMaxActiveClusters says such a cluster can be resident (a
-//     block then fills an SM's shared memory, and a cluster must fit one GPC).
-//  3. Above that, or where no such cluster can be resident: blocks of one
-//     slice each (at most S rows, no cluster), each writing its sorted run of
-//     composites to a scratch the wrapper allocates (8 B a row), then a
-//     second kernel, raster_rank_kernel, that ranks each composite among the
-//     item's other runs by the same binary searches, in device memory. The
-//     one case where a render takes three launches.
-// In each block:
+//  2. S < Fp <= 8 S, only where the caller forces it (cluster = C): the same
+//     kernel in clusters of at least ceil(Fp / S) blocks, so that every
+//     slice fits one block.
+//  3. Fp > S, the launcher's choice: blocks of one run each (run_rows rows,
+//     no cluster), each writing its sorted run of composites to device
+//     memory (8 B a row), then raster_merge_kernel, one launch a pass,
+//     merging the runs in pairs until one run holds the item; the last pass
+//     writes the order. The one case where a render takes more than two
+//     launches.
+// In each block of raster_setup_kernel:
 //  1. Its threads stride over the slice's rows; each row is computed and
 //     written as eight 16-byte stores, and its composite key goes to shared
 //     memory: the high 32 bits an order-preserving map of the float key
@@ -82,17 +82,40 @@
 //     the cluster), the searches of a composite in up to 8 slices interleaved
 //     so that their loads overlap (rank_in_runs), and writes
 //     order[b, rank] = f: no merge buffer, no second pass. In regime 3 the
-//     rank kernel does the same over the runs in device memory, 8 runs a
-//     step.
+//     block writes its sorted run.
 // In regimes 1 and 2 the keys never leave the SM: only the permutation is
 // written.
 //
-// Times on an H100: PERF.md §6. In regime 2 a block of 512 threads ranks up
-// to 16,384 composites, each by ~15 dependent probes of the other slices'
-// distributed shared memory: at 65,896 and 131,072 rows an item that took
-// longer than regime 3's runs and rank kernel (its probes, in L2, spread
-// over the whole card), a lead for a later change of the launcher.
-//
+// Regime 3 on an H100 (chip_smoke.py phase 14, PERF.md §6). What bounds it
+// is latency, not bytes: the merge moves 16 B a key a pass (0.0025 ms a
+// pass at 2 x 262,144 rows), the runs launch is 132 SMs each running one
+// bitonic sort. The rank kernel before it ranked each composite among every
+// other run by binary searches in device memory (~15 dependent 8-byte probes
+// a run a key), after 16,384-row runs whose bitonic sorts took most of 0.52
+// ms.
+// This design:
+//  - Run length (RasterKernels.run_rows): the shortest power of two from
+//    256 with which the runs launch is one wave (B x runs at most the SM
+//    count; a block of this kernel holds an SM's registers). A bitonic sort
+//    costs ~log^2 of its length a row, so short runs are cheap, but each
+//    halving adds a merge pass (~6-8 us): at every size phase 14 times, this
+//    rule picked the fastest of the lengths 256-16,384.
+//  - The merge: pairwise merge path, log2(runs) launches (chosen over one
+//    k-way pass: with up to 128 runs an item a k-way split needs a search in
+//    every run for every block, the per-key searches this replaces in
+//    smaller form, where a pairwise split is one 32-probe search of two runs
+//    a block). Each block owns kMergeTile outputs: one warp each finds where
+//    its first and last output split the two runs (co_rank, 32 probes a
+//    step, ~4 dependent loads), the block stages the two spans into shared
+//    memory with cp.async, each thread finds its own split there and merges
+//    kMergeEach outputs, and the block writes them coalesced. The passes
+//    alternate between a scratch and `order` itself, so no copy is made.
+//  - Above S the launcher takes regime 3 at every shape: phase 14 measured
+//    it 2.5 to 8.4 times faster than regime 2's clusters (2 x 65,896 rows:
+//    0.072-0.074 against 0.495-0.498 ms), which rank through distributed
+//    shared memory by dependent probes; the merge alone takes less than
+//    torch.sort of the same keys at every size there.
+
 // Exactness: the arithmetic follows the association of the plain version's
 // ops (corners as ((r0 v0 + r1 v1) + r2 v2) + t, sums of three in order) with
 // __fmul_rn / __fadd_rn / __fdiv_rn / __fsqrt_rn, and the build passes
@@ -103,6 +126,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <algorithm>
 
 namespace cg = cooperative_groups;
 
@@ -334,7 +359,7 @@ __device__ __forceinline__ int rank_in_runs(unsigned long long k,
 
 // One block a slice of `slice` rows, n_slices slices an item (in clusters of
 // n_slices blocks, or, with `runs`, blocks without a cluster that write their
-// sorted slices to runs for raster_rank_kernel).
+// sorted slices to runs for raster_merge_kernel).
 __global__ void __launch_bounds__(kThreads, 1) raster_setup_kernel(
     const float* __restrict__ tri_verts, const unsigned char* __restrict__ tri_valid,
     const float* __restrict__ TCO, const float* __restrict__ K,
@@ -362,7 +387,7 @@ __global__ void __launch_bounds__(kThreads, 1) raster_setup_kernel(
   __syncthreads();
   bitonic_sort(keys, slice_pow2);
 
-  if (runs) {  // regime 3: the sorted run, for raster_rank_kernel
+  if (runs) {  // regime 3: the sorted run, for raster_merge_kernel
     unsigned long long* run = runs + static_cast<long long>(b) * Fp + lo;
     for (int i = threadIdx.x; i < n; i += blockDim.x) run[i] = keys[i];
     return;
@@ -390,48 +415,124 @@ __global__ void __launch_bounds__(kThreads, 1) raster_setup_kernel(
   cluster.sync();  // no block leaves while another still reads its slice
 }
 
-// Regime 3's second kernel: each composite of runs (B, Fp), sorted in slices
-// of `slice` rows, ranked among the other slices of its item, and
-// order[b, rank] = f.
-__global__ void __launch_bounds__(256) raster_rank_kernel(
-    const unsigned long long* __restrict__ runs, long long* __restrict__ order, int B, int Fp,
-    int slice) {
-  const int n_slices = (Fp + slice - 1) / slice;
-  const long long total = static_cast<long long>(B) * Fp;
-  for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; p < total;
-       p += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int b = static_cast<int>(p / Fp);
-    const int s = static_cast<int>(p - static_cast<long long>(b) * Fp);
-    const int part = s / slice;
-    const unsigned long long* item = runs + static_cast<long long>(b) * Fp;
-    const unsigned long long k = item[s];
-    int pos = s - part * slice;
-    for (int r0 = 0; r0 < n_slices; r0 += kMaxCluster) {
-      const unsigned long long* run[kMaxCluster];
-      int size[kMaxCluster];
-#pragma unroll
-      for (int j = 0; j < kMaxCluster; ++j) {
-        const int r = r0 + j;
-        run[j] = r < n_slices ? item + static_cast<long long>(r) * slice : item;
-        size[j] = r < n_slices && r != part ? min(slice, Fp - r * slice) : 0;
-      }
-      pos += rank_in_runs(k, run, size, slice);
-    }
-    order[static_cast<long long>(b) * Fp + pos] = static_cast<long long>(static_cast<unsigned>(k));
+// Regime 3's merge (raster_merge_kernel), one launch a pass: the item's
+// runs of `width` composites (the last one shorter) merged in pairs, runs
+// 2p and 2p + 1 into one run of 2 width. Each block owns kMergeTile
+// consecutive outputs of one pair: two warps find where the block's first
+// and last output split the two runs (co_rank), the block stages those two
+// spans into shared memory with cp.async, each thread merges kMergeEach
+// outputs there from its own split (a binary search in shared memory), and
+// the block writes its outputs coalesced: composites to `dst`, or, in the
+// last pass, their low halves to `order`. Composites are unique, so no two
+// keys compare equal and the merge is stable by construction.
+constexpr int kMergeThreads = 256;
+constexpr int kMergeTile = 2048;  // outputs a block
+constexpr int kMergeEach = kMergeTile / kMergeThreads;
+constexpr unsigned kAll = 0xffffffffu;
+
+// How many of the d smallest composites of the merge of sorted a[0:m] and
+// b[0:n] come from a: the first i in [max(0, d - n), min(d, m)] with
+// !(a[i] < b[d - 1 - i]) (the predicate holds below it and fails from it on).
+// One warp, 32 probes a step (ops/rasterizer_cuda.co_rank is the same in
+// PyTorch, one probe a step).
+__device__ int co_rank(const unsigned long long* __restrict__ a, int m,
+                       const unsigned long long* __restrict__ b, int n, int d) {
+  const int lane = threadIdx.x & 31;
+  int lo = max(0, d - n), hi = min(d, m);
+  while (hi - lo > 32) {  // probes lo < p_0 < ... < p_31 < hi
+    const int p = lo + static_cast<int>((static_cast<long long>(lane + 1) * (hi - lo)) / 33);
+    const int below = __popc(__ballot_sync(kAll, __ldg(a + p) < __ldg(b + d - 1 - p)));
+    const int p_last = __shfl_sync(kAll, p, max(below - 1, 0));
+    const int p_next = __shfl_sync(kAll, p, min(below, 31));
+    if (below > 0) lo = p_last + 1;
+    if (below < 32) hi = p_next;
   }
+  const int p = lo + lane;
+  return lo + __popc(__ballot_sync(kAll, p < hi && __ldg(a + p) < __ldg(b + d - 1 - p)));
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__global__ void __launch_bounds__(kMergeThreads) raster_merge_kernel(
+    const unsigned long long* __restrict__ src, unsigned long long* __restrict__ dst,
+    long long* __restrict__ order, int Fp, int width, int tiles_per_pair) {
+  __shared__ unsigned long long in[kMergeTile];   // the two spans, a's then b's
+  __shared__ unsigned long long out[kMergeTile];  // the block's outputs, merged
+  __shared__ int split[2];
+  const int pair = static_cast<int>(blockIdx.x) / tiles_per_pair;
+  const int d0 = (static_cast<int>(blockIdx.x) - pair * tiles_per_pair) * kMergeTile;
+  const long long a0 = 2LL * pair * width;  // the pair's first row in the item
+  const int m = static_cast<int>(min(static_cast<long long>(width), Fp - a0));
+  const int n = static_cast<int>(max(0LL, min(static_cast<long long>(width), Fp - a0 - m)));
+  if (d0 >= m + n) return;
+  const int d1 = min(d0 + kMergeTile, m + n);
+  const long long base = static_cast<long long>(blockIdx.y) * Fp + a0;
+  const unsigned long long* a = src + base;
+  const unsigned long long* b = a + m;
+
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const int i = co_rank(a, m, b, n, warp ? d1 : d0);
+    if ((threadIdx.x & 31) == 0) split[warp] = i;
+  }
+  __syncthreads();
+  const int i0 = split[0], la = split[1] - i0;
+  const int j0 = d0 - i0, len = d1 - d0, lb = len - la;
+  for (int k = threadIdx.x; k < len; k += kMergeThreads)
+    cp_async8(in + k, k < la ? a + i0 + k : b + j0 + (k - la));
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int k0 = threadIdx.x * kMergeEach;
+  if (k0 < len) {
+    int lo = max(0, k0 - lb), hi = min(k0, la);  // co_rank of k0 in in[0:la], in[la:len]
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (in[mid] < in[la + k0 - 1 - mid]) lo = mid + 1;
+      else hi = mid;
+    }
+    int i = lo, j = k0 - lo;
+    const int k1 = min(k0 + kMergeEach, len);
+    for (int k = k0; k < k1; ++k) {
+      const bool from_a = j >= lb || (i < la && in[i] < in[la + j]);
+      out[k] = from_a ? in[i++] : in[la + j++];
+    }
+  }
+  __syncthreads();
+  if (order) {
+    long long* o = order + base + d0;
+    for (int k = threadIdx.x; k < len; k += kMergeThreads)
+      o[k] = static_cast<long long>(static_cast<unsigned>(out[k]));
+  } else {
+    unsigned long long* o = dst + base + d0;
+    for (int k = threadIdx.x; k < len; k += kMergeThreads) o[k] = out[k];
+  }
+}
+
+// The merge passes of runs of run_rows rows: ceil(log2(runs)), at least one
+// (a lone run is copied to `order` by the last pass).
+static int merge_passes(int Fp, int run_rows) {
+  int passes = 1;
+  for (long long w = 2LL * run_rows; w < Fp; w *= 2) ++passes;
+  return passes;
 }
 
 // Grid, cluster and shared memory of raster_setup_kernel for B items of Fp
 // rows, n_slices slices an item, in clusters of `cluster` blocks (n_slices, or
-// 1 for regime 3).
+// 1 for regime 3), slices of ceil(Fp / slices) rows or, where given,
+// `slice_rows`.
 struct SetupLaunch {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t config = {};
   int slice = 0, slice_pow2 = 1, n_slices = 1;
 
-  cudaError_t configure(int B, int Fp, int slices, int cluster, cudaStream_t stream) {
+  cudaError_t configure(int B, int Fp, int slices, int cluster, cudaStream_t stream,
+                        int slice_rows = 0) {
     n_slices = slices;
-    slice = (Fp + slices - 1) / slices;
+    slice = slice_rows > 0 ? slice_rows : (Fp + slices - 1) / slices;
     slice_pow2 = 1;
     while (slice_pow2 < slice) slice_pow2 <<= 1;
     const size_t smem = static_cast<size_t>(slice_pow2) * sizeof(unsigned long long);
@@ -478,38 +579,32 @@ static int block_rows(int device) {
 // be read.
 extern "C" int cosypose_raster_setup_block_rows(int device) { return block_rows(device); }
 
-// The launcher's choice for B items of Fp rows on `device`: the blocks a
-// cluster (regime 1: 1 to 8, the most, up to 8, that the SMs hold for B
+// The launcher's choice for B items of Fp rows on `device`: regime 1, the
+// blocks a cluster (1 to 8: the most, up to 8, that the SMs hold for B
 // items, that leave kMinSlice rows a block, and for which all B clusters are
 // resident at once, since a cluster lives within one GPC and B x C blocks
-// below the SM count may still need a second wave; regime 2: the same choice
-// raised to ceil(Fp / S), kept where at least one such cluster can be
-// resident), or 0 for regime 3 (sorted runs in device memory and
-// raster_rank_kernel). A negative value is a CUDA error negated.
+// below the SM count may still need a second wave), where Fp <= S; above
+// S, 0 for regime 3 (sorted runs in device memory and their merge), which
+// took 2.5 to 8.4 times less time than regime 2's clusters on an H100
+// (PERF.md §6). A negative value is a CUDA error negated.
 extern "C" int cosypose_raster_setup_plan(int B, int Fp, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
   const int S = block_rows(device);
   if (S <= 0) return S;
-  const long long need_ll = (static_cast<long long>(Fp) + S - 1) / S;
-  if (need_ll > kMaxCluster) return 0;
-  const int need = max(1, static_cast<int>(need_ll));
+  if (Fp > S) return 0;
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  int cluster = max(need, min(min(kMaxCluster, sms / max(B, 1)), (Fp + kMinSlice - 1) / kMinSlice));
+  int cluster = max(1, min(min(kMaxCluster, sms / max(B, 1)), (Fp + kMinSlice - 1) / kMinSlice));
   SetupLaunch launch;
-  for (; cluster > need; --cluster) {
+  for (; cluster > 1; --cluster) {
     int resident = 0;
     err = launch.resident(B, Fp, cluster, &resident);
     if (err != cudaSuccess) return -static_cast<int>(err);
     if (resident >= B) return cluster;
   }
-  if (need == 1) return 1;
-  int resident = 0;
-  err = launch.resident(B, Fp, need, &resident);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  return resident > 0 ? need : 0;
+  return 1;
 }
 
 // Plain C entry point, loaded with ctypes. `colors` and `tri_attr` may be
@@ -518,7 +613,7 @@ extern "C" int cosypose_raster_setup_plan(int B, int Fp, int device) {
 // the launcher choose as cosypose_raster_setup_plan does (an error where
 // that choice is regime 3). With `runs` (B x Fp composites, 8 B each):
 // regime 3, blocks of `run_rows` rows each (at most S) writing their sorted
-// runs there, and order untouched until cosypose_raster_setup_rank.
+// runs there, and order untouched until cosypose_raster_setup_merge.
 // Launches on `stream` and returns the launch's error (0 when it was
 // accepted).
 extern "C" int cosypose_raster_setup(
@@ -533,7 +628,7 @@ extern "C" int cosypose_raster_setup(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (runs) {
     if (run_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
-    err = launch.configure(B, Fp, (Fp + run_rows - 1) / run_rows, 1, s);
+    err = launch.configure(B, Fp, (Fp + run_rows - 1) / run_rows, 1, s, run_rows);
   } else {
     if (cluster > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
     if (cluster <= 0) {
@@ -551,21 +646,40 @@ extern "C" int cosypose_raster_setup(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Regime 3's second launch: order (B, Fp) from the runs that
-// cosypose_raster_setup wrote with the same run_rows, on `stream`.
-extern "C" int cosypose_raster_setup_rank(const unsigned long long* runs, long long* order, int B,
-                                          int Fp, int run_rows, int device, void* stream) {
+// The merge passes regime 3 takes for runs of run_rows rows: how many
+// launches cosypose_raster_setup_merge makes. The wrapper has
+// cosypose_raster_setup write the runs to `scratch` where this is odd and to
+// `order` where it is even: the passes alternate between the two, and the
+// last reads `scratch` and writes `order`.
+extern "C" int cosypose_raster_setup_merge_passes(int Fp, int run_rows) {
+  return run_rows > 0 ? merge_passes(Fp, run_rows) : -static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Regime 3's merge: order (B, Fp) from the runs of run_rows rows that
+// cosypose_raster_setup wrote (to scratch or order, as above), one launch a
+// pass on `stream`; `scratch` holds B x Fp composites.
+extern "C" int cosypose_raster_setup_merge(unsigned long long* scratch, long long* order, int B,
+                                           int Fp, int run_rows, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || Fp == 0) return 0;
-  if (run_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // a grid-stride loop over the B x Fp composites
-  const long long blocks = (static_cast<long long>(B) * Fp + 255) / 256;
-  const unsigned grid = static_cast<unsigned>(blocks < 32LL * sms ? blocks : 32LL * sms);
-  raster_rank_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(runs, order, B, Fp,
-                                                                          run_rows);
-  return static_cast<int>(cudaGetLastError());
+  if (run_rows <= 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned long long* other = reinterpret_cast<unsigned long long*>(order);
+  const int passes = merge_passes(Fp, run_rows);
+  for (int p = 0; p < passes; ++p) {
+    const long long width = static_cast<long long>(run_rows) << p;
+    const bool from_scratch = (passes - 1 - p) % 2 == 0;
+    const int pairs = static_cast<int>((Fp + 2 * width - 1) / (2 * width));
+    const int tiles = static_cast<int>(
+        (std::min(2 * width, static_cast<long long>(Fp)) + kMergeTile - 1) / kMergeTile);
+    const dim3 grid(static_cast<unsigned>(pairs) * static_cast<unsigned>(tiles),
+                    static_cast<unsigned>(B));
+    raster_merge_kernel<<<grid, kMergeThreads, 0, s>>>(
+        from_scratch ? scratch : other, from_scratch ? other : scratch,
+        p == passes - 1 ? order : nullptr, Fp, static_cast<int>(width), tiles);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

@@ -7,6 +7,8 @@ One bound for every reader: scripts/bench_stages.py and chip_smoke.py.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..utils.card import H100_SXM, PEAK_FLOPS
@@ -78,7 +80,31 @@ def setup_bound(tri_verts, tri_valid, colors, tri_attr, rows, ykey):
 
 
 def rank_bound(B: int, Fp: int):
-    """(bound_ms, by) of kernel A's rank kernel (its regime of sorted runs in
-    device memory): the runs (8 B a row) read once and the order (8 B a row)
-    written once. Its binary searches compare integers: no fp32 operations."""
+    """(bound_ms, by) of kernel A's merge (its regime of sorted runs in
+    device memory), all its passes: the runs (8 B a row) read once and the
+    order (8 B a row) written once. It compares integers: no fp32
+    operations."""
     return bound(0.0, 16 * B * Fp)
+
+
+def bin_bound(rows, order, image, tile, budget):
+    """(bound_ms, by, bytes) of kernel B's binning launch: the order (8 B a
+    row) and each row's valid and bbox lanes (20 B) read once, the lists (4 B
+    a slot of Kc) and the counts (4 B a tile) written once; its overlap
+    tests, 4 comparisons a (chunk, tile), are counted as operations."""
+    B, Fp = order.shape
+    n_tiles = math.prod(rc.tile_grid(image, tile))
+    Kc = rc.chunk_budget(budget, Fp)
+    n_bytes = 28 * B * Fp + 4 * B * n_tiles * (Kc + 1)
+    return (*bound(4 * B * n_tiles * (Fp // rc.CHUNK), n_bytes), n_bytes)
+
+
+def listed_bound(rows, order, image, tile, budget, with_attr):
+    """(bound_ms, by, visits, bytes) of kernel B's listed resolve alone: the
+    work and bytes of resolve_bound, with the binning launch's lists (4 B a
+    slot of Kc) and counts (4 B a tile) read once on top."""
+    B, Fp = order.shape
+    n_tiles = math.prod(rc.tile_grid(image, tile))
+    visits, n_bytes = resolve_bound(rows, order, image, tile, budget, with_attr)[2:]
+    n_bytes += 4 * B * n_tiles * (rc.chunk_budget(budget, Fp) + 1)
+    return (*bound(visits * FLOPS_PER_VISIT, n_bytes), visits, n_bytes)

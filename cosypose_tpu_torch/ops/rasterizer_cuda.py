@@ -8,11 +8,15 @@ headlight shading baked into the colour planes). A call is
            triangle, its y-sort key, and the rows' stable order by key
            (sorted inside the kernel, where the JAX package argsorts): in
            one block an item, in a cluster of blocks, or, for the largest
-           items, in runs that a second kernel (raster_setup_rank) ranks;
+           items, in sorted runs that a merge kernel (raster_setup_merge,
+           one launch a pass) merges;
   resolve  kernel B (csrc/raster_resolve.cu): per (tile, item) block, bins
            the sorted chunks itself, culls rows per warp and resolves depth,
-           reading the rows through that permutation, an item's rows staged
-           in shared memory a window at a time.
+           reading the rows through that permutation, an item's rows in
+           shared memory; above one window of shared memory, a binning
+           launch (raster_resolve_bin) lists each tile's chunks once per
+           item and the listed resolve (raster_resolve_listed) stages each
+           tile's listed rows only.
 
 Both take any number of items and rows an item: device memory is the only
 limit. `setup` and `resolve` call the kernels as registered PyTorch
@@ -27,11 +31,13 @@ plain versions:
                   setup_plain makes kernel A's function;
   composite_keys, sort_composite_keys  the kernel's own sort key in PyTorch
                   (its float map and composites), held to sort_order by the
-                  tests; rank_runs, its sort as clusters and the rank kernel
-                  do it, slice by slice;
+                  tests; rank_runs, its sort as clusters do it, slice by
+                  slice; merge_runs (with co_rank, its split), its sort as
+                  the runs and the merge passes do it;
   bin_chunks      the chunk binning of the JAX package (chunk AABBs, overlap,
-                  first_k_true), on the sorted rows; bin_chunks_windowed, the
-                  same as kernel B computes it window by window;
+                  first_k_true), on the sorted rows, and the binning launch's
+                  function; bin_chunks_segmented, the same as that launch
+                  computes it, segment by segment;
   resolve_plain   the per-pixel resolve with the kernel's exact arithmetic,
                   vectorised over all pixels, one chunk slot at a time;
   resolve_plain_binned  bin_chunks composed with resolve_plain: kernel B's
@@ -64,6 +70,7 @@ LANE_ATTR, LANE_VALID, LANE_BBOX, LANE_COVER = 21, 23, 24, 28
 CHUNK = 8  # rows per chunk: the unit of binning
 WARP_PIXELS = 64  # kernel B's warps take 64 consecutive pixels of a tile, two a lane
 CULL_SLACK = 2.0 ** -20  # rounding slack of row_may_cover, per unit magnitude
+MIN_RUN_ROWS = 256  # kernel A's shortest sorted runs, where it takes runs
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"setup": CSRC / "raster_setup.cu", "resolve": CSRC / "raster_resolve.cu"}
@@ -242,11 +249,11 @@ def sort_composite_keys(ykey: torch.Tensor) -> torch.Tensor:
 
 
 def rank_runs(ykey: torch.Tensor, run_rows: int) -> torch.Tensor:
-    """(B, Fp) int64: kernel A's order as its clusters (distributed shared
-    memory) and its rank kernel (device memory) build it, in PyTorch. The
-    composite keys are cut into runs of run_rows rows (the last one
-    shorter), each run sorted on its own; a composite's rank is its place in
-    its run plus its lower bound in each other run, and order[rank] = f.
+    """(B, Fp) int64: kernel A's order as its clusters build it (each slice
+    ranking its composites in the others' distributed shared memory), in
+    PyTorch. The composite keys are cut into runs of run_rows rows (the last
+    one shorter), each run sorted on its own; a composite's rank is its place
+    in its run plus its lower bound in each other run, and order[rank] = f.
     Equal to sort_composite_keys for any run_rows >= 1: the tests hold it so."""
     B, Fp = ykey.shape
     keys = composite_keys(ykey)
@@ -258,6 +265,56 @@ def rank_runs(ykey: torch.Tensor, run_rows: int) -> torch.Tensor:
             rank += torch.searchsorted(other, run, side="left")
         order.scatter_(1, rank, run & 0xFFFFFFFF)
     return order
+
+
+MERGE_TILE = 2048  # outputs a block of the merge kernel writes
+
+
+def co_rank(a: torch.Tensor, b: torch.Tensor, d: int) -> int:
+    """How many of the d smallest values of the merge of sorted 1-D a and b
+    (no value in both) come from a: the split of the merge kernel's blocks
+    and threads, found by the same binary search (the kernel's warps probe
+    32 places a step; the answer is the same)."""
+    lo, hi = max(0, d - len(b)), min(d, len(a))
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if a[mid] < b[d - 1 - mid]:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def merge_runs(ykey: torch.Tensor, run_rows: int, tile: int = MERGE_TILE) -> torch.Tensor:
+    """(B, Fp) int64: kernel A's order as regime 3 builds it, in PyTorch.
+    The composite keys are cut into runs of run_rows rows (the last one
+    shorter), each sorted on its own (kernel A's blocks); then each merge
+    pass (a launch of the merge kernel) merges runs 2p and 2p + 1 into one,
+    `tile` outputs at a time: a tile takes the spans of the two runs between
+    the co_rank splits of its first and last output and merges them. The
+    passes run until one run holds the item (at least one pass); the last
+    one's low halves are the order. Equal to sort_composite_keys for any
+    run_rows and tile >= 1: the tests hold it so."""
+    B, Fp = ykey.shape
+    keys = composite_keys(ykey)
+    runs = torch.cat([torch.sort(keys[:, lo:lo + run_rows], dim=1).values
+                      for lo in range(0, Fp, run_rows)], dim=1)
+    width = run_rows
+    while True:
+        out = torch.empty_like(runs)
+        for b in range(B):
+            for a0 in range(0, Fp, 2 * width):
+                a = runs[b, a0:a0 + width]
+                c = runs[b, a0 + len(a):a0 + 2 * width]
+                for d0 in range(0, len(a) + len(c), tile):
+                    d1 = min(d0 + tile, len(a) + len(c))
+                    i0, i1 = co_rank(a, c, d0), co_rank(a, c, d1)
+                    span = torch.cat([a[i0:i1], c[d0 - i0:d1 - i1]])
+                    out[b, a0 + d0:a0 + d1] = torch.sort(span).values
+        runs = out
+        if 2 * width >= Fp:
+            return runs & 0xFFFFFFFF
+        width *= 2
 
 
 def _chunk_overlap(rows: torch.Tensor, order: torch.Tensor, image_size: tuple[int, int],
@@ -297,26 +354,31 @@ def bin_chunks(rows: torch.Tensor, order: torch.Tensor, image_size: tuple[int, i
     return srt, chunk_idx.int(), counts.int()
 
 
-def bin_chunks_windowed(rows: torch.Tensor, order: torch.Tensor, image_size: tuple[int, int],
-                        tile: tuple[int, int], max_tris_per_tile: int, window: int):
-    """bin_chunks as kernel B computes it when it streams the sorted rows
-    through shared memory, `window` rows (whole chunks) at a time: each
-    window's chunks are listed after those of the windows before it, from a
-    per-tile count carried across windows, and none once a tile has listed
-    Kc. The same outputs as bin_chunks for any window: the tests hold it so."""
+BIN_SEGMENT = 2048  # chunks a unit of the binning launch tests against its tile
+
+
+def bin_chunks_segmented(rows: torch.Tensor, order: torch.Tensor, image_size: tuple[int, int],
+                         tile: tuple[int, int], max_tris_per_tile: int,
+                         segment: int = BIN_SEGMENT):
+    """bin_chunks as kernel B's binning launch computes it: each tile's
+    chunks cut into segments of `segment`, the chunks of each segment that
+    touch the tile counted, then listed from the segment's place in the list
+    (the counts of the segments before it), none from Kc on; the count is
+    the segments' sum, at most Kc. The same outputs as bin_chunks for any
+    segment: the tests hold it so."""
     srt, ov = _chunk_overlap(rows, order, image_size, tile)
     B, T, C = ov.shape
     Kc = chunk_budget(max_tris_per_tile, rows.shape[1])
+    segs = [ov[..., c0:c0 + segment] for c0 in range(0, C, segment)]
+    seg_count = torch.stack([s.sum(-1) for s in segs], -1)  # (B, T, n_seg)
+    before = seg_count.cumsum(-1) - seg_count
     chunk_idx = torch.zeros(B, T, Kc + 1, dtype=torch.long, device=rows.device)
-    listed = torch.zeros(B, T, dtype=torch.long, device=rows.device)
-    for c0 in range(0, C, window // CHUNK):
-        ov_w = ov[..., c0:c0 + window // CHUNK]
-        pos = listed[..., None] + ov_w.long().cumsum(-1) - 1
-        keep = ov_w & (pos < Kc)
-        ids = torch.arange(c0, c0 + ov_w.shape[-1], device=rows.device).expand_as(ov_w)
-        chunk_idx.scatter_(-1, torch.where(keep, pos, Kc), ids)
-        listed += keep.sum(-1)
-    return srt, chunk_idx[..., :Kc].int(), listed.int()
+    for k, ov_s in enumerate(segs):
+        pos = before[..., k:k + 1] + ov_s.long().cumsum(-1) - 1
+        keep = ov_s & (pos < Kc)
+        ids = torch.arange(k * segment, k * segment + ov_s.shape[-1], device=rows.device)
+        chunk_idx.scatter_(-1, torch.where(keep, pos, Kc), ids.expand_as(ov_s))
+    return srt, chunk_idx[..., :Kc].int(), seg_count.sum(-1).clamp_max(Kc).int()
 
 
 def row_may_cover(rows: torch.Tensor, x0, x1, y0, y1) -> torch.Tensor:
@@ -525,13 +587,17 @@ def check_resolve_args(rows, order, tile) -> None:
 class RasterKernels:
     """ctypes bindings of csrc/raster_setup.cu and csrc/raster_resolve.cu, with
     a count of launches of each kernel and variant: 'raster_setup',
-    'raster_setup_rank' (kernel A's second launch where an item's rows are
-    sorted in runs in device memory), 'raster_resolve' and
-    'raster_resolve_attr' (WITH_ATTR)."""
+    'raster_setup_merge' (kernel A's merge passes, one launch each, where an
+    item's rows are sorted in runs in device memory), 'raster_resolve' and
+    'raster_resolve_attr' (kernel B's one-window kernel, WITH_ATTR apart),
+    'raster_resolve_bin' (its binning launch above one window) and
+    'raster_resolve_listed' (its listed resolve above one window, with or
+    without the attribute)."""
 
     def __init__(self):
-        self.launches = {"raster_setup": 0, "raster_setup_rank": 0, "raster_resolve": 0,
-                         "raster_resolve_attr": 0}
+        self.launches = {"raster_setup": 0, "raster_setup_merge": 0, "raster_resolve": 0,
+                         "raster_resolve_attr": 0, "raster_resolve_bin": 0,
+                         "raster_resolve_listed": 0}
         self._fns = None
         self._rows = {}
 
@@ -539,23 +605,29 @@ class RasterKernels:
         if self._fns is None:
             libs = build_libraries()
             setup_lib = ctypes.CDLL(str(libs["setup"][0]))
-            setup = setup_lib.cosypose_raster_setup
-            setup.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            rank = setup_lib.cosypose_raster_setup_rank
-            rank.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-            plan = setup_lib.cosypose_raster_setup_plan
-            plan.argtypes = [ctypes.c_int] * 3
             lib = ctypes.CDLL(str(libs["resolve"][0]))
-            resolve = lib.cosypose_raster_resolve
-            resolve.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
-            fns = {"setup": setup, "setup_rank": rank, "setup_plan": plan, "resolve": resolve,
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            fns = {"setup": setup_lib.cosypose_raster_setup,
+                   "setup_merge": setup_lib.cosypose_raster_setup_merge,
+                   "merge_passes": setup_lib.cosypose_raster_setup_merge_passes,
+                   "setup_plan": setup_lib.cosypose_raster_setup_plan,
                    "sort_block_rows": setup_lib.cosypose_raster_setup_block_rows,
+                   "resolve": lib.cosypose_raster_resolve,
+                   "resolve_bin": lib.cosypose_raster_resolve_bin,
+                   "bin_scratch": lib.cosypose_raster_resolve_bin_scratch,
+                   "resolve_listed": lib.cosypose_raster_resolve_listed,
                    "window_rows": lib.cosypose_raster_resolve_window_rows}
-            for name in ("sort_block_rows", "window_rows"):
-                fns[name].argtypes = [ctypes.c_int]
-            for fn in fns.values():
-                fn.restype = ctypes.c_int
+            argtypes = {"setup": [ptr] * 10 + [i32] * 5 + [ctypes.c_float] + [i32] * 3 + [ptr],
+                        "setup_merge": [ptr] * 2 + [i32] * 4 + [ptr],
+                        "merge_passes": [i32] * 2, "setup_plan": [i32] * 3,
+                        "sort_block_rows": [i32], "window_rows": [i32],
+                        "resolve": [ptr] * 5 + [i32] * 11 + [ptr],
+                        "resolve_bin": [ptr] * 5 + [i32] * 8 + [ptr],
+                        "bin_scratch": [i32] * 3,
+                        "resolve_listed": [ptr] * 7 + [i32] * 11 + [ptr]}
+            for name, fn in fns.items():
+                fn.argtypes = argtypes[name]
+                fn.restype = ctypes.c_longlong if name == "bin_scratch" else ctypes.c_int
             self._fns = fns
         return self._fns
 
@@ -572,37 +644,56 @@ class RasterKernels:
     def window_rows(self, device: torch.device) -> int:
         """The rows of one window of kernel B on `device`: it stages 22 B a
         sorted row in shared memory, so whole chunks within the shared memory
-        a block may opt in to (10,560 on an H100). An item of more rows is
-        streamed through shared memory window by window."""
+        a block may opt in to (10,560 on an H100). An item of more rows takes
+        the binning launch and the listed resolve."""
         return self._shared_rows("window_rows", device)
 
     def sort_block_rows(self, device: torch.device) -> int:
         """The rows one block of kernel A sorts on `device`: 8 B a row in
         shared memory, padded to a power of two, within the shared memory a
         block may opt in to (16,384 on an H100). An item of more rows is
-        sorted by a cluster of blocks, or in runs ranked by a second kernel."""
+        sorted by a cluster of blocks, or in runs and their merge."""
         return self._shared_rows("sort_block_rows", device)
 
     def setup_plan(self, B: int, Fp: int, device: torch.device) -> int:
         """The launcher's choice for B items of Fp rows: the blocks of a
-        cluster an item (1 to 8), or -1 for runs in device memory and the
-        rank kernel. Read from the card (its occupancy query) before any
-        launch."""
+        cluster an item (1 to 8), or -1 for runs in device memory and their
+        merge. Read from the card (its occupancy query) before any launch."""
         c = self.load()["setup_plan"](B, Fp, device.index or 0)
         if c < 0:
             raise RuntimeError(f"raster_setup: cannot plan the launch (cudaError {-c})")
         return c if c > 0 else -1
 
+    def run_rows(self, B: int, Fp: int, device: torch.device) -> int:
+        """The rows of each sorted run where kernel A takes runs: the
+        shortest power of two from MIN_RUN_ROWS with which the runs launch
+        is one wave (B x runs at most the SM count: a block of kernel A
+        holds an SM's registers), at most sort_block_rows(). On an H100 this
+        was the fastest run length at every size of chip_smoke.py phase 14
+        (PERF.md §6): a shorter run adds a wave, a longer one a bitonic
+        sort of more rows in each block, against one merge pass fewer."""
+        rows, block = MIN_RUN_ROWS, self.sort_block_rows(device)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        while rows < block and B * -(-Fp // rows) > sms:
+            rows *= 2
+        return rows
+
+    def merge_passes(self, Fp: int, run_rows: int) -> int:
+        """The merge kernel's launches for runs of run_rows rows."""
+        return self.load()["merge_passes"](Fp, run_rows)
+
     def setup(self, tri_verts, tri_valid, TCO, K, image_size, colors=None, z_near=0.05,
-              tri_attr=None, cluster=0):
+              tri_attr=None, cluster=0, run_rows=None):
         """Kernel A on CUDA tensors: (rows (B,Fp,32), ykey (B,Fp), order
         (B,Fp) int64), for any number of items and rows. `cluster` is the
         number of blocks an item (1 to 8, enough that no block sorts more
-        than sort_block_rows()), -1 for runs in device memory ranked by a
-        second kernel (raster_setup_rank, three launches a render), or 0,
-        which every render passes, to let the launcher choose by shape and
-        by the card's occupancy query (setup_plan); the outputs are the same
-        for every choice (tests and measurements set it)."""
+        than sort_block_rows()), -1 for runs in device memory merged by a
+        second kernel (raster_setup_merge, a launch a pass), or 0, which
+        every render passes, to let the launcher choose by shape and by the
+        card's occupancy query (setup_plan); with runs, `run_rows` sets
+        their length (at most sort_block_rows(); run_rows() by default). The
+        outputs are the same for every choice (tests and measurements set
+        them)."""
         if not tri_verts.is_cuda:
             raise ValueError("the raster kernels take CUDA tensors")
         dev = tri_verts.device
@@ -615,70 +706,110 @@ class RasterKernels:
             raise ValueError(f"raster_setup: clusters of {cluster} blocks do not hold {Fp} rows "
                              f"an item ({block} a block, clusters of 1 to 8, -1 for runs, 0 "
                              f"to choose)")
+        if cluster < 0:
+            run_rows = self.run_rows(B, Fp, dev) if run_rows is None else int(run_rows)
+            if not 0 < run_rows <= block:
+                raise ValueError(f"raster_setup: runs of {run_rows} rows (1 to {block})")
         rows = torch.empty(B, Fp, ROW, device=dev)
         ykey = torch.empty(B, Fp, device=dev)
         order = torch.empty(B, Fp, dtype=torch.int64, device=dev)
-        runs = torch.empty(B, Fp, dtype=torch.int64, device=dev) if cluster < 0 else None
-        run_rows = -(-Fp // -(-Fp // block)) if Fp else 1  # even runs of at most `block` rows
         fns, stream = self.load(), torch.cuda.current_stream(dev).cuda_stream
+        runs = passes = None
+        if cluster < 0 and B and Fp:
+            passes = self.merge_passes(Fp, run_rows)
+            scratch = torch.empty(B, Fp, dtype=torch.int64, device=dev)
+            runs = scratch if passes % 2 else order  # the last pass reads scratch
         err = fns["setup"](
             tri_verts.data_ptr(), tri_valid.data_ptr(), TCO.data_ptr(), K.data_ptr(),
             None if colors is None else colors.data_ptr(),
             None if tri_attr is None else tri_attr.data_ptr(), rows.data_ptr(),
             ykey.data_ptr(), order.data_ptr(), None if runs is None else runs.data_ptr(), B, Fn,
-            Fp, int(image_size[0]), int(image_size[1]), float(z_near), max(cluster, 0), run_rows,
-            dev.index or 0, stream)
+            Fp, int(image_size[0]), int(image_size[1]), float(z_near), max(cluster, 0),
+            run_rows or 0, dev.index or 0, stream)
         if err != 0:
             raise RuntimeError(f"raster_setup launch failed: cudaError {err}")
         self.launches["raster_setup"] += 1
         if runs is not None:
-            err = fns["setup_rank"](runs.data_ptr(), order.data_ptr(), B, Fp, run_rows,
-                                    dev.index or 0, stream)
+            err = fns["setup_merge"](scratch.data_ptr(), order.data_ptr(), B, Fp, run_rows,
+                                     dev.index or 0, stream)
             if err != 0:
-                raise RuntimeError(f"raster_setup_rank launch failed: cudaError {err}")
-            self.launches["raster_setup_rank"] += 1
+                raise RuntimeError(f"raster_setup_merge launch failed: cudaError {err}")
+            self.launches["raster_setup_merge"] += passes
         return rows, ykey, order
 
-    def resolve(self, rows, order, image_size, tile, max_tris_per_tile=1024, with_attr=False,
-                window=None):
+    def bin_chunks(self, rows, order, image_size, tile, max_tris_per_tile=1024):
+        """Kernel B's binning launch on CUDA tensors: (chunk_idx (B,n_tiles,Kc)
+        int32, counts (B,n_tiles) int32), bin_chunks' lists, in one launch
+        for any number of items."""
+        if not rows.is_cuda:
+            raise ValueError("the raster kernels take CUDA tensors")
+        check_resolve_args(rows, order, tile)
+        dev = rows.device
+        B, Fp = rows.shape[:2]
+        (th, tw), (nty, ntx) = tile, tile_grid(image_size, tile)
+        Kc = chunk_budget(max_tris_per_tile, Fp)
+        chunk_idx = torch.empty(B, nty * ntx, Kc, dtype=torch.int32, device=dev)
+        counts = torch.empty(B, nty * ntx, dtype=torch.int32, device=dev)
+        fns = self.load()
+        scratch = torch.empty(max(1, fns["bin_scratch"](B, Fp, nty * ntx)), dtype=torch.uint8,
+                              device=dev)
+        err = fns["resolve_bin"](rows.data_ptr(), order.data_ptr(), chunk_idx.data_ptr(),
+                                 counts.data_ptr(), scratch.data_ptr(), B, Fp, Kc, th, tw, nty,
+                                 ntx, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"raster_resolve_bin launch failed: cudaError {err}")
+        self.launches["raster_resolve_bin"] += 1
+        return chunk_idx, counts
+
+    def resolve(self, rows, order, image_size, tile, max_tris_per_tile=1024, with_attr=False):
         """Kernel B on CUDA tensors: (rgb (B,3,H,W), depth (B,H,W), attr or
         None), for any number of items (a launch for each 65,535) and rows
-        an item. An item of more rows than `window` (whole chunks, at most
-        window_rows(), which it defaults to) streams through shared memory in
-        windows of that many, carrying its state in device memory (8 B a
-        pixel of the tiles); tests and measurements set it smaller."""
-        H, W = image_size
-        th, tw = tile
-        nty, ntx = tile_grid(image_size, tile)
+        an item. An item of at most window_rows() rows takes one launch with
+        its rows in shared memory; an item of more, the binning launch
+        (bin_chunks) and the listed resolve (resolve_listed)."""
         if not rows.is_cuda:
             raise ValueError("the raster kernels take CUDA tensors")
         check_resolve_args(rows, order, tile)
         dev = rows.device
         B, Fp = rows.shape[:2]
         Kc = chunk_budget(max_tris_per_tile, Fp)
-        most = self.window_rows(dev)
-        window = most if window is None else int(window)
-        if not 0 < window <= most or window % CHUNK:
-            raise ValueError(f"raster_resolve: a window of {window} rows (whole chunks of "
-                             f"{CHUNK}, at most {most})")
+        if Fp > self.window_rows(dev):
+            lists = self.bin_chunks(rows, order, image_size, tile, max_tris_per_tile)
+            return self.resolve_listed(rows, order, *lists, image_size, tile, with_attr)
+        return self._resolve("resolve", rows, order, (), Kc, image_size, tile, with_attr)
+
+    def resolve_listed(self, rows, order, chunk_idx, counts, image_size, tile, with_attr=False):
+        """Kernel B's resolve of the lists of bin_chunks (its budget in
+        chunk_idx's last dimension) on CUDA tensors: (rgb, depth, attr or
+        None), each tile's listed rows staged in shared memory 2,048 at a
+        time (the second launch of resolve above one window)."""
+        if not rows.is_cuda:
+            raise ValueError("the raster kernels take CUDA tensors")
+        check_resolve_args(rows, order, tile)
+        T, Kc = math.prod(tile_grid(image_size, tile)), chunk_idx.shape[-1]
+        _check("chunk_idx", chunk_idx, rows.device, torch.int32, (rows.shape[0], T, Kc))
+        _check("counts", counts, rows.device, torch.int32, (rows.shape[0], T))
+        return self._resolve("resolve_listed", rows, order, (chunk_idx.data_ptr(),
+                                                             counts.data_ptr()),
+                             Kc, image_size, tile, with_attr)
+
+    def _resolve(self, fn, rows, order, lists, Kc, image_size, tile, with_attr):
+        (H, W), (th, tw), (nty, ntx) = image_size, tile, tile_grid(image_size, tile)
+        dev = rows.device
+        B, Fp = rows.shape[:2]
         rgb = torch.empty(B, 3, H, W, device=dev)
         depth = torch.empty(B, H, W, device=dev)
         attr = torch.empty(B, H, W, device=dev) if with_attr else None
-        state = [None] * 3
-        if Fp > window:  # the z-buffer, winning row and listed count across windows
-            pixels = B * nty * ntx * th * tw
-            state = [torch.empty(pixels, device=dev),
-                     torch.empty(pixels, dtype=torch.int32, device=dev),
-                     torch.empty(pixels // WARP_PIXELS, dtype=torch.int32, device=dev)]
-        err = self.load()["resolve"](
-            rows.data_ptr(), order.data_ptr(), rgb.data_ptr(), depth.data_ptr(),
-            attr.data_ptr() if with_attr else None,
-            *[None if x is None else x.data_ptr() for x in state], B, Fp, Kc, H, W, th, tw, nty,
-            ntx, int(with_attr), window, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        err = self.load()[fn](
+            rows.data_ptr(), order.data_ptr(), *lists, rgb.data_ptr(), depth.data_ptr(),
+            attr.data_ptr() if with_attr else None, B, Fp, Kc, H, W, th, tw, nty, ntx,
+            int(with_attr), dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"raster_resolve launch failed: cudaError {err}")
         # one launch for each 65,535 items (grid.y)
-        self.launches["raster_resolve_attr" if with_attr else "raster_resolve"] += -(-B // 65535)
+        name = ("raster_resolve_listed" if fn == "resolve_listed"
+                else "raster_resolve_attr" if with_attr else "raster_resolve")
+        self.launches[name] += -(-B // 65535)
         return rgb, depth, attr
 
 

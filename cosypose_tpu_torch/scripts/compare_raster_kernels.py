@@ -1,5 +1,6 @@
-"""Device time of both raster kernels at the main path's render, for several
-checkouts of the repo on one card, each in a fresh process, in turns.
+"""Device time of both raster kernels at the main path's render and at two
+large soups, for several checkouts of the repo on one card, each in a fresh
+process, in turns.
 
     python -m cosypose_tpu_torch.scripts.compare_raster_kernels PARENT . . PARENT
 
@@ -9,8 +10,13 @@ unpacked with `git archive` into a directory that .gitignore lists); its own
 are the main path's first render (demo spheres at LOD 512, B=128, 240x320,
 tile (16, 32), budget 1024): kernel A (setup with its sort) and kernel B
 (resolve) are each timed by CUDA events over 200 launches queued behind a
-spin kernel, three times. Prints one JSON line a checkout, then the card's
-name and power limit. Exits 2 without a card.
+spin kernel, three times. Then, each over 20 calls three times, the same at
+two items of 262,144 rows (chip_smoke.large_soup, 240x320) and at the
+ycbv-1M-sized scene (8 seeded 8,192-face meshes and the cage, 65,896 rows,
+480x640), both at the scene renderer's tile (8, 320) and budget 6,144 with
+the attribute: every launch of each kernel a call makes (kernel A's merge,
+kernel B's binning) counted in its time. Prints one JSON line a checkout,
+then the card's name and power limit. Exits 2 without a card.
 """
 
 from __future__ import annotations
@@ -50,6 +56,41 @@ for _ in range(3):
     out["resolve_ms"].append(queued_ms(resolve, 200))
 depth = resolve()[1]
 out["depth_sum"] = float(depth.double().sum())
+
+import numpy as np
+import chip_smoke
+from cosypose_tpu_torch import demo
+from cosypose_tpu_torch.ops.mesh_db import build_mesh_db
+from cosypose_tpu_torch.ops.transforms import invert_T
+from cosypose_tpu_torch.recording import RecordingSceneSampler
+from cosypose_tpu_torch.recording.textures import TextureSampler
+from cosypose_tpu_torch.rendering.scene_renderer import SCENE_BUDGET, SCENE_TILE
+from cosypose_tpu_torch.scripts.run_dataset_recording import CONFIGS
+
+cfg = CONFIGS["ycbv-1M"]
+db = build_mesh_db(demo.dense_specs(8), device="cuda")
+full = RecordingSceneSampler(db, resolution=cfg["resolution"], focal_interval=cfg["focal"],
+                             texture_sampler=TextureSampler(p_textured=0.8),
+                             n_objects_interval=(8, 9), p_cage=1.0)
+rng = np.random.RandomState(0)
+scene = full._sample_objects(rng) + full._cage_geometry(rng)
+cam = full._sample_camera(rng)
+tv, valid, colors, ids = full.renderer.soup(scene)
+on = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device="cuda")[None]
+soup, attr = chip_smoke.large_soup(2, 262_144, (240, 320), seed=262_144)
+cases = {"large": ((*soup[:4], (240, 320), soup[4]), attr),
+         "ycbv_scene": ((on(tv), on(valid, torch.bool), invert_T(on(cam["TWC"])), on(cam["K"]),
+                         tuple(cfg["resolution"]), on(colors)), on(ids))}
+for name, (sargs, a) in cases.items():
+    rows, key, order = rc.setup(*sargs, tri_attr=a)
+    budget = min(rows.shape[1], SCENE_BUDGET)
+    res = lambda: rc.RASTER_KERNEL.resolve(rows, order, sargs[4], SCENE_TILE, budget, True)
+    out[name] = dict(rows=list(rows.shape[:2]), setup_ms=[], resolve_ms=[])
+    for _ in range(3):
+        out[name]["setup_ms"].append(queued_ms(lambda: rc.setup(*sargs, tri_attr=a), 20))
+        out[name]["resolve_ms"].append(queued_ms(res, 20))
+    out[name]["depth_sum"] = float(res()[1].double().sum())
+    del rows, key, order
 print(json.dumps(out))
 """
 

@@ -153,7 +153,7 @@ def test_kernels_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):
         kernels.resolve(rows, order, (64, 64), (4, 8))    # not whole warps
     with pytest.raises(ValueError):
-        kernels.resolve(rows, order, (64, 64), (16, 16), window=12)   # not whole chunks
+        kernels.setup(tv, valid, TCO, K, (64, 64), cluster=-1, run_rows=0)   # runs of no row
     with pytest.raises(ValueError):
         kernels.setup(tv, valid, TCO, K, (64, 64), cluster=9)
 
@@ -301,14 +301,13 @@ LARGE_ROWS = (16_392, 65_896, 131_072, 262_144)
 @pytest.mark.parametrize("F", LARGE_ROWS)
 def test_resolve_takes_any_row_count(cuda, F):
     """Kernel B on two items of F rows (chip_smoke.large_soup: small
-    triangles over the whole image) streams them through shared memory in
-    windows: bit-equal to resolve_plain_binned on the attribute variant at
-    the default window (10,560 rows) and at windows of 2,048, with the
-    budget reached at once (40 rows) and at the scene's 6,144 (reached
-    part-way down the lists from 131,072 rows) at 240x320, and not at all
-    (every row) on a 2048x64 image that
-    spreads the rows over 128 tile rows; the plain variant at the default
-    window; one launch a call."""
+    triangles over the whole image), above one window: the binning launch
+    equal to bin_chunks, and the listed resolve bit-equal to
+    resolve_plain_binned, with and without the attribute, with the budget
+    reached at once (40 rows) and at the scene's 6,144 (reached part-way
+    down the lists from 131,072 rows) at 240x320, and not at all (every row,
+    a budget above one window) on a 2048x64 image that spreads the rows over
+    128 tile rows; a call is one binning launch and one resolve launch."""
     import chip_smoke
 
     kernels = rasterizer_cuda.RASTER_KERNEL
@@ -317,33 +316,47 @@ def test_resolve_takes_any_row_count(cuda, F):
         args, attr = chip_smoke.large_soup(2, F, image, seed=F, device=cuda)
         rows, _, order = kernels.setup(*args[:4], image, args[4], tri_attr=attr)
         for budget in budgets:
-            plain = rasterizer_cuda.resolve_plain_binned(rows, order, image, tile, budget, True)
-            for window in (None, 2048):
+            srt, idx, counts = rasterizer_cuda.bin_chunks(rows, order, image, tile, budget)
+            got = kernels.bin_chunks(rows, order, image, tile, budget)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], idx) and torch.equal(got[1], counts), (image, budget)
+            plain = rasterizer_cuda.resolve_plain(srt, idx, counts, image, tile, True)
+            for with_attr in (True, False):
                 before = dict(kernels.launches)
-                out = kernels.resolve(rows, order, image, tile, budget, True, window=window)
+                out = kernels.resolve(rows, order, image, tile, budget, with_attr)
                 torch.cuda.synchronize()
                 assert kernels.launches == dict(
-                    before, raster_resolve_attr=before["raster_resolve_attr"] + 1)
-                assert all(torch.equal(a, b) for a, b in zip(out, plain)), (image, budget, window)
-            out = kernels.resolve(rows, order, image, tile, budget)
-            assert torch.equal(out[0], plain[0]) and torch.equal(out[1], plain[1])
+                    before, raster_resolve_bin=before["raster_resolve_bin"] + 1,
+                    raster_resolve_listed=before["raster_resolve_listed"] + 1)
+                assert all(torch.equal(a, b) for a, b in zip(out, plain[:2 + with_attr])), (
+                    image, budget, with_attr)
             assert (out[1] > 0).any()
         counts = rasterizer_cuda.bin_chunks(rows, order, image, tile, 1 << 30)[2]
         assert int(counts.max()) > rasterizer_cuda.chunk_budget(budgets[0], F) or budgets[0] == F
 
 
-def test_resolve_windows_down_to_one_chunk(cuda):
-    """Windows of 8, 64 and 256 rows on a small item, every tile's list cut
-    in a different window: bit-equal to the one-window path."""
+def test_listed_resolve_equals_the_one_window_path(cuda):
+    """Kernel B's listed resolve (binning launch, then each tile's list
+    staged 2,048 rows at a time) called on items that fit one window: lists
+    cut at 3 chunks, part-way and not at all (364 chunks on the one-tile
+    image, two stagings), at tiles of 1 to 48 slices: bit-equal
+    to the one-window path, with and without the attribute."""
     kernels = rasterizer_cuda.RASTER_KERNEL
-    tv, valid, TCO, K, colors = tie_soup(3, 1203, seed=1, device=cuda, image=(48, 64))
-    rows, _, order = kernels.setup(tv, valid, TCO, K, (48, 64), colors)
-    for budget in (24, 200, 1208):
-        one = kernels.resolve(rows, order, (48, 64), (8, 32), budget)
-        for window in (8, 64, 256):
-            out = kernels.resolve(rows, order, (48, 64), (8, 32), budget, window=window)
-            torch.cuda.synchronize()
-            assert torch.equal(out[0], one[0]) and torch.equal(out[1], one[1]), (budget, window)
+    tv, valid, TCO, K, colors = tie_soup(3, 4803, seed=1, device=cuda, image=(48, 64))
+    attr = torch.arange(3 * 4803, device=cuda, dtype=torch.float32).reshape(3, 4803) % 7 + 1
+    rows, _, order = kernels.setup(tv, valid, TCO, K, (48, 64), colors, tri_attr=attr)
+    assert rows.shape[1] <= kernels.window_rows(cuda)
+    for tile in ((8, 8), (16, 48), (48, 64)):
+        counts = rasterizer_cuda.bin_chunks(rows, order, (48, 64), tile, 1 << 30)[2]
+        for budget in (24, 200, 4808):
+            for with_attr in (True, False):
+                one = kernels.resolve(rows, order, (48, 64), tile, budget, with_attr)
+                lists = kernels.bin_chunks(rows, order, (48, 64), tile, budget)
+                out = kernels.resolve_listed(rows, order, *lists, (48, 64), tile, with_attr)
+                torch.cuda.synchronize()
+                assert all(torch.equal(a, b) for a, b in zip(out[:2 + with_attr],
+                                                             one[:2 + with_attr])), (tile, budget)
+    assert 8 * int(counts.max()) > 2048  # the one-tile lists: two stagings
 
 
 def test_kernels_take_more_than_65535_items(cuda):
@@ -375,7 +388,8 @@ def test_main_path_render_is_two_launches(cuda):
            image_size=(240, 320), colors=first["colors"])
     torch.cuda.synchronize()
     assert {k: kernels.launches[k] - before[k] for k in before} == {
-        "raster_setup": 1, "raster_setup_rank": 0, "raster_resolve": 1, "raster_resolve_attr": 0}
+        "raster_setup": 1, "raster_setup_merge": 0, "raster_resolve": 1, "raster_resolve_attr": 0,
+        "raster_resolve_bin": 0, "raster_resolve_listed": 0}
 
 
 def test_recorded_frame_card_matches_cpu(cuda, tmp_path):
@@ -583,7 +597,8 @@ def test_two_gloo_ranks_on_the_card_match_one_process(cuda):
     errs = chip_smoke.step_errors(chip_smoke.rank_snapshot(ranks[0]["steps"][0]), ref, cfg)
     assert not {k: v for k, v in errs.items() if not v[0] <= v[1]}, errs
     want = {"raster_setup": cfg.n_iterations, "raster_resolve": cfg.n_iterations,
-            "raster_resolve_attr": 0, "raster_setup_rank": 0}
+            "raster_resolve_attr": 0, "raster_setup_merge": 0,
+            "raster_resolve_bin": 0, "raster_resolve_listed": 0}
     assert [r["launches"] for r in ranks] == [want, want]
 
 
@@ -672,7 +687,8 @@ def test_exported_refiner_matches_eager_on_the_card(cuda):
     torch.cuda.synchronize()
     launched = {k: rasterizer_cuda.RASTER_KERNEL.launches[k] - before[k] for k in before}
     assert launched == {"raster_setup": n_it, "raster_resolve": n_it, "raster_resolve_attr": 0,
-                        "raster_setup_rank": 0}
+                        "raster_setup_merge": 0,
+                        "raster_resolve_bin": 0, "raster_resolve_listed": 0}
     want = pp.forward(md, *args, n_iterations=n_it)["TCO_final"]
     assert (got - want).abs().max().item() <= 1e-5
     assert (want - args[2]).abs().max().item() > 1e-4
@@ -807,32 +823,40 @@ def test_setup_order_equals_torch_sort(cuda, shape):
 @pytest.mark.parametrize("F", LARGE_ROWS)
 def test_setup_takes_any_row_count(cuda, F):
     """Kernel A on two items of F rows, more than one block sorts
-    (sort_block_rows(), 16,384 on an H100): the launcher's choice (a cluster
-    of ceil(F / 16,384) to 8 blocks where one can be resident, else sorted
-    runs and the rank kernel), every cluster size that holds F, and the runs
-    forced, each giving the same rows, keys and order, the order equal to
+    (sort_block_rows(), 16,384 on an H100): the launcher's choice (sorted
+    runs and their merge, at run_rows(): the shortest power of two from 256
+    that makes the runs launch one wave), the runs at every length the
+    launcher may choose (256 to 16,384 rows), and every cluster size that
+    holds F, each giving the same rows, keys and order, the order equal to
     torch.sort(key, dim=1, stable=True) element for element, the rows within
-    SETUP_TOL of setup_plain; the rank kernel launched only with runs."""
+    SETUP_TOL of setup_plain; the merge launched, once a pass, only with
+    runs."""
     kernels = rasterizer_cuda.RASTER_KERNEL
     block = kernels.sort_block_rows(cuda)
     assert block == 16_384 and F > block
     args = tie_soup(2, F, seed=F, device=cuda, image=(240, 320))
     need = -(-F // block)
-    plan = kernels.setup_plan(2, F, cuda)
-    assert plan == -1 or need <= plan <= 8
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert kernels.setup_plan(2, F, cuda) == -1
+    run = kernels.run_rows(2, F, cuda)
+    assert run == next(r for r in (256, 512, 1024, 2048, 4096, 8192, 16384)
+                       if 2 * -(-F // r) <= sms or r == block)
     first = None
-    for cluster in (0, *range(need, 9), -1):
+    choices = [(0, None)] + [(-1, r) for r in (256, 512, 1024, 2048, 4096, 8192, 16384)] + [
+        (c, None) for c in range(need, 9)]
+    for cluster, run_rows in choices:
         before = dict(kernels.launches)
-        out = kernels.setup(*args[:4], (240, 320), args[4], cluster=cluster)
+        out = kernels.setup(*args[:4], (240, 320), args[4], cluster=cluster, run_rows=run_rows)
         torch.cuda.synchronize()
-        runs = cluster == -1 or cluster == 0 and plan == -1
+        passes = kernels.merge_passes(F, run_rows or run) if cluster <= 0 else 0
         assert {k: kernels.launches[k] - before[k] for k in before} == {
-            "raster_setup": 1, "raster_setup_rank": int(runs), "raster_resolve": 0,
-            "raster_resolve_attr": 0}, cluster
+            "raster_setup": 1, "raster_setup_merge": passes, "raster_resolve": 0,
+            "raster_resolve_attr": 0,
+            "raster_resolve_bin": 0, "raster_resolve_listed": 0}, (cluster, run_rows)
         rows, key, order = out
-        assert torch.equal(order, torch.sort(key, dim=1, stable=True).indices), cluster
+        assert torch.equal(order, torch.sort(key, dim=1, stable=True).indices), (cluster, run_rows)
         first = first or out
-        assert all(torch.equal(a, b) for a, b in zip(out, first)), cluster
+        assert all(torch.equal(a, b) for a, b in zip(out, first)), (cluster, run_rows)
     err = rasterizer_cuda.setup_error(rows, key, *rasterizer_cuda.setup_plain(
         *args[:4], (240, 320), args[4]), (240, 320), K=args[3])
     assert err["valid_differs"] == 0 and err["plane"] <= rasterizer_cuda.SETUP_TOL, err

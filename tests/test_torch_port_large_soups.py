@@ -2,22 +2,26 @@
 the CPU.
 
 Kernel A sorts an item of more rows than one block holds (16,384 on an H100)
-with a cluster of blocks or in sorted runs ranked by a second kernel; kernel
-B streams an item of more rows than one window holds (10,560) through shared
-memory window by window. The card runs them (tests/test_torch_port_gpu.py);
-here:
+with a cluster of blocks or in sorted runs that a merge kernel merges pass by
+pass; above one window of shared memory (10,560 rows) kernel B bins each
+item's chunks once in a launch of its own and resolves each tile's list. The
+card runs them (tests/test_torch_port_gpu.py); here:
   1. the port's SceneRenderer against the JAX package's on a soup of 24,936
      rows (three closed meshes of 8,192 faces, demo.dense_specs, and the
      cage), both on the CPU as tests/test_torch_port_recording.py runs them,
      at cameras where no tile reaches its budget at either package's tile
-     (asserted, as test_scene_budget_is_not_reached does);
-  2. PyTorch models of the kernels' new bookkeeping against the whole-list
-     functions, on inputs drawn by hypothesis: rank_runs (the ranking of
-     composites across sorted runs of uneven length) against
-     sort_composite_keys and torch.sort(stable=True), and
-     bin_chunks_windowed (binning window by window with the per-tile count
-     carried) against bin_chunks, at budgets below and above the listed
-     count;
+     (asserted, as test_scene_budget_is_not_reached does); and the port's
+     binned render of a soup above one window, every tile's list cut at its
+     budget, against rasterize_pallas(interpret=True);
+  2. PyTorch models of the kernels' bookkeeping against the whole-list
+     functions, on inputs drawn by hypothesis: rank_runs (the clusters'
+     ranking of composites across sorted slices of uneven length) and
+     merge_runs (the runs merged in pairs, each output tile between two
+     co_rank splits) against sort_composite_keys, torch.sort(stable=True)
+     and the JAX package's jnp.argsort, co_rank against its definition, and
+     bin_chunks_segmented (the binning launch's counts by segment, listed
+     from each segment's place) against bin_chunks, at budgets below and
+     above the listed count;
   3. the registered operators' fake implementations and the wrappers'
      checks at 262,144 rows an item, and the refusal of a tile that is not
      whole warps.
@@ -31,11 +35,16 @@ rounding then exceeds their 1e-6 slack, and a pixel centre on an edge shared
 by two such triangles can fall in neither in one package and show the
 surface behind, another instance's or the background where the edge is a
 silhouette (39 pixels of 27,648 at these cameras; none on the recording
-test's large triangles). Everything in 2 and 3 is exact.
+test's large triangles). The binned render above one window is held to rasterize_pallas at the
+rasterizer tests' tolerances (masks and attributes equal, rgb and depth
+within 1e-4): its triangles are in the camera frame (TCO the identity), so
+both packages' corners, keys and sort are exact, and wider than a pixel.
+Everything in 2 and 3 is exact.
 """
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -44,10 +53,12 @@ from hypothesis import strategies as st
 
 from cosypose_tpu.ops.mesh_db import MeshSpec as JMeshSpec
 from cosypose_tpu.ops.mesh_db import build_mesh_db as j_build_mesh_db
+from cosypose_tpu.ops.rasterizer_pallas import rasterize_pallas
 from cosypose_tpu.rendering import SceneRenderer as JSceneRenderer
 from cosypose_tpu_torch import demo
 from cosypose_tpu_torch.ops import rasterizer_cuda as rc
 from cosypose_tpu_torch.ops.mesh_db import build_mesh_db
+from cosypose_tpu_torch.ops.render import render
 from cosypose_tpu_torch.ops.transforms import invert_T
 from cosypose_tpu_torch.recording import RecordingSceneSampler
 from cosypose_tpu_torch.rendering import SceneRenderer
@@ -190,24 +201,120 @@ def test_rank_runs_orders_as_torch_sort(B, Fp, n_runs, data):
         assert torch.equal(order, torch.sort(keys, dim=1, stable=True).indices)
 
 
+def drawn_keys(data, B, Fp, special):
+    """(B, Fp) float32 keys drawn from `special` and from all finite floats,
+    the second half of each row repeating the first at will (ties across
+    runs)."""
+    keys = torch.tensor(data.draw(st.lists(
+        st.lists(st.one_of(st.sampled_from(special), st.floats(width=32, allow_nan=False)),
+                 min_size=Fp, max_size=Fp), min_size=B, max_size=B)), dtype=torch.float32)
+    if data.draw(st.booleans()):
+        keys[:, Fp // 2:] = keys[:, :Fp - Fp // 2].clone()
+    return keys
+
+
+@settings(max_examples=100, deadline=None, database=None)
+@given(st.integers(1, 3), st.integers(1, 90), st.integers(1, 40), st.integers(1, 24), st.data())
+def test_merge_runs_orders_as_torch_sort(B, Fp, run_rows, tile, data):
+    """Regime 3's order (sorted runs merged pass by pass, each output tile
+    between two co_rank splits) against the whole-list sort: runs of 1 row
+    to longer than the item, the last one short, output tiles of 1 row (a
+    thread's split) and more; keys from the special values (ties, +-0.0,
+    +-inf, NaN of either sign, denormals) and all finite floats."""
+    keys = drawn_keys(data, B, Fp, SPECIAL)
+    if data.draw(st.booleans()):
+        keys[0, 0] = torch.tensor(-4194304, dtype=torch.int32).view(torch.float32)  # -NaN
+    order = rc.merge_runs(keys, run_rows, tile)
+    assert torch.equal(order, rc.sort_composite_keys(keys))
+    if not torch.isnan(keys).any():  # on the CPU torch.sort puts every NaN last
+        assert torch.equal(order, torch.sort(keys, dim=1, stable=True).indices)
+
+
+@settings(max_examples=100, deadline=None, database=None)
+@given(st.integers(1, 3), st.integers(1, 90), st.integers(1, 40), st.data())
+def test_merge_runs_orders_as_jax_argsort(B, Fp, run_rows, data):
+    """The same against the JAX package's argsort (rasterizer_pallas.py:200):
+    ties, +-0.0, +-inf and positive NaN, exactly (the two orders part only on
+    denormal keys, tests/test_torch_port_setup_order.py)."""
+    keys = drawn_keys(data, B, Fp, [0.0, -0.0, INF, -INF, NAN, 1.0, -1.0, 12.5, -3.25, 3.4e38])
+    keys = torch.where(keys.abs() < 1.2e-38, torch.zeros_like(keys), keys)  # no denormals
+    want = np.asarray(jnp.argsort(jnp.asarray(keys.numpy()), axis=1, stable=True))
+    np.testing.assert_array_equal(rc.merge_runs(keys, run_rows).numpy(), want)
+
+
+@settings(max_examples=200, deadline=None, database=None)
+@given(st.lists(st.integers(-50, 50), max_size=40, unique=True), st.data())
+def test_co_rank_splits_the_merge(values, data):
+    """co_rank(a, b, d) is how many of the d smallest of a and b come from
+    a, for every split of distinct values into two sorted lists and every d."""
+    picks = data.draw(st.lists(st.booleans(), min_size=len(values), max_size=len(values)))
+    a = torch.tensor(sorted(v for v, p in zip(values, picks) if p), dtype=torch.int64)
+    b = torch.tensor(sorted(v for v, p in zip(values, picks) if not p), dtype=torch.int64)
+    merged = sorted(values)
+    for d in range(len(values) + 1):
+        assert rc.co_rank(a, b, d) == sum(v in set(a.tolist()) for v in merged[:d])
+
+
 @settings(max_examples=60, deadline=None, database=None)
 @given(st.integers(1, 3), st.integers(2, 60), st.integers(0, 2 ** 31 - 1),
        st.sampled_from([(8, 32), (16, 16), (8, 64), (32, 32)]), st.data())
-def test_windowed_binning_equals_bin_chunks(B, F, seed, tile, data):
-    """Kernel B's binning window by window, the per-tile count carried,
-    against bin_chunks over the whole list: windows from one chunk (8 rows)
-    to the whole item, budgets from one chunk to above every tile's count."""
+def test_segmented_binning_equals_bin_chunks(B, F, seed, tile, data):
+    """Kernel B's binning launch, each tile's chunks counted by segment and
+    listed from the segment's place, against bin_chunks over the whole list:
+    segments from one chunk to the whole item, budgets from one chunk to
+    above every tile's count."""
     image = (48, 64)
     args = tie_soup(B, 8 * F, seed=seed % 100_000, image=image)
     rows, key = rc.setup_plain(*args[:4], image, args[4])
     order = rc.sort_order(key)
     want = rc.bin_chunks(rows, order, image, tile, 1 << 30)
     listed = int(want[2].max())
-    window = 8 * data.draw(st.integers(1, F))
+    segment = data.draw(st.integers(1, F))
     for budget in {8, 8 * max(1, listed // 2), 8 * listed + 8, 8 * F + 8}:
         a = rc.bin_chunks(rows, order, image, tile, budget)
-        b = rc.bin_chunks_windowed(rows, order, image, tile, budget, window)
-        assert all(torch.equal(x, y) for x, y in zip(a, b)), (window, budget)
+        b = rc.bin_chunks_segmented(rows, order, image, tile, budget, segment)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), (segment, budget)
+
+
+def wide_soup(F, image, seed=0):
+    """F triangles of 3-12 px in the camera frame (TCO the identity) over an
+    image, at depths 0.5-1 m, a tenth invalid, with attributes 1-8:
+    (tri_verts, tri_valid, TCO, K, colors, attr) as numpy arrays."""
+    H, W = image
+    rng = np.random.RandomState(seed)
+    f = 100.0
+    centre = np.stack([rng.uniform(0, W, F), rng.uniform(0, H, F)], -1)[:, None]
+    uv = centre + rng.uniform(-6, 6, (F, 3, 2))
+    z = np.repeat(rng.uniform(0.5, 1.0, (F, 1, 1)), 3, 1) + rng.uniform(-0.02, 0.02, (F, 3, 1))
+    tv = np.concatenate([(uv - np.array([W / 2, H / 2])) * z / f, z], -1)
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]])
+    out = (tv[None], rng.uniform(size=(1, F)) > 0.1, np.eye(4)[None], K[None],
+           rng.uniform(0, 1, (1, F, 3, 3)), rng.randint(1, 9, (1, F)).astype(np.float64))
+    return tuple(a.astype(np.float32) if a.dtype != bool else a for a in out)
+
+
+def test_binned_render_above_one_window_matches_pallas():
+    """A soup of 11,000 rows (above one window of kernel B, 10,560) on a
+    32x128 image, every tile's list cut at its budget of 40 chunks: the
+    port's render (bin_chunks and resolve_plain, kernel B's function) against
+    the JAX package's rasterize_pallas(interpret=True) at the same tile
+    (8, 128) and budget, with the attribute."""
+    image, tile, budget = (32, 128), (8, 128), 320
+    tv, valid, TCO, K, colors, attr = wide_soup(11_000, image)
+    ref = rasterize_pallas(*(jnp.asarray(a) for a in (tv, valid, TCO, K)), image_size=image,
+                           colors=jnp.asarray(colors), tile=tile, max_tris_per_tile=budget,
+                           interpret=True, tri_attr=jnp.asarray(attr))
+    t = [torch.as_tensor(a) for a in (tv, valid, TCO, K, colors, attr)]
+    rows, key = rc.setup_plain(*t[:4], image, t[4], tri_attr=t[5])
+    counts = rc.bin_chunks(rows, rc.sort_order(key), image, tile, 1 << 30)[2]
+    assert rows.shape[1] > 10_560 and bool((counts > budget // 8).all())  # every list cut
+    port = render(*t[:4], image_size=image, colors=t[4], tile=tile, max_tris_per_tile=budget,
+                  tri_attr=t[5])
+    np.testing.assert_array_equal(port.mask.numpy(), np.asarray(ref.mask))
+    np.testing.assert_array_equal(port.attr.numpy(), np.asarray(ref.attr))
+    np.testing.assert_allclose(port.depth.numpy(), np.asarray(ref.depth), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(port.rgb.numpy(), np.asarray(ref.rgb), atol=1e-4, rtol=0)
+    assert float(port.mask.float().mean()) > 0.05 and len(np.unique(ref.attr)) == 9
 
 
 def test_fakes_and_checks_take_262144_rows():
