@@ -36,12 +36,15 @@ conv's parameter, so a state dict loads into any of them.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ..utils.profiling import annotate
 
 # (width_mult, depth_mult, resolution, dropout): compound scaling table
 EFFICIENTNET_PARAMS = {
@@ -65,6 +68,9 @@ BASE_BLOCKS = [
     (4, 5, 2, 6, 112, 192, 0.25),
     (1, 3, 1, 6, 192, 320, 0.25),
 ]
+
+# the program's span of each row (utils/profiling.py)
+STAGE_SPANS = [f"cosypose.backbone.stage{i}" for i in range(1, len(BASE_BLOCKS) + 1)]
 
 BN_EPS = 1e-3
 FLAX_MOMENTUM = 0.99
@@ -318,6 +324,8 @@ class EfficientNet(nn.Module):
                                           stride if i == 0 else 1, expand, se, rate,
                                           dw_impl))
         self._blocks = nn.ModuleList(blocks)
+        # blocks a row of BASE_BLOCKS: the span of each row (STAGE_SPANS) holds them
+        self.stage_repeats = [round_repeats(row[0], d_mult) for row in BASE_BLOCKS]
         self.n_features = round_filters(1280, w_mult)
         self._conv_head = Conv2dSame(round_filters(320, w_mult), self.n_features, 1, bias=False)
         self._bn1 = BatchNorm2d(self.n_features)
@@ -332,7 +340,12 @@ class EfficientNet(nn.Module):
     def forward(self, x, drop_masks: list | None = None):
         """x (B, in_channels, H, W); drop_masks from draw_drop_masks, or None
         for no drop-connect (eval)."""
-        x = F.silu(self._bn0(self._conv_stem(x)))
-        for i, block in enumerate(self._blocks):
-            x = block(x, None if drop_masks is None else drop_masks[i])
-        return F.silu(self._bn1(self._conv_head(x)))
+        with annotate("cosypose.backbone.stem"):
+            x = F.silu(self._bn0(self._conv_stem(x)))
+        blocks = enumerate(self._blocks)
+        for name, repeats in zip(STAGE_SPANS, self.stage_repeats):
+            with annotate(name):
+                for i, block in itertools.islice(blocks, repeats):
+                    x = block(x, None if drop_masks is None else drop_masks[i])
+        with annotate("cosypose.backbone.head"):
+            return F.silu(self._bn1(self._conv_head(x)))

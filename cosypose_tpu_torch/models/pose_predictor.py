@@ -33,6 +33,7 @@ from ..ops.pose_ops import apply_imagespace_predictions
 from ..ops.render import render
 from ..ops.transforms import quat_to_matrix, rot6d_to_matrix
 from ..utils.device import resolve_device
+from ..utils.profiling import annotate, count
 from .corrnet import CorrNet
 from .efficientnet import DW_IMPLS, EfficientNet, frozen_stats, split_dw_impl
 from .wide_resnet import FlowNetSEncoder, WideResNet18, WideResNet34
@@ -206,8 +207,9 @@ class PoseNet(nn.Module):
         """x (B, 6|9, H, W) → pose outputs (B, pose_dim) fp32; drop_masks: the
         backbone's drop-connect masks (EfficientNet in train mode), see
         EfficientNet.forward."""
-        out = self.pose_fc(self.pooled_features(x, drop_masks))
-        return out * self.head_gain if self.cfg.vxvy_scale != 1.0 else out
+        with annotate("cosypose.model.backbone"):
+            out = self.pose_fc(self.pooled_features(x, drop_masks))
+            return out * self.head_gain if self.cfg.vxvy_scale != 1.0 else out
 
 
 @torch.no_grad()
@@ -256,22 +258,27 @@ class PosePredictor:
         """The DeepIM crop of one iteration: (images_crop (B,3,h,w), K_crop,
         boxes_rend, boxes_crop)."""
         cfg = self.cfg
-        crop_points = mesh_data["crop_points"]
-        boxes_rend = boxes_from_uv(project_points_robust(crop_points, K, TCO_input))
-        boxes_crop, images_crop = deepim_crops(images, boxes_rend, K, TCO_input, crop_points,
-                                               output_size=cfg.render_size, lamb=cfg.lamb)
-        K_crop = get_K_crop_resize(K, boxes_crop, images.shape[-2:], cfg.render_size)
-        return images_crop, K_crop, boxes_rend, boxes_crop
+        with annotate("cosypose.model.crop"):
+            crop_points = mesh_data["crop_points"]
+            boxes_rend = boxes_from_uv(project_points_robust(crop_points, K, TCO_input))
+            boxes_crop, images_crop = deepim_crops(images, boxes_rend, K, TCO_input,
+                                                   crop_points, output_size=cfg.render_size,
+                                                   lamb=cfg.lamb)
+            K_crop = get_K_crop_resize(K, boxes_crop, images.shape[-2:], cfg.render_size)
+            return images_crop, K_crop, boxes_rend, boxes_crop
 
     def network_input(self, mesh_data: dict, images, K, TCO_input):
         """Crop and render for one iteration: (x (B,6|9,h,w) observed ⊕
         rendered (⊕ their difference), K_crop, boxes_rend, boxes_crop)."""
         cfg = self.cfg
         images_crop, K_crop, boxes_rend, boxes_crop = self.crop(mesh_data, images, K, TCO_input)
-        rendered = render(mesh_data["tri_verts"], mesh_data["tri_valid"], TCO_input, K_crop,
-                          image_size=cfg.render_size, colors=mesh_data.get("tri_colors"),
-                          tile=cfg.raster_tile,
-                          max_tris_per_tile=cfg.raster_max_tris_per_tile).rgb
+        rows = TCO_input.shape[0]
+        with annotate("cosypose.model.render", rows=rows,
+                      pixels=rows * cfg.render_size[0] * cfg.render_size[1]):
+            rendered = render(mesh_data["tri_verts"], mesh_data["tri_valid"], TCO_input, K_crop,
+                              image_size=cfg.render_size, colors=mesh_data.get("tri_colors"),
+                              tile=cfg.raster_tile,
+                              max_tris_per_tile=cfg.raster_max_tris_per_tile).rgb
         parts = [images_crop, rendered]
         if cfg.input_mode == "obs+render+diff":
             parts.append(images_crop - rendered)
@@ -297,19 +304,22 @@ class PosePredictor:
 
     def update_pose(self, TCO_input, K_crop, pose_outputs):
         """The image-space pose update of one iteration's head outputs."""
-        if self.cfg.pose_dim == 9:
-            dR, v = rot6d_to_matrix(pose_outputs[:, 0:6]), pose_outputs[:, 6:9]
-        else:
-            dR, v = quat_to_matrix(pose_outputs[:, 0:4]), pose_outputs[:, 4:7]
-        return apply_imagespace_predictions(TCO_input, K_crop, v, dR)
+        with annotate("cosypose.model.update"):
+            if self.cfg.pose_dim == 9:
+                dR, v = rot6d_to_matrix(pose_outputs[:, 0:6]), pose_outputs[:, 6:9]
+            else:
+                dR, v = quat_to_matrix(pose_outputs[:, 0:4]), pose_outputs[:, 4:7]
+            return apply_imagespace_predictions(TCO_input, K_crop, v, dR)
 
     def _iteration(self, mesh_data: dict, images, K, TCO_input, train: bool = False,
                    drop_masks: list | None = None):
-        with torch.no_grad():  # crop and render: no gradient (K_crop detached)
-            x, K_crop, boxes_rend, boxes_crop = self.network_input(mesh_data, images, K,
-                                                                   TCO_input)
-        pose_outputs = self._net_train(x, drop_masks) if train else self.net(x)
-        TCO_output = self.update_pose(TCO_input, K_crop, pose_outputs)
+        count("iterations")
+        with annotate("cosypose.model.iteration"):
+            with torch.no_grad():  # crop and render: no gradient (K_crop detached)
+                x, K_crop, boxes_rend, boxes_crop = self.network_input(mesh_data, images, K,
+                                                                       TCO_input)
+            pose_outputs = self._net_train(x, drop_masks) if train else self.net(x)
+            TCO_output = self.update_pose(TCO_input, K_crop, pose_outputs)
         return TCO_output, dict(TCO_input=TCO_input, TCO_output=TCO_output, K_crop=K_crop,
                                 pose_outputs=pose_outputs, boxes_rend=boxes_rend,
                                 boxes_crop=boxes_crop)
