@@ -3,8 +3,8 @@
     python3 chip_smoke.py        # from the repo root, on a machine with a CUDA card
 
 Phases, none of them caught; any failure exits non-zero:
-  1. device line, and both raster kernels built from csrc/ with nvcc (in
-     parallel);
+  1. device line, and the port's nvcc sources built from csrc/ (both raster
+     kernels and the MBConv block's depthwise half, in parallel);
   2. the raster path at the main path's shapes (demo inputs, B=128, 240x320
      renders, LOD 512): the device kernels of one render() call, read from a
      short torch.profiler trace early in the process (one raster_setup, one
@@ -144,7 +144,14 @@ Phases, none of them caught; any failure exits non-zero:
      alone and together with its bound; record_dataset at ycbv-1M's sampler
      settings over eight seeded 8,192-face meshes (demo.dense_specs); an
      8-object scene with the cage (65,896 rows, 480x640) through both
-     kernels against their plain versions on the card, timed as above.
+     kernels against their plain versions on the card, timed as above;
+ 15. the MBConv block's depthwise half (dw_kernel_phase): the kernel at each
+     of EfficientNet-B3's 26 blocks at B=64, 240x320, bf16, against its plain
+     version within depthwise_cuda.error_limit and bit for bit against a
+     second call, in fp32 and fp16 at four shapes, and at odd sizes; the 26
+     launches timed together and each shape alone beside the byte bound, the
+     plain version and the ATen chain it replaces (library_ms); host us a call
+     of the ctypes launcher, the registered operator and the ATen chain.
 Wherever kernel A is held to its plain version (setup_vs_plain), its order is
 also held to torch.sort's element for element, and where it is timed
 (setup_timing) so are one block an item and torch.sort of its keys alone.
@@ -196,6 +203,9 @@ REPLACES = {"raster_setup": "cosypose_tpu/ops/rasterizer_pallas.py:149",
             "raster_resolve_attr": "cosypose_tpu/ops/rasterizer_pallas.py:49",
             "raster_resolve_bin": "cosypose_tpu/ops/rasterizer_pallas.py:202",
             "raster_resolve_listed": "cosypose_tpu/ops/rasterizer_pallas.py:49"}
+# MBConv blocks of EfficientNet-B3: an eval B3 call on the card launches the
+# depthwise kernel (ops/depthwise_cuda.py) once a block
+B3_BLOCKS = 26
 PR1 = "PR 1: prologue 2.433 ms + kernel 0.2628 ms per call, request ~490 ms, idle 0.098"
 # training: the small card-vs-CPU step, and the full-width trainer's run
 SMALL_B, SMALL_RENDER, SMALL_IMAGE = 8, (48, 64), (240, 320)
@@ -928,20 +938,22 @@ def kernels_vs_plain_at(what: str, call, checked: dict) -> str:
             f"{' (attribute)' if with_attr else ''} equal")
 
 
-# the subprocess of phase 11 (b) and (d): torch and the operators' module
+# the subprocess of phase 11 (b) and (d): torch and the operators' modules
 # only, the exported artifact and its inputs from build/
-# the modules a loaded program imports: the operators' module, and the ops and
-# utils packages with what they re-export; no model, predictor, data, training
-# or serving code
+# the modules a loaded program imports: the operators' modules, and the ops
+# and utils packages with what they re-export; no model, predictor, data,
+# training or serving code
 FRESH_MODULES = ["cosypose_tpu_torch"] + [f"cosypose_tpu_torch.{m}" for m in (
-    "config", "ops", "ops.camera", "ops.cropping", "ops.losses", "ops.mesh_db",
-    "ops.mesh_io", "ops.mesh_ops", "ops.pose_ops", "ops.rasterizer", "ops.rasterizer_cuda",
-    "ops.render", "ops.roi_align", "ops.symmetric", "ops.symmetries", "ops.transform",
-    "ops.transforms", "utils", "utils.device", "utils.distributed", "utils.logging",
-    "utils.tensor_collection", "utils.timer")]
+    "config", "ops", "ops.camera", "ops.cropping", "ops.depthwise_cuda", "ops.losses",
+    "ops.mesh_db", "ops.mesh_io", "ops.mesh_ops", "ops.nvcc_build", "ops.pose_ops",
+    "ops.rasterizer", "ops.rasterizer_cuda", "ops.render", "ops.roi_align", "ops.symmetric",
+    "ops.symmetries", "ops.transform", "ops.transforms", "utils", "utils.device",
+    "utils.distributed", "utils.logging", "utils.profiling", "utils.tensor_collection",
+    "utils.timer")]
 
 FRESH_LOAD = """
 import sys, json, numpy as np, torch
+import cosypose_tpu_torch.ops.depthwise_cuda as dwc
 import cosypose_tpu_torch.ops.rasterizer_cuda as rc
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -954,11 +966,12 @@ args.append(torch.as_tensor(x["labels"], device=dev).long())
 fn = program.module()
 with torch.no_grad():
     rc.RASTER_KERNEL.launches = {k: 0 for k in rc.RASTER_KERNEL.launches}
+    dwc.DW_KERNEL.launches = 0
     y = fn(*args)
     torch.cuda.synchronize()
     launches = dict(rc.RASTER_KERNEL.launches)
     np.save(out, y.cpu().numpy())
-    report = dict(launches=launches,
+    report = dict(launches=launches, dw_launches=dwc.DW_KERNEL.launches,
                   modules=sorted(m for m in sys.modules if m.startswith("cosypose_tpu")))
     if trace_dir != "-":
         from cosypose_tpu_torch.utils.profiling import annotate, trace
@@ -977,9 +990,10 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
     serving refiner (phase 4's B3 bf16) exported at B=128, 480x640 frames,
     240x320 renders, LOD 512, N_REFINER iterations, saved under build/,
     loaded back and held to the eager forward (within EXPORT_ATOL), 4
-    launches of each kernel a call, ms a call both ways; (b) the artifact in
-    a fresh process that imports torch and the operators' module only, equal
-    to (a); (c) bench_stages at B=128 with the raster stages' bounds and
+    launches of each raster kernel and 4 x B3_BLOCKS of the depthwise kernel
+    a call, ms a call both ways; (b) the artifact in a fresh process that
+    imports torch and the operators' modules only, equal to (a), with the
+    same launches; (c) bench_stages at B=128 with the raster stages' bounds and
     launches; (d) a torch.profiler trace of one call in a fresh process
     (both kernels' events and the annotation), then the same in this
     process; (e) run_procedural_accuracy --save-overlays on phase 7's
@@ -994,6 +1008,7 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
 
     from cosypose_tpu_torch import demo
     from cosypose_tpu_torch.models.pose_predictor import gather_mesh_data
+    from cosypose_tpu_torch.ops import depthwise_cuda as dwc
     from cosypose_tpu_torch.ops import rasterizer_cuda as rc
     from cosypose_tpu_torch.scripts import bench_stages, run_procedural_accuracy
     from cosypose_tpu_torch.scripts import test_render_objects
@@ -1010,6 +1025,7 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
 
     def reset():
         kernel.launches = {k: 0 for k in kernel.launches}
+        dwc.DW_KERNEL.launches = 0
 
     # (a) export at full width, load back, hold to eager
     images, K, TCO, labels = demo.make_inputs(BATCH, *IMAGE)
@@ -1029,15 +1045,18 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
         got = fn(images, K, TCO, labels)
         torch.cuda.synchronize()
         out["export"] = dict(kernel.launches)
+        out["dw_export"] = dwc.DW_KERNEL.launches
     want = refiner.predictor.forward(md, *args, n_iterations=N_REFINER)["TCO_final"]
     err = float((got - want).abs().max())
     moved = float((want - args[2]).abs().max())
     want_l = {"raster_setup": N_REFINER, "raster_resolve": N_REFINER, "raster_resolve_attr": 0,
               "raster_setup_merge": 0, "raster_resolve_bin": 0, "raster_resolve_listed": 0}
-    if out["export"] != want_l or not err <= EXPORT_ATOL or moved <= 1e-4 \
-            or not torch.isfinite(got).all():
-        raise AssertionError(f"export: launches {out['export']} (want {want_l}), max |exported "
-                             f"- eager| {err} (<= {EXPORT_ATOL}), poses moved {moved}")
+    want_dw = B3_BLOCKS * N_REFINER  # the exported program's B3 calls the registered operator
+    if out["export"] != want_l or out["dw_export"] != want_dw or not err <= EXPORT_ATOL \
+            or moved <= 1e-4 or not torch.isfinite(got).all():
+        raise AssertionError(f"export: launches {out['export']} (want {want_l}), "
+                             f"dw_bn_silu_squeeze {out['dw_export']} (want {want_dw}), max "
+                             f"|exported - eager| {err} (<= {EXPORT_ATOL}), poses moved {moved}")
     with torch.no_grad():
         ms_eager = time_cuda_ms(lambda: refiner.predictor.forward(md, *args,
                                                                   n_iterations=N_REFINER), 10)
@@ -1059,10 +1078,10 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
         f"({art.stat().st_size / 1e6:.1f} MB in {art.relative_to(REPO)}), loaded in "
         f"{t_load:.1f} s; max |exported - eager| {err:.3g} (<= {EXPORT_ATOL}; bit-equal "
         f"{torch.equal(got, want)}), poses moved up to {moved:.3g}; launches a call "
-        f"{out['export']}; ms a call by CUDA events over 10 warmed calls: eager {ms_eager:.2f}, "
+        f"{out['export']}, dw_bn_silu_squeeze {out['dw_export']}; ms a call by CUDA events over 10 warmed calls: eager {ms_eager:.2f}, "
         f"exported {ms_export:.2f} ({100 * (ms_export / ms_eager - 1):+.1f} %)")
 
-    # (b) a fresh process with torch and the operators' module only
+    # (b) a fresh process with torch and the operators' modules only
     inputs = OUT_DIR / "export_inputs.npz"
     np.savez(inputs, images=images, K=K, TCO=TCO, labels=labels)
     y_path = OUT_DIR / "export_fresh_out.npy"
@@ -1077,14 +1096,17 @@ def serving_export_phase(tag: str, checked: dict, refiner, db, acc_args: list, v
     report = json.loads(run.stdout.strip().splitlines()[-1])
     fresh = torch.as_tensor(np.load(y_path))
     same = torch.equal(fresh, got.cpu())
-    if not same or report["launches"] != want_l or report["modules"] != FRESH_MODULES:
+    out["dw_fresh"] = report["dw_launches"]
+    if not same or report["launches"] != want_l or report["dw_launches"] != want_dw \
+            or report["modules"] != FRESH_MODULES:
         raise AssertionError(f"fresh-process load: equal to (a) {same} (max diff "
                              f"{float((fresh - got.cpu()).abs().max())}), launches "
-                             f"{report['launches']}, modules {report['modules']}")
-    log(f"{tag} fresh process ({time.perf_counter() - t0:.1f} s, torch and "
-        f"cosypose_tpu_torch.ops.rasterizer_cuda, which loads {len(FRESH_MODULES)} modules of "
-        f"the port; no checkpoint, no mesh files): output "
-        f"equal to (a) bit for bit, launches {report['launches']}")
+                             f"{report['launches']}, dw_bn_silu_squeeze {report['dw_launches']} "
+                             f"(want {want_dw}), modules {report['modules']}")
+    log(f"{tag} fresh process ({time.perf_counter() - t0:.1f} s, torch and the operators' "
+        f"modules, which load {len(FRESH_MODULES)} modules of the port; no checkpoint, no mesh "
+        f"files): output equal to (a) bit for bit, launches {report['launches']}, "
+        f"dw_bn_silu_squeeze {report['dw_launches']}")
 
     # (d) the trace that process wrote around one served call
     events = json.loads(pathlib.Path(report["trace"]).read_text())["traceEvents"]
@@ -1244,7 +1266,8 @@ def jpeg_phase(tag: str, checked: dict, ctx: dict) -> dict:
     loader workers; (c) one refiner iteration at bench.py's setting in each
     depthwise lowering, from the same weights; (d) a BOP split of JPEG frames
     through data/bop.py, the detector and the refiner. Returns the kernels'
-    launches in (b) and (c)."""
+    launches in (b), (c) and (d), and the depthwise kernel's in (c) (the
+    "conv" lowering's B3 alone takes it)."""
     import random
     import shutil
     import statistics
@@ -1264,6 +1287,7 @@ def jpeg_phase(tag: str, checked: dict, ctx: dict) -> dict:
     from cosypose_tpu_torch.models import pose_predictor
     from cosypose_tpu_torch.models.pose_predictor import (PosePredictor, PosePredictorConfig,
                                                           gather_mesh_data)
+    from cosypose_tpu_torch.ops import depthwise_cuda as dwc
     from cosypose_tpu_torch.ops import rasterizer_cuda as rc
     from cosypose_tpu_torch.ops.mesh_db import build_mesh_db
     from cosypose_tpu_torch.scripts import run_bop_inference, run_detector_training
@@ -1405,6 +1429,7 @@ def jpeg_phase(tag: str, checked: dict, ctx: dict) -> dict:
     a = [torch.as_tensor(x, device=dev) for x in (images, K, TCO)]
     state, feats, outs, ms_it, ms_bb = None, {}, {}, {}, {}
     kernel.launches = {k: 0 for k in kernel.launches}
+    dwc.DW_KERNEL.launches = 0
     nets = {}
     for impl in DW_IMPLS:
         name = "efficientnet-b3" + ("" if impl == "conv" else f"+dw{impl}")
@@ -1413,6 +1438,7 @@ def jpeg_phase(tag: str, checked: dict, ctx: dict) -> dict:
             demo.demo_weights(pp, md, *a, torch.Generator().manual_seed(1))
             state = pp.net.state_dict()
             kernel.launches = {k: 0 for k in kernel.launches}
+            dwc.DW_KERNEL.launches = 0
         pp.net.load_state_dict(state)
         seen = {}
         hook = pp.net.backbone.register_forward_hook(
@@ -1423,10 +1449,13 @@ def jpeg_phase(tag: str, checked: dict, ctx: dict) -> dict:
         hook.remove()
         feats[impl], outs[impl], nets[impl] = seen, out, pp
     launches_dw = dict(kernel.launches)
+    dw_lowerings = dwc.DW_KERNEL.launches  # the "conv" lowering's iteration alone takes it
     if launches_dw != {"raster_setup": 3, "raster_resolve": 3, "raster_resolve_attr": 0,
                        "raster_setup_merge": 0,
-                       "raster_resolve_bin": 0, "raster_resolve_listed": 0}:
-        raise AssertionError(f"lowerings: launches {launches_dw} (want 3, one an iteration)")
+                       "raster_resolve_bin": 0, "raster_resolve_listed": 0} \
+            or dw_lowerings != B3_BLOCKS:
+        raise AssertionError(f"lowerings: launches {launches_dw} (want 3, one an iteration), "
+                             f"dw_bn_silu_squeeze {dw_lowerings} (want {B3_BLOCKS})")
     log(f"{tag} kernels at the lowerings' iteration (B={BATCH}, LOD {LOD}): "
         + kernels_vs_plain_at("depthwise lowerings", calls[0], checked))
     x_in = feats["conv"]["x"]
@@ -1505,7 +1534,8 @@ def jpeg_phase(tag: str, checked: dict, ctx: dict) -> dict:
         + kernels_vs_plain_at("JPEG BOP split", calls[0], checked))
     log(f"{tag} " + public_names_card_vs_cpu())
     log(f"phase 12 took {time.perf_counter() - t_phase:.0f} s")
-    return {"training": launches_train, "dw": launches_dw, "bop": launches_bop}
+    return {"training": launches_train, "dw": launches_dw, "bop": launches_bop,
+            "dw_bn_silu_squeeze": dw_lowerings}
 
 
 # bench.py's keys, in its order, plus the device time a call
@@ -1530,6 +1560,7 @@ def bench_phase(tag: str, checked: dict) -> dict:
     from cosypose_tpu_torch import bench, demo
     from cosypose_tpu_torch.entry import entry
     from cosypose_tpu_torch.models import pose_predictor
+    from cosypose_tpu_torch.ops import depthwise_cuda as dwc
     from cosypose_tpu_torch.ops import rasterizer_cuda as rc
 
     t_phase = time.perf_counter()
@@ -1550,7 +1581,9 @@ def bench_phase(tag: str, checked: dict) -> dict:
     result = json.loads(lines[-1])
     launches = json.loads(next(x for x in lines if x.startswith("launches: ")).split(": ", 1)[1])
     n_want = (1 + bench.REPS + 1) * bench.N_ITER
-    want = {k: n_want for k in bench.KERNELS}
+    want = {arm: {**{k: n_want for k in bench.KERNELS},
+                  "dw_bn_silu_squeeze": B3_BLOCKS * n_want if arm == "efficientnet-b3" else 0}
+            for arm in bench.ARMS}
     wrn18 = ("wrn18_crop_it_per_s", "wrn18_tflops", "wrn18_mfu_pct")
     faults = [f for f, bad in [
         (f"keys {list(result)}", list(result) != BENCH_KEYS),
@@ -1559,15 +1592,15 @@ def bench_phase(tag: str, checked: dict) -> dict:
         (f"value {result.get('value')}", not (result.get("value") or 0) > 0),
         (f"mfu_pct {result.get('mfu_pct')}", not 0 < (result.get("mfu_pct") or 0) <= 100),
         (f"wrn18 {[result.get(k) for k in wrn18]}", any(result.get(k) is None for k in wrn18)),
-        (f"launches {launches} (want {want} an arm)",
-         any(launches.get(arm) != want for arm in bench.ARMS))] if bad]
+        (f"launches {launches} (want {want})", launches != want)] if bad]
     if faults:
         raise AssertionError("bench: " + "; ".join(faults))
     log(f"{tag} bench ({wall:.1f} s in a fresh process, baseline cache "
         f"{bench.CPU_CACHE.relative_to(REPO)}): {result['value']} crop-iterations/s, "
         f"{result['device_ms_per_call']} device ms a call, mfu {result['mfu_pct']} %, wrn18 "
-        f"{result['wrn18_crop_it_per_s']} crop-iterations/s; launches {launches} (want {want} "
-        f"an arm: (1 + {bench.REPS} + 1) x {bench.N_ITER})")
+        f"{result['wrn18_crop_it_per_s']} crop-iterations/s; launches {launches} (want {want}: "
+        f"(1 + {bench.REPS} + 1) x {bench.N_ITER} calls of the net, {B3_BLOCKS} depthwise "
+        f"launches a B3 call)")
 
     # (b) the bench's card output against the CPU on the same four inputs
     card_out = torch.as_tensor(np.load(out_path))
@@ -1592,22 +1625,24 @@ def bench_phase(tag: str, checked: dict) -> dict:
     fn, args = entry()
     kernel = rc.RASTER_KERNEL
     kernel.launches = {k: 0 for k in kernel.launches}
+    dwc.DW_KERNEL.launches = 0
     out, calls = captured_renders(lambda: fn(*args), pose_predictor)
     torch.cuda.synchronize()
     launches_entry = dict(kernel.launches)
+    dw_entry = dwc.DW_KERNEL.launches
     want_e = {"raster_setup": 1, "raster_resolve": 1, "raster_resolve_attr": 0,
               "raster_setup_merge": 0, "raster_resolve_bin": 0, "raster_resolve_listed": 0}
     fn_c, args_c = entry(device="cpu")
     err = float((out.cpu() - fn_c(*args_c)).abs().max())
     log(f"{tag} entry() (B3 fp32, B=4, 1 iteration, full spheres): launches {launches_entry} "
-        f"(want {want_e}); TCO_final card vs CPU max |diff| {err:.3g} (<= {ATOL_SLICE}); "
+        f"(want {want_e}), dw_bn_silu_squeeze {dw_entry} (want {B3_BLOCKS}); TCO_final card vs CPU max |diff| {err:.3g} (<= {ATOL_SLICE}); "
         + kernels_vs_plain_at("entry", calls[0], checked))
-    if launches_entry != want_e or len(calls) != 1 or err > ATOL_SLICE \
-            or not torch.isfinite(out).all():
-        raise AssertionError(f"entry(): launches {launches_entry}, renders {len(calls)}, "
-                             f"card vs CPU {err:.3g}")
+    if launches_entry != want_e or dw_entry != B3_BLOCKS or len(calls) != 1 \
+            or err > ATOL_SLICE or not torch.isfinite(out).all():
+        raise AssertionError(f"entry(): launches {launches_entry}, dw_bn_silu_squeeze "
+                             f"{dw_entry}, renders {len(calls)}, card vs CPU {err:.3g}")
     log(f"phase 13 took {time.perf_counter() - t_phase:.0f} s")
-    return {"bench": launches, "entry": launches_entry}
+    return {"bench": launches, "entry": launches_entry, "dw_entry": dw_entry}
 
 
 # phase 14: rows an item past one block of kernel A (16,384 on an H100) and
@@ -1991,6 +2026,174 @@ def large_soups_phase(tag: str, checked: dict) -> dict:
     shutil.rmtree(out_dir, ignore_errors=True)
     log(f"phase 14 took {time.perf_counter() - t_phase:.0f} s")
     return {"launches": launches, "rows": rows_out, "recording": got}
+
+
+# phase 15: one B=64 iteration of the serving cell's B3 at its render size
+DW_BATCH, DW_IMAGE = 64, (240, 320)
+DW_ODD = [(7, 3, 2, 13, 17), (5, 5, 2, 9, 11), (6, 5, 2, 10, 7), (4, 5, 1, 3, 4),
+          (3, 3, 2, 1, 1), (2, 5, 1, 9, 3000)]  # the last: a band above 48 KB in fp32
+HBM_BYTES_S = 3.35e12
+
+
+def dw_inputs(shape, batch, dtype, seed, device):
+    """(x, weight, bn_weight, bn_bias, running_mean, running_var, eps, k,
+    stride) of one block's depthwise half, seeded, on the card, with the
+    eval modules (DepthwiseConv2dSame, BatchNorm2d) that hold them."""
+    import torch
+
+    from cosypose_tpu_torch.models.efficientnet import BatchNorm2d, DepthwiseConv2dSame
+
+    C, k, s, H, W = shape
+    g = torch.Generator(device).manual_seed(seed)
+    dw, bn = DepthwiseConv2dSame(C, k, s).to(device).eval(), BatchNorm2d(C).to(device).eval()
+    with torch.no_grad():
+        dw.weight.copy_(torch.randn(dw.weight.shape, generator=g, device=device) * 0.3)
+        bn.weight.copy_(torch.rand(C, generator=g, device=device) + 0.5)
+        bn.bias.copy_(torch.randn(C, generator=g, device=device) * 0.3)
+        bn.running_mean.copy_(torch.randn(C, generator=g, device=device) * 0.3)
+        bn.running_var.copy_(torch.rand(C, generator=g, device=device) * 2 + 0.2)
+    x = torch.randn(batch, C, H, W, generator=g, device=device).to(dtype)
+    return (x, dw.weight.detach(), bn.weight.detach(), bn.bias.detach(), bn.running_mean,
+            bn.running_var, bn.eps, k, s), dw, bn
+
+
+def dw_check(args) -> float:
+    """The kernel against its plain version (the largest gap over its
+    error_limit, at most 1) and against a second call, bit for bit."""
+    import torch
+
+    from cosypose_tpu_torch.ops import depthwise_cuda as dwc
+
+    y, s = dwc.DW_KERNEL(*args)
+    y2, s2 = dwc.DW_KERNEL(*args)
+    yp, sp = dwc.dw_bn_silu_squeeze_plain(*args)
+    ly, ls = dwc.error_limit(*args, yp)
+    ratio = max(float(((y.float() - yp.float()).abs() / ly.clamp_min(1e-30)).max()),
+                float(((s.float() - sp.float()).abs() / ls.clamp_min(1e-30)).max()))
+    if not ratio <= 1 or not (torch.equal(y, y2) and torch.equal(s, s2)):
+        raise AssertionError(f"dw_bn_silu_squeeze at {tuple(args[0].shape)} {args[0].dtype}, "
+                             f"kernel {args[7]}, stride {args[8]}: gap {ratio:.3g} of its limit, "
+                             f"deterministic {torch.equal(y, y2) and torch.equal(s, s2)}")
+    return ratio
+
+
+def host_us(fn, n: int = 300) -> float:
+    """Host microseconds a call of fn (its enqueue), over n calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / n
+
+
+def dw_kernel_phase(tag: str) -> dict:
+    """Phase 15, the MBConv block's depthwise half (ops/depthwise_cuda.py):
+    (a) at EfficientNet-B3's 14 distinct depthwise shapes at B=64, 240x320,
+    bf16, the kernel against its plain version (dw_check), in fp32 and fp16
+    at four of them (B=8) and at DW_ODD's sizes; (b) device ms of the 26
+    launches of one iteration, by CUDA events behind a spin kernel, and of
+    each shape alone, beside the byte bound (moved_bytes at 3.35 TB/s), the
+    plain version's ms and library_ms, the ATen chain the block ran before
+    (grouped conv after F.pad, eval BatchNorm, SiLU, mean, under bf16
+    autocast); (c) host us a call of the ctypes launcher, the registered
+    operator, the block's wrapper and the ATen chain, at the last block's
+    shape with B=1 (the card outruns the host there). Returns the numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from cosypose_tpu_torch.models.efficientnet import EfficientNet
+    from cosypose_tpu_torch.ops import depthwise_cuda as dwc
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    shapes = EfficientNet("efficientnet-b3").depthwise_shapes(DW_IMAGE)
+    distinct = sorted(set(shapes), key=shapes.index)
+    before = dwc.DW_KERNEL.launches
+    with torch.inference_mode():
+        # (a) against the plain version
+        ratios = {}
+        for i, shape in enumerate(distinct):
+            ratios[shape] = dw_check(dw_inputs(shape, DW_BATCH, torch.bfloat16, i, dev)[0])
+        other = {}
+        for dtype in (torch.float32, torch.float16):
+            for i, shape in enumerate(distinct[:3] + distinct[-1:] + DW_ODD):
+                batch = 8 if shape in distinct else 3
+                other[str(dtype), shape] = dw_check(dw_inputs(shape, batch, dtype, i, dev)[0])
+        for i, shape in enumerate(DW_ODD[:-1]):
+            other["torch.bfloat16", shape] = dw_check(
+                dw_inputs(shape, 3, torch.bfloat16, i, dev)[0])
+        log(f"{tag} dw_bn_silu_squeeze vs plain: B3's 14 shapes at B={DW_BATCH} bf16, largest "
+            f"gap {max(ratios.values()):.3g} of error_limit; fp32/fp16 at 4 shapes (B=8) and "
+            f"odd sizes (B=3) {max(other.values()):.3g}; every call equal to a second one "
+            f"bit for bit")
+
+        # (b) device ms
+        calls = [dw_inputs(shape, DW_BATCH, torch.bfloat16, i, dev) for i, shape in
+                 enumerate(shapes)]
+
+        def kernels():
+            for args, _, _ in calls:
+                dwc.DW_KERNEL(*args)
+
+        def plain():
+            for args, _, _ in calls:
+                dwc.dw_bn_silu_squeeze_plain(*args)
+
+        def chain(args, dw, bn):
+            y = F.silu(bn(dw(args[0])))
+            return y, y.mean(dim=(2, 3), keepdim=True)
+
+        def library():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                for c in calls:
+                    chain(*c)
+
+        ms = queued_ms(kernels, 10)
+        lib_ms = queued_ms(library, 5)
+        plain_ms = time_cuda_ms(plain, 2, warmup=1)
+        bound = sum(dwc.moved_bytes(DW_BATCH, C, H, W, k, s, 2)
+                    for C, k, s, H, W in shapes) / HBM_BYTES_S * 1e3
+        per_shape = []
+        for shape in distinct:
+            args = calls[shapes.index(shape)][0]
+            t = queued_ms(lambda: dwc.DW_KERNEL(*args), 20)
+            C, k, stride, H, W = shape
+            b_ms = dwc.moved_bytes(DW_BATCH, C, H, W, k, stride, 2) / HBM_BYTES_S * 1e3
+            per_shape.append(dict(shape=shape, blocks=shapes.count(shape), ms=t, bound_ms=b_ms,
+                                  share_pct=100 * b_ms / t))
+        log(f"{tag} dw_bn_silu_squeeze, B3's 26 blocks at B={DW_BATCH}, {DW_IMAGE}, bf16 (CUDA "
+            f"events behind a spin kernel): {ms:.4f} ms, bound {bound:.4f} ms by bytes "
+            f"({100 * bound / ms:.1f} %); plain {plain_ms:.2f} ms; library_ms (F.pad + grouped "
+            f"conv + BatchNorm + SiLU + mean under autocast) {lib_ms:.4f} ms")
+        for r in per_shape:
+            log(f"  {r['shape']} x{r['blocks']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['share_pct']:.1f} %)")
+
+        # (c) host us a call
+        args1, dw1, bn1 = calls[-1]
+        args1 = (args1[0][:1].contiguous(), *args1[1:])
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            host = dict(ctypes=host_us(lambda: dwc.DW_KERNEL(*args1)),
+                        operator=host_us(lambda: dwc.dw_bn_silu_squeeze_op(*args1)),
+                        wrapper=host_us(lambda: dwc.dw_bn_silu_squeeze(*args1)),
+                        library=host_us(lambda: chain(args1, dw1, bn1)))
+        log(f"{tag} dw_bn_silu_squeeze host us a call ({tuple(args1[0].shape)}): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in host.items()))
+    torch.cuda.synchronize()
+    launches = dwc.DW_KERNEL.launches - before
+    log(f"phase 15 took {time.perf_counter() - t_phase:.0f} s")
+    return dict(name="dw_bn_silu_squeeze", route="cuda",
+                source="cosypose_tpu_torch/csrc/dw_bn_silu_squeeze.cu", replaces=None,
+                ms=ms, bound_ms=bound, bound_by="bytes", share_pct=100 * bound / ms,
+                plain_ms=plain_ms, library_ms=lib_ms, per_shape=per_shape, host_us=host,
+                max_gap_of_limit=max([*ratios.values(), *other.values()]),
+                launches_phase15=launches)
 
 
 def cmyk_readers(fx, arrays: dict) -> str:
@@ -2599,6 +2802,8 @@ def main() -> int:
                                                               LoadedPoseModel)
     from cosypose_tpu_torch.models.pose_predictor import (PosePredictor, PosePredictorConfig,
                                                           gather_mesh_data)
+    from cosypose_tpu_torch.ops import depthwise_cuda as dwc
+    from cosypose_tpu_torch.ops import nvcc_build
     from cosypose_tpu_torch.ops import rasterizer_cuda as rc
     from cosypose_tpu_torch.ops.camera import boxes_from_uv, project_points
     from cosypose_tpu_torch.ops.mesh_db import build_mesh_db
@@ -2613,14 +2818,15 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_identity()
     tag = f"[{card}]"
-    kernel = rc.RASTER_KERNEL
+    kernel, dw_kernel = rc.RASTER_KERNEL, dwc.DW_KERNEL
+    dw_launches = {}  # the depthwise kernel's launches on each path that runs an eval B3
 
     # -- 1. device and build ------------------------------------------------
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}, nvidia-smi: {card}")
     t0 = time.perf_counter()
-    libs = rc.build_libraries()
-    built = ", ".join(f"{rc.SOURCES[n].name} -> {p.name}" for n, (p, _) in libs.items())
+    libs = nvcc_build.build_libraries()
+    built = ", ".join(f"{nvcc_build.SOURCES[n].name} -> {p.name}" for n, (p, _) in libs.items())
     log(f"{tag} build: {built}"
         f" in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
     for name, (_, report) in libs.items():
@@ -2770,15 +2976,19 @@ def main() -> int:
             state = pp.net.state_dict()
         pp.net.load_state_dict(state)
         t0 = time.perf_counter()
+        dw_kernel.launches = 0
         outs[d] = {k: v.cpu() for k, v in pp.forward(md_d, *a, n_iterations=2).items()}
         log(f"slice B3 fp32 B={B} n=2 on {d}: {time.perf_counter() - t0:.2f} s (first call)")
+    dw_launches["slice"] = dw_kernel.launches  # the card's forward: 2 eval B3 calls
     errs = {k: float((outs["cuda"][k] - outs["cpu"][k]).abs().max()) for k in outs["cpu"]}
     moved = float((outs["cpu"]["TCO_final"] - torch.as_tensor(TCO4)).abs().max())
     log(f"{tag} slice card vs CPU max abs err: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f"; TCO_final moved {moved:.3g} from the init")
-    if not errs["TCO_final"] <= ATOL_SLICE or moved <= 1e-4:
+    if not errs["TCO_final"] <= ATOL_SLICE or moved <= 1e-4 \
+            or dw_launches["slice"] != 2 * B3_BLOCKS:
         raise AssertionError(f"slice: TCO_final err {errs['TCO_final']} > {ATOL_SLICE} "
-                             f"or poses did not move ({moved})")
+                             f"or poses did not move ({moved}) or dw_bn_silu_squeeze launched "
+                             f"{dw_launches['slice']} times (want {2 * B3_BLOCKS})")
 
     # -- 4. serving -------------------------------------------------------------
     cfg16 = PosePredictorConfig(compute_dtype=torch.bfloat16)
@@ -2825,12 +3035,16 @@ def main() -> int:
     reqs = [request(seed) for seed in (1, 2, 3)]
     chunks = math.ceil(N_DETECTIONS / BATCH)
     kernel.launches = {k: 0 for k in kernel.launches}
+    dw_kernel.launches = 0
     results = [serve(r) for r in reqs]
     launches = dict(kernel.launches)
+    dw_launches["serving"] = dw_kernel.launches
     expected = len(reqs) * (N_COARSE + N_REFINER) * chunks
-    if launches["raster_setup"] != expected or launches["raster_resolve"] != expected:
+    if launches["raster_setup"] != expected or launches["raster_resolve"] != expected \
+            or dw_launches["serving"] != B3_BLOCKS * expected:
         raise AssertionError(f"serving launched the kernels {launches} times, want {expected} "
-                             f"of raster_setup and of raster_resolve")
+                             f"of raster_setup and of raster_resolve, and dw_bn_silu_squeeze "
+                             f"{dw_launches['serving']} times, want {B3_BLOCKS * expected}")
     for lat, final, preds in results:
         poses = final.poses
         moved = float((poses - preds["coarse/iteration=1"].poses_input).abs().max())
@@ -2843,7 +3057,8 @@ def main() -> int:
             f"{n_it / lat:.1f} crop-iterations/s ({chunks * BATCH * (N_COARSE + N_REFINER) / lat:.1f} "
             f"with padding), poses moved up to {moved:.3g}")
     log(f"{tag} kernel launches while serving: {launches} (want {expected} of raster_setup and "
-        f"of raster_resolve)")
+        f"of raster_resolve), dw_bn_silu_squeeze {dw_launches['serving']} (want "
+        f"{B3_BLOCKS} x {expected} B3 calls)")
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3942,6 +4157,10 @@ def main() -> int:
     rows_json.update(large["rows"])
     log(f"phase 14 done at {time.perf_counter() - t_main:.0f} s")
 
+    # -- 15. the MBConv block's depthwise half ------------------------------------
+    dw = dw_kernel_phase(tag)
+    log(f"phase 15 done at {time.perf_counter() - t_main:.0f} s")
+
     # -- results --------------------------------------------------------------
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], launches_training=launches_train[name],
@@ -3966,6 +4185,16 @@ def main() -> int:
                     checked_at=checked[name],
                     **{"library_ms": None, **rows_json[name]})
                for name in SOURCES]
+    # the depthwise kernel: its launches on each path that runs an eval B3
+    # (held to B3_BLOCKS a call there), then phase 15's numbers
+    kernels.append(dict(**dw, launches=dw_launches["serving"],
+                        launches_slice=dw_launches["slice"],
+                        launches_export_call=launches_sx["dw_export"],
+                        launches_export_fresh_process=launches_sx["dw_fresh"],
+                        launches_dw_lowerings=launches_jp["dw_bn_silu_squeeze"],
+                        launches_bench={arm: n["dw_bn_silu_squeeze"]
+                                        for arm, n in launches_bn["bench"].items()},
+                        launches_entry=launches_bn["dw_entry"]))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -18,6 +18,7 @@ import sys
 import torch
 
 from . import demo
+from .ops import nvcc_build as nb
 from .ops import rasterizer_cuda as rc
 
 # name -> (text of csrc/raster_resolve.cu, its replacement); "full" is the kernel
@@ -40,18 +41,18 @@ BATCH, IMAGE, RENDER, LOD = 128, (480, 640), (240, 320), 512
 
 def build(out_dir) -> dict:
     """{name: shared library} of each variant."""
-    source = rc.SOURCES["resolve"].read_text()
+    source = nb.SOURCES["resolve"].read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, swap in VARIANTS.items():
         text = source if swap is None else source.replace(*swap)
         if text == source and swap is not None:
-            raise RuntimeError(f"variant {name!r}: its text is not in {rc.SOURCES['resolve']}")
+            raise RuntimeError(f"variant {name!r}: its text is not in {nb.SOURCES['resolve']}")
         src = (out_dir / name.replace(" ", "_")).with_suffix(".cu")
         src.write_text(text)
         lib = src.with_suffix(".so")
         procs[name] = (lib, subprocess.Popen(
-            [rc.nvcc_path(), *rc.NVCC_FLAGS, "-o", str(lib), str(src)],
+            [nb.nvcc_path(), *nb.NVCC_FLAGS, "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():
@@ -70,7 +71,7 @@ def main(tiles=((16, 32), (8, 64), (32, 32))) -> int:
     first = demo.first_render_inputs(BATCH, IMAGE, RENDER, LOD, dev)
     rows, _, order = rc.setup(first["tri_verts"], first["tri_valid"], first["TCO"],
                               first["K_crop"], RENDER, first["colors"])
-    libs = build(rc.BUILD_DIR / "ablate")
+    libs = build(nb.BUILD_DIR / "ablate")
     H, W = RENDER
     B, Fp = rows.shape[:2]
     rgb = torch.empty(B, 3, H, W, device=dev)

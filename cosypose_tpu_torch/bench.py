@@ -52,6 +52,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from . import demo
 from .entry import refiner_fn
 from .models.pose_predictor import PosePredictor, PosePredictorConfig
+from .ops import depthwise_cuda as dwc
 from .ops import rasterizer_cuda as rc
 from .ops.mesh_db import build_mesh_db
 from .utils.card import card_identity, peak_flops
@@ -107,9 +108,12 @@ def measure(fn, args, reps: int):
 
 
 def flops_per_call(fn, args) -> float:
+    """FLOPs of one call: torch's FLOP counter, plus the depthwise kernel's
+    launches, which it cannot see."""
+    dw_before = dwc.DW_KERNEL.flops
     with FlopCounterMode(display=False) as counter:
         fn(*args)
-    flops = float(counter.get_total_flops())
+    flops = float(counter.get_total_flops() + dwc.DW_KERNEL.flops - dw_before)
     if flops <= 0:
         raise RuntimeError("the FLOP counter counted nothing in a bench call")
     return flops
@@ -175,17 +179,19 @@ def result_line(b3: dict, wrn18: dict, baseline: float, peak: float | None, batc
 
 def run_arm(backbone: str, device: torch.device, save_output: str | None = None) -> dict:
     """One arm at BATCH on the card: {value, sec_per_call, flops, device_ms,
-    launches} with each raster kernel's launches over the warm-up, the REPS
+    launches} with each raster kernel's launches, and the depthwise kernel's
+    (dw_bn_silu_squeeze, once an MBConv block), over the warm-up, the REPS
     timed calls and the FLOP-counting call."""
     fn, args = build(BATCH, backbone=backbone, device=device)
     counts = rc.RASTER_KERNEL.launches
-    before = dict(counts)
+    before, dw_before = dict(counts), dwc.DW_KERNEL.launches
     value, sec, device_ms, out = measure(fn, args, REPS)
     if save_output:
         np.save(save_output, out.cpu().numpy())
     flops = flops_per_call(fn, args)
     return dict(value=value, sec_per_call=sec, flops=flops, device_ms=device_ms,
-                launches={k: counts[k] - before[k] for k in KERNELS})
+                launches={**{k: counts[k] - before[k] for k in KERNELS},
+                          "dw_bn_silu_squeeze": dwc.DW_KERNEL.launches - dw_before})
 
 
 def main(argv=None) -> int:

@@ -31,6 +31,15 @@ name): "conv", the grouped conv (cuDNN); "shift", k² shifted multiply-adds
 over the padded input; "dense", a dense conv whose weight is eye(C) times the
 depthwise kernel (9·C² work in place of 9·C). All three keep the grouped
 conv's parameter, so a state dict loads into any of them.
+
+In eval mode on the card, an MBConv block of the "conv" lowering computes its
+depthwise half (the depthwise conv, `_bn1`, swish and the SE squeeze's mean)
+in one launch of a hand-written kernel, `ops.depthwise_cuda.
+dw_bn_silu_squeeze`, from the same parameters, wherever no gradient is being
+recorded (the kernel has no backward: inference and no_grad, as serving,
+export and the bench run); train mode (validation's passes too: they run the
+train-mode net under `frozen_stats`), the CPU and the other lowerings run the
+modules as they are.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.depthwise_cuda import dw_bn_silu_squeeze, same_pad
 from ..utils.profiling import annotate
 
 # (width_mult, depth_mult, resolution, dropout): compound scaling table
@@ -100,11 +110,8 @@ class Conv2dSame(nn.Conv2d):
     """Unpadded conv after an explicit TF-"SAME" pad."""
 
     def forward(self, x):
-        pads = []
-        for n, k, s in zip(x.shape[-2:], self.kernel_size, self.stride):
-            p = max((math.ceil(n / s) - 1) * s + k - n, 0)
-            pads.append((p // 2, p - p // 2))
-        (top, bottom), (left, right) = pads
+        (_, top, bottom), (_, left, right) = (
+            same_pad(n, k, s) for n, k, s in zip(x.shape[-2:], self.kernel_size, self.stride))
         if top or bottom or left or right:
             x = F.pad(x, (left, right, top, bottom))
         return F.conv2d(x, self.weight, self.bias, self.stride, 0, self.dilation, self.groups)
@@ -133,10 +140,9 @@ class DepthwiseConv2dSame(Conv2dSame):
         if self.impl == "conv":
             return super().forward(x)
         (kh, kw), (s, _) = self.kernel_size, self.stride
-        oh, ow = math.ceil(x.shape[-2] / s), math.ceil(x.shape[-1] / s)
-        ph = max((oh - 1) * s + kh - x.shape[-2], 0)
-        pw = max((ow - 1) * s + kw - x.shape[-1], 0)
-        xp = F.pad(x, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+        oh, top, bottom = same_pad(x.shape[-2], kh, s)
+        ow, left, right = same_pad(x.shape[-1], kw, s)
+        xp = F.pad(x, (left, right, top, bottom))
         if self.impl == "dense":
             C = self.weight.shape[0]
             eye = torch.eye(C, dtype=self.weight.dtype, device=self.weight.device)
@@ -286,8 +292,12 @@ class MBConvBlock(nn.Module):
         inp = x
         if self.has_expand:
             x = F.silu(self._bn0(self._expand_conv(x)))
-        x = F.silu(self._bn1(self._depthwise_conv(x)))
-        s = x.mean(dim=(2, 3), keepdim=True)
+        if self.training or not x.is_cuda or self._depthwise_conv.impl != "conv" \
+                or torch.is_grad_enabled():
+            x = F.silu(self._bn1(self._depthwise_conv(x)))
+            s = x.mean(dim=(2, 3), keepdim=True)
+        else:
+            x, s = self._depthwise_half(x)
         s = self._se_expand(F.silu(self._se_reduce(s)))
         x = x * torch.sigmoid(s)
         x = self._bn2(self._project_conv(x))
@@ -298,6 +308,18 @@ class MBConvBlock(nn.Module):
             x = torch.where(keep.to(x.device)[:, None, None, None], x / keep_prob,
                             torch.zeros((), dtype=x.dtype, device=x.device))
         return x + inp
+
+    def _depthwise_half(self, x):
+        """The depthwise conv, `_bn1`, swish and the squeeze in one kernel
+        launch (eval mode, CUDA, the "conv" lowering, no gradient recorded):
+        (x, s (B, C, 1, 1)), in the autocast dtype where autocast is on, as
+        the conv computes."""
+        if torch.is_autocast_enabled("cuda"):
+            x = x.to(torch.get_autocast_dtype("cuda"))
+        dw, bn = self._depthwise_conv, self._bn1
+        y, s = dw_bn_silu_squeeze(x.contiguous(), dw.weight, bn.weight, bn.bias, bn.running_mean,
+                                  bn.running_var, bn.eps, dw.kernel_size[0], dw.stride[0])
+        return y, s[:, :, None, None]
 
 
 class EfficientNet(nn.Module):
@@ -329,6 +351,18 @@ class EfficientNet(nn.Module):
         self.n_features = round_filters(1280, w_mult)
         self._conv_head = Conv2dSame(round_filters(320, w_mult), self.n_features, 1, bias=False)
         self._bn1 = BatchNorm2d(self.n_features)
+
+    def depthwise_shapes(self, image_hw) -> list[tuple[int, int, int, int, int]]:
+        """(channels, kernel, stride, H, W) of each block's depthwise conv
+        input, in block order, for an input image of image_hw."""
+        h, w = (-(-n // 2) for n in image_hw)  # the stem's stride 2
+        shapes = []
+        for b in self._blocks:
+            dw = b._depthwise_conv
+            s = dw.stride[0]
+            shapes.append((dw.weight.shape[0], dw.kernel_size[0], s, h, w))
+            h, w = -(-h // s), -(-w // s)
+        return shapes
 
     def draw_drop_masks(self, batch_size: int, generator: torch.Generator) -> list:
         """Drop-connect keep masks for one train-mode forward, drawn on the CPU

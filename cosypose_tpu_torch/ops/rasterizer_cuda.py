@@ -45,23 +45,19 @@ plain versions:
 
 `row_may_cover` is the cull rule kernel B applies; tests hold it to never
 skipping a row that wins. RASTER_KERNEL builds both sources with nvcc at first
-use (in parallel), launches them on the current stream and counts launches
-per kernel and variant (`RASTER_KERNEL.launches`).
+use (ops/nvcc_build.py, in parallel), launches them on the current stream and
+counts launches per kernel and variant (`RASTER_KERNEL.launches`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import pathlib
-import shutil
-import subprocess
 
 import torch
 import torch.nn.functional as F
 
+from .nvcc_build import build_libraries
 from .rasterizer import camera_corners, first_k_true, overlap, tile_origins, triangle_planes
 
 ROW = 32   # packed row: 0:3 lam_a, 3:6 lam_b, 6:9 lam_c, 9:12 iz_abc, 12:15 col_a, 15:18 col_b,
@@ -71,12 +67,6 @@ CHUNK = 8  # rows per chunk: the unit of binning
 WARP_PIXELS = 64  # kernel B's warps take 64 consecutive pixels of a tile, two a lane
 CULL_SLACK = 2.0 ** -20  # rounding slack of row_may_cover, per unit magnitude
 MIN_RUN_ROWS = 256  # kernel A's shortest sorted runs, where it takes runs
-
-CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = {"setup": CSRC / "raster_setup.cu", "resolve": CSRC / "raster_resolve.cu"}
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def tile_grid(image_size: tuple[int, int], tile: tuple[int, int]) -> tuple[int, int]:
@@ -506,43 +496,6 @@ def resolve_plain_binned(rows: torch.Tensor, order: torch.Tensor, image_size: tu
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
-
-
-def nvcc_path() -> str:
-    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-
-
-def build_libraries() -> dict[str, tuple[pathlib.Path, str]]:
-    """Compile each csrc/ source into build/ where that build is missing, all
-    nvcc processes started together.
-
-    Returns {name: (path of the shared library, nvcc's report: '' when the
-    build was already there)}. File names carry a hash of source and flags.
-    """
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
-    out, running = {}, {}
-    for name, src in SOURCES.items():
-        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        lib = BUILD_DIR / f"libcosypose_raster_{name}_{digest}.so"
-        if lib.exists():
-            out[name] = (lib, "")
-            continue
-        tmp = BUILD_DIR / f"libcosypose_raster_{name}_{digest}.{os.getpid()}.so"
-        running[name] = (lib, tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (lib, tmp, proc) in running.items():
-        report, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {SOURCES[name].name} ({proc.returncode}):\n{report}")
-            continue
-        os.replace(tmp, lib)
-        out[name] = (lib, report)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return out
 
 
 def _check(name, x, device, dtype, shape):

@@ -11,11 +11,13 @@ JAX artifact is, and is called as
 
 with images (B,3,H,W) float32, K (B,3,3) float32, TCO_init (B,4,4) float32
 and label_ids (B,) integer. The program runs the same ATen ops as the eager
-`PosePredictor.forward` and calls the raster kernels as the registered
-operators `cosypose::raster_setup` and `cosypose::raster_resolve`, one each
-an iteration. So where the JAX artifact needs only jax, a process that loads
-this one imports `cosypose_tpu_torch.ops.rasterizer_cuda` (which registers
-the operators) and nothing else of the port: no checkpoint, no mesh files.
+`PosePredictor.forward` and calls the port's kernels as registered operators:
+`cosypose::raster_setup` and `cosypose::raster_resolve`, one each an
+iteration, and on the card `cosypose::dw_bn_silu_squeeze`, once an MBConv
+block. So where the JAX artifact needs only jax, a process that loads this
+one imports the operators' modules, `cosypose_tpu_torch.ops.rasterizer_cuda`
+and `cosypose_tpu_torch.ops.depthwise_cuda` (which register them), and
+nothing else of the port: no checkpoint, no mesh files.
 
 Exported on the model's device; `load_exported(..., device=)` moves the
 program to another device (`torch.export.passes.move_to_device_pass`).
@@ -30,7 +32,7 @@ import pathlib
 import torch
 from torch import nn
 
-from ..ops import rasterizer_cuda  # noqa: F401  (registers the raster operators)
+from ..ops import depthwise_cuda, rasterizer_cuda  # noqa: F401  (register the operators)
 from ..utils.device import resolve_device
 
 logger = logging.getLogger(__name__)

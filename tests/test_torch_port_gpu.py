@@ -12,7 +12,10 @@ setup kernel is held at rasterizer_cuda.SETUP_TOL (a few ulps from PyTorch's
 summation order, explained there). A whole render on the card against the CPU
 may differ where a pixel centre lies within rounding of an edge: such pixels
 (mask differs, or rgb/depth beyond 1e-4) are counted and bounded. The
-train-step tests state their tolerances where they are.
+train-step tests state their tolerances where they are. The MBConv block's
+depthwise kernel is held to its plain version within
+depthwise_cuda.error_limit: each side rounds y to its dtype once and sums
+its float32 terms in its own order.
 """
 
 import dataclasses
@@ -20,13 +23,16 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from cosypose_tpu_torch import demo
+from cosypose_tpu_torch.models.efficientnet import EfficientNet, MBConvBlock
 from cosypose_tpu_torch.models.pose_predictor import (PosePredictor, PosePredictorConfig,
                                                       gather_mesh_data)
-from cosypose_tpu_torch.ops import rasterizer_cuda
+from cosypose_tpu_torch.ops import depthwise_cuda, rasterizer_cuda
 from cosypose_tpu_torch.ops.mesh_db import build_mesh_db
 from cosypose_tpu_torch.ops.render import render
+from cosypose_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 ATOL = 1e-4
@@ -666,8 +672,8 @@ def test_raster_operators_opcheck_on_the_card(cuda, op):
 
 def test_exported_refiner_matches_eager_on_the_card(cuda):
     """The exported bf16 B3 refiner (2 iterations, B=8) against its eager
-    forward on the card: equal within 1e-5, one launch of each kernel an
-    iteration of a call."""
+    forward on the card: equal within 1e-5, one launch of each raster kernel
+    and 26 of the depthwise kernel an iteration of a call."""
     from cosypose_tpu_torch.integrated.pose_predictor import LoadedPoseModel
     from cosypose_tpu_torch.serving import export_pose_model, load_exported
 
@@ -683,15 +689,133 @@ def test_exported_refiner_matches_eager_on_the_card(cuda):
                              n_iterations=n_it)
     fn = load_exported(blob, device=cuda)
     before = dict(rasterizer_cuda.RASTER_KERNEL.launches)
+    before_dw = depthwise_cuda.DW_KERNEL.launches
     got = fn(images, K, TCO, labels)
     torch.cuda.synchronize()
     launched = {k: rasterizer_cuda.RASTER_KERNEL.launches[k] - before[k] for k in before}
     assert launched == {"raster_setup": n_it, "raster_resolve": n_it, "raster_resolve_attr": 0,
                         "raster_setup_merge": 0,
                         "raster_resolve_bin": 0, "raster_resolve_listed": 0}
+    # the B3's depthwise halves, as the registered operator in the program
+    assert depthwise_cuda.DW_KERNEL.launches - before_dw == 26 * n_it
     want = pp.forward(md, *args, n_iterations=n_it)["TCO_final"]
     assert (got - want).abs().max().item() <= 1e-5
     assert (want - args[2]).abs().max().item() > 1e-4
+
+
+B3_DW_SHAPES = sorted(set(EfficientNet("efficientnet-b3").depthwise_shapes((240, 320))))
+
+
+def _shape_id(shape):
+    return "x".join(map(str, shape))
+
+
+@pytest.mark.parametrize("shape", B3_DW_SHAPES, ids=_shape_id)
+def test_dw_kernel_matches_plain_at_the_b3_shapes(cuda, shape):
+    """The MBConv depthwise kernel at each of B3's 14 depthwise shapes at B=64,
+    bf16 (the serving cell's iteration): within error_limit of its plain
+    version (bf16: each side rounds y once, 2^-8 of |y|, so a value may land
+    one bf16 step away; the float32 sums' order, 2^-17 of the terms' size),
+    and equal to a second call bit for bit (one group of threads sums each
+    plane, in a fixed order)."""
+    import chip_smoke
+
+    with torch.inference_mode():
+        assert chip_smoke.dw_check(chip_smoke.dw_inputs(shape, 64, torch.bfloat16, 0, cuda)[0]) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape", [B3_DW_SHAPES[0], B3_DW_SHAPES[-1], (7, 3, 2, 13, 17),
+                                   (5, 5, 2, 9, 11), (6, 5, 2, 10, 7), (4, 5, 1, 3, 4),
+                                   (3, 3, 2, 1, 1), (2, 5, 1, 9, 3000)], ids=_shape_id)
+def test_dw_kernel_matches_plain_at_odd_sizes_and_dtypes(cuda, shape, dtype):
+    """Every dtype the kernel takes, at odd sizes (stride-2 padding asymmetric,
+    planes not 16-byte aligned, inputs smaller than the kernel, a band above
+    48 KB of shared memory), within error_limit, deterministic."""
+    import chip_smoke
+
+    with torch.inference_mode():
+        assert chip_smoke.dw_check(chip_smoke.dw_inputs(shape, 3, dtype, 1, cuda)[0]) <= 1
+
+
+def test_dw_operator_opcheck_on_the_card(cuda):
+    """torch.library.opcheck of cosypose::dw_bn_silu_squeeze on CUDA tensors:
+    the kernel against the fake implementation, schema and dispatch."""
+    import chip_smoke
+
+    args = chip_smoke.dw_inputs((6, 5, 2, 15, 20), 2, torch.bfloat16, 0, cuda)[0]
+    before = depthwise_cuda.DW_KERNEL.launches
+    torch.library.opcheck(depthwise_cuda.dw_bn_silu_squeeze_op, args)
+    torch.cuda.synchronize()
+    assert depthwise_cuda.DW_KERNEL.launches > before
+
+
+def _dw_launches(fn):
+    """(launches of the depthwise kernel, its program counter) over fn()."""
+    before = depthwise_cuda.DW_KERNEL.launches
+    with profiling.tracing():
+        fn()
+    torch.cuda.synchronize()
+    counters = profiling.collect()["counters"].values()
+    return (depthwise_cuda.DW_KERNEL.launches - before,
+            sum(c.get("dw_bn_silu_squeeze", 0) for c in counters))
+
+
+def test_dw_kernel_launches_26_per_eval_b3_call_and_none_in_train(cuda):
+    """An eval B3 call on the card launches the kernel once a block (26), and
+    the program's counter reads the same; a train-mode step, or an eval
+    forward that records a gradient, launches none."""
+    net = EfficientNet("efficientnet-b3").to(cuda)
+    x = torch.rand(2, 6, 64, 96, device=cuda)
+
+    def serve():
+        with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+            net(x)
+
+    def train():
+        net(x).float().square().mean().backward()
+
+    net.eval()
+    assert _dw_launches(serve) == (26, 26)
+    assert _dw_launches(train) == (0, 0)
+    net.train()
+    assert _dw_launches(train) == (0, 0)
+
+
+def test_mbconv_train_mode_is_unchanged_on_the_card(cuda):
+    """A train-mode block (batch statistics, drop-connect, autograd) against
+    the unfused forward the block ran before its depthwise kernel: forward
+    and running statistics bit for bit; gradients within 1e-6 of each
+    tensor's max (the order of cuDNN's backward reductions)."""
+    torch.manual_seed(0)
+    blocks = [MBConvBlock(16, 16, 5, 1, 6, 0.25, drop_rate=0.3).to(cuda).train()
+              for _ in range(2)]
+    blocks[1].load_state_dict(blocks[0].state_dict())
+    keep = torch.tensor([True, False, True, True], device=cuda)
+    x = torch.randn(4, 16, 15, 20, device=cuda)
+
+    def unfused(b, x):
+        inp = x
+        x = F.silu(b._bn0(b._expand_conv(x)))
+        x = F.silu(b._bn1(b._depthwise_conv(x)))
+        s = b._se_expand(F.silu(b._se_reduce(x.mean(dim=(2, 3), keepdim=True))))
+        x = b._bn2(b._project_conv(x * torch.sigmoid(s)))
+        x = torch.where(keep[:, None, None, None], x / (1.0 - b.drop_rate),
+                        torch.zeros((), dtype=x.dtype, device=cuda))
+        return x + inp
+
+    outs, grads = [], []
+    for b, fwd in zip(blocks, (lambda b, x: b(x, keep), unfused)):
+        xi = x.clone().requires_grad_(True)
+        out = fwd(b, xi)
+        out.square().sum().backward()
+        outs.append(out)
+        grads.append([xi.grad] + [p.grad for p in b.parameters()])
+    assert torch.equal(outs[0], outs[1])
+    for g0, g1 in zip(*grads):
+        assert float((g0 - g1).abs().max()) <= 1e-6 * float(g1.abs().max())
+    for name, buf in blocks[0].state_dict().items():
+        assert torch.equal(buf, blocks[1].state_dict()[name]), name
 
 
 def test_jpeg_decoders_on_the_cards_host(cuda):

@@ -17,7 +17,7 @@ from cosypose_tpu.ops.mesh_db import build_mesh_db as j_build_mesh_db
 from cosypose_tpu.ops.rasterizer import rasterize as j_rasterize
 from cosypose_tpu.ops.rasterizer_pallas import rasterize_pallas
 from cosypose_tpu_torch import demo
-from cosypose_tpu_torch.ops import rasterizer_cuda
+from cosypose_tpu_torch.ops import nvcc_build, rasterizer_cuda
 from cosypose_tpu_torch.ops.mesh_db import MeshSpec, build_mesh_db
 from cosypose_tpu_torch.ops.rasterizer import first_k_true
 from cosypose_tpu_torch.ops.rasterizer import rasterize as t_rasterize
@@ -375,7 +375,7 @@ def test_ablation_variants_match_the_kernel_source():
     kernel source holds exactly once, so the ablation times what it names."""
     from cosypose_tpu_torch.ablate_resolve import VARIANTS
 
-    source = rasterizer_cuda.SOURCES["resolve"].read_text()
+    source = nvcc_build.SOURCES["resolve"].read_text()
     for name, swap in VARIANTS.items():
         assert swap is None or source.count(swap[0]) == 1, name
 

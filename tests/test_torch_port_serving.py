@@ -142,7 +142,7 @@ def test_exported_program_calls_the_raster_operators(blobs):
 
 
 def test_fresh_process_loads_with_the_operators_alone(blobs, tmp_path):
-    """A process that imports torch and the operators' module, and nothing
+    """A process that imports torch and the operators' modules, and nothing
     else of the port (no checkpoint, no mesh files), runs the artifact."""
     import subprocess
     import sys
@@ -153,7 +153,7 @@ def test_fresh_process_loads_with_the_operators_alone(blobs, tmp_path):
     np.savez(tmp_path / "inputs.npz", images=images, K=K, TCO=TCO, labels=labels)
     code = (
         "import sys, numpy as np, torch\n"
-        "import cosypose_tpu_torch.ops.rasterizer_cuda\n"
+        "import cosypose_tpu_torch.ops.depthwise_cuda, cosypose_tpu_torch.ops.rasterizer_cuda\n"
         "torch.set_num_threads(1)  # as this process: the same summation order\n"
         f"program = torch.export.load({str(path)!r})\n"
         f"x = np.load({str(tmp_path / 'inputs.npz')!r})\n"
@@ -167,15 +167,18 @@ def test_fresh_process_loads_with_the_operators_alone(blobs, tmp_path):
                          env={**__import__("os").environ, "PYTHONPATH": str(REPO)})
     assert run.returncode == 0, run.stderr[-2000:]
     # the ops package imports the modules it re-exports, as the JAX package's
-    # does (and they the utils package): no model, predictor, data, training
-    # or serving code is loaded
+    # does (and they the utils package); the operators' modules load their
+    # nvcc build (ops.nvcc_build), and the depthwise one counts its launches in
+    # utils.profiling: no model, predictor, data, training or serving code is
+    # loaded
     loaded = __import__("ast").literal_eval(run.stdout.strip().splitlines()[-1])
     assert loaded == ["cosypose_tpu_torch"] + [f"cosypose_tpu_torch.{m}" for m in (
-        "config", "ops", "ops.camera", "ops.cropping", "ops.losses", "ops.mesh_db",
-        "ops.mesh_io", "ops.mesh_ops", "ops.pose_ops", "ops.rasterizer", "ops.rasterizer_cuda",
-        "ops.render", "ops.roi_align", "ops.symmetric", "ops.symmetries", "ops.transform",
-        "ops.transforms", "utils", "utils.device", "utils.distributed", "utils.logging",
-        "utils.tensor_collection", "utils.timer")]
+        "config", "ops", "ops.camera", "ops.cropping", "ops.depthwise_cuda", "ops.losses",
+        "ops.mesh_db", "ops.mesh_io", "ops.mesh_ops", "ops.nvcc_build", "ops.pose_ops",
+        "ops.rasterizer", "ops.rasterizer_cuda", "ops.render", "ops.roi_align", "ops.symmetric",
+        "ops.symmetries", "ops.transform", "ops.transforms", "utils", "utils.device",
+        "utils.distributed", "utils.logging", "utils.profiling", "utils.tensor_collection",
+        "utils.timer")]
     want = load_exported(blobs[2], device="cpu")(images, K, TCO, labels)
     np.testing.assert_array_equal(np.load(tmp_path / "out.npy"), want.numpy())
 
