@@ -152,6 +152,13 @@ Phases, none of them caught; any failure exits non-zero:
      launches timed together and each shape alone beside the byte bound, the
      plain version and the ATen chain it replaces (library_ms); host us a call
      of the ctypes launcher, the registered operator and the ATen chain.
+ 16. Mask R-CNN's NMS (nms_kernel_phase): the published Mask R-CNN at
+     480x640, 22 classes, bf16, with the benchmark reference's seeded
+     weights; the kernel at the RPN's call (4,140 boxes in 5 level groups)
+     and the box head's (its candidates in their class groups), as the
+     model makes them, EQUAL in kept rows to nms_plain, timed beside the byte
+     bound and the plain version; three frames through
+     Detector.get_detections with 2 launches a frame.
 Wherever kernel A is held to its plain version (setup_vs_plain), its order is
 also held to torch.sort's element for element, and where it is timed
 (setup_timing) so are one block an item and torch.sort of its keys alone.
@@ -2196,6 +2203,106 @@ def dw_kernel_phase(tag: str) -> dict:
                 launches_phase15=launches)
 
 
+# phase 16: Mask R-CNN's NMS at the detector's own calls (480x640, 22 classes,
+# bf16), the seeded weights calibrated on NMS_CAL_FRAMES random frames;
+# frames sent one a call through Detector.get_detections
+NMS_CAL_FRAMES, NMS_FRAMES = 2, 3
+
+
+def nms_kernel_phase(tag: str) -> dict:
+    """Phase 16, Mask R-CNN's NMS (ops/nms_cuda.py -> csrc/nms.cu): the
+    published Mask R-CNN (benchmark/reference/maskrcnn.py's seeded weights)
+    at 480x640 in bf16, its NMS calls captured as the main path makes them:
+    the RPN's (4,140 boxes in 5 level groups, small boxes invalid) and the
+    box head's (the candidates above the score threshold in their class
+    groups). At each: the kernel's kept rows EQUAL to nms_plain's on CPU
+    copies; its device ms by CUDA events behind a spin kernel beside the
+    byte bound (detect_counts.nms_bytes at 3.35 TB/s) and the plain
+    version's ms on the card's tensors. Then NMS_FRAMES frames through
+    Detector.get_detections(output_masks=True) with NMS_KERNEL.launches set
+    to 0 first: 2 launches a frame. Returns the kernel's numbers."""
+    import torch
+
+    from benchmark.harness import detect_counts
+    from benchmark.reference import maskrcnn as ref_mrcnn
+    from cosypose_tpu_torch.integrated.detector import Detector
+    from cosypose_tpu_torch.models.mask_rcnn import MaskRCNN, MaskRCNNConfig
+    from cosypose_tpu_torch.ops import nms_cuda
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(16)
+    frames = torch.rand(NMS_CAL_FRAMES + NMS_FRAMES, 3, 480, 640, generator=g, device=dev)
+    weights = ref_mrcnn.seeded_weights(22, g, frames[:NMS_CAL_FRAMES])
+    model = MaskRCNN(MaskRCNNConfig(compute_dtype=torch.bfloat16)).to(dev).eval()
+    model.load_state_dict(weights)
+    del weights
+
+    calls, sorted_nms = [], nms_cuda.nms_sorted
+
+    def capture(boxes, offsets, iou, valid=None):
+        calls.append((boxes.float().clone(), offsets.clone(), float(iou),
+                      None if valid is None else valid.clone()))
+        return sorted_nms(boxes, offsets, iou, valid)
+
+    nms_cuda.nms_sorted = capture
+    try:
+        model(frames[NMS_CAL_FRAMES:NMS_CAL_FRAMES + 1], masks=True)
+    finally:
+        nms_cuda.nms_sorted = sorted_nms
+    if len(calls) != 2:
+        raise AssertionError(f"a Mask R-CNN call made {len(calls)} NMS calls, want 2")
+
+    sites = []
+    for site, (boxes, offsets, iou, valid) in zip(("rpn", "box_head"), calls):
+        n, groups = boxes.shape[0], offsets.shape[0] - 1
+        if site == "rpn" and (n, groups) != (4140, 5):
+            raise AssertionError(f"the RPN's NMS took {n} boxes in {groups} groups, "
+                                 "want 4,140 in 5")
+        got = nms_cuda.NMS_KERNEL(boxes, offsets, iou, valid)
+        want = nms_cuda.nms_plain(boxes.cpu(), offsets.cpu(), iou,
+                                  None if valid is None else valid.cpu())
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"nms at the {site}'s call ({n} boxes, {groups} groups): "
+                                 f"{int((got.cpu() != want).sum())} rows differ from nms_plain")
+        ms = queued_ms(lambda: nms_cuda.NMS_KERNEL(boxes, offsets, iou, valid), 50)
+        plain_ms = time_cuda_ms(lambda: nms_cuda.nms_plain(boxes, offsets, iou, valid), 5,
+                                warmup=1)
+        bound = detect_counts.nms_bytes(n, groups) / HBM_BYTES_S * 1e3
+        sizes = (offsets[1:] - offsets[:-1]).tolist()
+        sites.append(dict(site=site, boxes=n, groups=groups, largest_group=max(sizes),
+                          valid=n if valid is None else int(valid.sum()), kept=int(want.sum()),
+                          iou=iou, ms=ms, bound_ms=bound, share_pct=100 * bound / ms,
+                          plain_ms=plain_ms))
+        log(f"{tag} nms at the {site}'s call ({n} boxes in {groups} groups, largest "
+            f"{max(sizes)}, {sites[-1]['valid']} valid, IoU {iou}): {sites[-1]['kept']} kept, "
+            f"equal to nms_plain; kernel {ms:.4f} ms (CUDA events behind a spin kernel), bound "
+            f"{bound:.6f} ms by bytes ({100 * bound / ms:.4f} %), plain {plain_ms:.3f} ms")
+
+    det = Detector(model, {f"obj_{k:06d}": k for k in range(1, 22)})
+    nms_cuda.NMS_KERNEL.launches = 0
+    found = []
+    for k in range(NMS_FRAMES):
+        out = det.get_detections(frames[NMS_CAL_FRAMES + k:NMS_CAL_FRAMES + k + 1],
+                                 output_masks=True)
+        found.append(len(out))
+    torch.cuda.synchronize()
+    launches = nms_cuda.NMS_KERNEL.launches
+    if launches != 2 * NMS_FRAMES:
+        raise AssertionError(f"Detector.get_detections with Mask R-CNN launched the NMS kernel "
+                             f"{launches} times over {NMS_FRAMES} frames, want "
+                             f"{2 * NMS_FRAMES}")
+    log(f"{tag} Detector.get_detections, Mask R-CNN at 480x640 bf16, {NMS_FRAMES} frames one a "
+        f"call: {launches} NMS launches (2 a frame), detections {found}")
+    log(f"phase 16 took {time.perf_counter() - t_phase:.0f} s")
+    rpn = sites[0]
+    return dict(name="nms", route="cuda", source="cosypose_tpu_torch/csrc/nms.cu",
+                replaces=None, ms=rpn["ms"], bound_ms=rpn["bound_ms"], bound_by="bytes",
+                share_pct=rpn["share_pct"], plain_ms=rpn["plain_ms"], library_ms=None,
+                per_site=sites, launches_detector=launches, detections=found)
+
+
 def cmyk_readers(fx, arrays: dict) -> str:
     """The CMYK fixtures through the port's readers, against the stored Pillow
     arrays: data/bop.py keeps the first three channels as Pillow presents
@@ -4161,6 +4268,10 @@ def main() -> int:
     dw = dw_kernel_phase(tag)
     log(f"phase 15 done at {time.perf_counter() - t_main:.0f} s")
 
+    # -- 16. Mask R-CNN's NMS ------------------------------------------------------
+    nms = nms_kernel_phase(tag)
+    log(f"phase 16 done at {time.perf_counter() - t_main:.0f} s")
+
     # -- results --------------------------------------------------------------
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], launches_training=launches_train[name],
@@ -4195,6 +4306,8 @@ def main() -> int:
                         launches_bench={arm: n["dw_bn_silu_squeeze"]
                                         for arm, n in launches_bn["bench"].items()},
                         launches_entry=launches_bn["dw_entry"]))
+    # Mask R-CNN's NMS: phase 16's numbers at the RPN's call, the box head's beside
+    kernels.append(nms)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

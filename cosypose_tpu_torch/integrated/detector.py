@@ -7,6 +7,12 @@ detections above the score threshold whose class has a label, optionally
 upsamples each one's mask logits bilinearly to the image, thresholds them
 and crops them to the box, and optionally keeps the best detection of each
 label. `load_saved_detections` wraps detections computed elsewhere.
+
+The model is the JAX package's CenterNet (models/detector.py) or the
+published Mask R-CNN (models/mask_rcnn.py), whose eval forward decodes,
+suppresses and pastes its masks itself (its class ids start at 1, after the
+background: `mask_rcnn.maskrcnn_category_ids`); both give the same
+TensorCollection.
 """
 
 from __future__ import annotations
@@ -17,14 +23,16 @@ import torch.nn.functional as F
 
 from ..evaluation import table
 from ..models.detector import CenterNetDetector, decode_detections
+from ..models.mask_rcnn import MaskRCNN
 from ..utils.tensor_collection import TensorCollection
 
 
 class Detector:
-    def __init__(self, model: CenterNetDetector, label_to_category_id: dict,
+    def __init__(self, model: CenterNetDetector | MaskRCNN, label_to_category_id: dict,
                  nms_iou: float | None = 0.5, nms_cross_iou: float | None = None):
-        """model: on its device, its weights loaded; nms_iou: same-class
-        greedy box NMS on the decoded top-k (None or 0 disables it)."""
+        """model: on its device, its weights loaded; nms_iou: CenterNet's
+        same-class greedy box NMS on the decoded top-k (None or 0 disables
+        it; Mask R-CNN's NMS is its config's)."""
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.label_to_category_id = label_to_category_id
@@ -43,6 +51,9 @@ class Detector:
             images = images.permute(0, 3, 1, 2)
         images = images.float()
         images = torch.where(images.max() > 1.0, images / 255.0, images)
+        if isinstance(self.model, MaskRCNN):
+            return self._maskrcnn_detections(images, detection_th, output_masks, mask_th,
+                                             one_instance_per_class)
         out = decode_detections(self.model(images), self.model.cfg.max_detections,
                                 nms_iou=self.nms_iou, nms_cross_iou=self.nms_cross_iou)
         scores = out["scores"].cpu().numpy()
@@ -67,8 +78,36 @@ class Detector:
             inside = ((xx >= bx[:, None, None, 0]) & (xx <= bx[:, None, None, 2])
                       & (yy >= bx[:, None, None, 1]) & (yy <= bx[:, None, None, 3]))
             tensors["masks"] = (probs > mask_th) & inside
-        outputs = TensorCollection(infos, **tensors)
+        return self._finish(TensorCollection(infos, **tensors), one_instance_per_class)
+
+    def _maskrcnn_detections(self, images, detection_th, output_masks, mask_th,
+                             one_instance_per_class) -> TensorCollection:
+        """Mask R-CNN's detections (image by image, each by descending
+        score) with a label and above detection_th; masks its pasted
+        probabilities above mask_th."""
+        out = self.model(images, masks=output_masks)
+        scores = out["scores"].cpu().numpy()
+        cls = out["labels"].cpu().numpy()
+        b = out["image_ids"].cpu().numpy()
+        keep = np.isin(cls, list(self.category_id_to_label))
+        if detection_th is not None:
+            keep &= scores > detection_th
+        idx = np.flatnonzero(keep)
+        infos = dict(batch_im_id=b[idx].astype(np.int64),
+                     label=np.asarray([self.category_id_to_label[int(c)] for c in cls[idx]],
+                                      dtype=str),
+                     score=scores[idx].astype(np.float64))
+        it = torch.as_tensor(idx, device=self.device)
+        tensors = dict(bboxes=out["boxes"][it])
+        if output_masks:
+            tensors["masks"] = out["masks"][it] > mask_th
+        return self._finish(TensorCollection(infos, **tensors), one_instance_per_class)
+
+    @staticmethod
+    def _finish(outputs: TensorCollection, one_instance_per_class: bool) -> TensorCollection:
+        """With one_instance_per_class, each label's best detection alone."""
         if one_instance_per_class and len(outputs):
+            infos = outputs.infos
             order = table.argsort_desc(infos["score"])
             first = table.drop_duplicates({"label": infos["label"][order]}, ["label"])
             outputs = outputs[np.sort(order[first])]

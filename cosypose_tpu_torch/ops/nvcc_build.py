@@ -1,11 +1,13 @@
 """The port's hand-written CUDA sources (csrc/) and their nvcc build.
 
-`build_libraries()` compiles every source of SOURCES into build/ at first
-use, all nvcc processes started together, each into a shared library named
-by a hash of its source and flags, so a warm build/ builds nothing. The
-kernels' modules load their library from it: ops/rasterizer_cuda.py (the
-raster kernels) and ops/depthwise_cuda.py (the MBConv block's depthwise
-half).
+`build_libraries(names)` compiles the named sources of SOURCES into build/
+at first use, all nvcc processes started together, each into a shared
+library named by a hash of its source and flags, so a warm build/ builds
+nothing. The kernels' modules load their library from it:
+ops/rasterizer_cuda.py (the raster kernels) and ops/depthwise_cuda.py (the
+MBConv block's depthwise half) build the pose path's three (SERVING) at the
+first call of either; ops/nms_cuda.py builds the detector's NMS alone, at
+the first Mask R-CNN call, so that the pose path's set-up never waits for it.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"setup": CSRC / "raster_setup.cu", "resolve": CSRC / "raster_resolve.cu",
-           "dw_bn_silu_squeeze": CSRC / "dw_bn_silu_squeeze.cu"}
+           "dw_bn_silu_squeeze": CSRC / "dw_bn_silu_squeeze.cu", "nms": CSRC / "nms.cu"}
+SERVING = ("setup", "resolve", "dw_bn_silu_squeeze")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,9 +41,9 @@ def nvcc_path() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def build_libraries() -> dict[str, tuple[pathlib.Path, str]]:
-    """Compile each source into build/ where that build is missing, all nvcc
-    processes started together.
+def build_libraries(names: tuple = SERVING) -> dict[str, tuple[pathlib.Path, str]]:
+    """Compile each named source into build/ where that build is missing, all
+    nvcc processes started together.
 
     Returns {name: (path of the shared library, nvcc's report: '' when the
     build was already there)}. File names carry a hash of source and flags.
@@ -48,7 +51,8 @@ def build_libraries() -> dict[str, tuple[pathlib.Path, str]]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     out, running = {}, {}
-    for name, src in SOURCES.items():
+    for name in names:
+        src = SOURCES[name]
         flags = nvcc_flags(name)
         digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
         lib = BUILD_DIR / f"libcosypose_{src.stem}_{digest}.so"

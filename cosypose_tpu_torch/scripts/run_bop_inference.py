@@ -40,6 +40,7 @@ from ..integrated.icp_refiner import ICPRefiner
 from ..integrated.multiview_predictor import MultiviewScenePredictor
 from ..integrated.pose_predictor import CoarseRefinePosePredictor, LoadedPoseModel
 from ..models.detector import CenterNetDetector, DetectorConfig
+from ..models.mask_rcnn import MaskRCNN, MaskRCNNConfig, maskrcnn_category_ids
 from ..models.pose_predictor import PosePredictor, PosePredictorConfig
 from ..ops.mesh_db import build_mesh_db
 from ..training.checkpoint import latest_checkpoint, load_checkpoint
@@ -103,12 +104,21 @@ def load_reference_torch_checkpoint(path, mesh_db, init_method="v0",
 def load_detector(run_id, label_to_category_id: dict, exp_dir=None, nms_iou=0.5,
                   nms_cross_iou=None, device="cuda") -> Detector:
     """A detector run's latest checkpoint as a Detector, its architecture from
-    the run's config.yaml (cls_mode, mask prototypes and backbone change the
-    tensors)."""
+    the run's config.yaml: `backbone_str` 'resnet50-fpn' (the reference's
+    detector config's name) is Mask R-CNN, with its MaskRCNNConfig fields
+    and the classes after the background; otherwise the CenterNet
+    (cls_mode, mask prototypes and backbone change the tensors)."""
     sd, saved = _run(run_id, exp_dir)
+    det = saved.get("detector", {})
+    if saved.get("backbone_str", det.get("backbone_str")) == "resnet50-fpn":
+        ids = maskrcnn_category_ids(label_to_category_id)
+        fields = _fields(MaskRCNNConfig, {**saved, **det})
+        model = MaskRCNN(MaskRCNNConfig(**{**fields, "n_classes": max(ids.values()) + 1}))
+        model.load_state_dict(sd)
+        return Detector(model.to(device), ids)
     cfg = DetectorConfig(n_classes=len(label_to_category_id),
-                         **{k: v for k, v in _fields(DetectorConfig, saved.get("detector", {}))
-                            .items() if k != "n_classes"})
+                         **{k: v for k, v in _fields(DetectorConfig, det).items()
+                            if k != "n_classes"})
     model = CenterNetDetector(cfg)
     model.load_state_dict(sd)
     return Detector(model.to(device), label_to_category_id, nms_iou=nms_iou,

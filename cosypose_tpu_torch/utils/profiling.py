@@ -48,6 +48,16 @@ The port's spans (`cosypose.` left out):
   backbone.stem, backbone.stage1 ... stage7, backbone.head     EfficientNet.forward,
                                                               a span a row of BASE_BLOCKS
   model.update     PosePredictor.update_pose
+  detector.request   MaskRCNN.forward                            images
+  detector.backbone  MaskRCNN.features: ResNet-50, FPN
+  detector.rpn       MaskRCNN.region_proposals: head, top-k,     counters anchors, nms_in,
+                     decoding, NMS, the cut                      proposals
+  detector.box       MaskRCNN.detect: RoIAlign 7x7, MLP,         counters nms_in, detections
+                     postprocess
+  detector.mask      MaskRCNN.segment: RoIAlign 14x14, mask head,
+                     pasting
+  detector.nms       each NMS call, inside rpn and box           boxes; counter nms (launches,
+                                                              ops/nms_cuda.py)
 
 Traces. `trace(dir)` captures a torch.profiler trace of a region (the host's
 operators, the program's ranges and, on a CUDA card, its kernels by CUPTI)
